@@ -1,0 +1,191 @@
+"""Sampler API: ``SamplerSpec`` + ``build_sampler``.
+
+Port of ``repro/core/ibp/api.py`` for the single-device layout
+(``chains="none"`` x ``data="vmap"``: P shards simulated on one device):
+
+    s = build_sampler(SamplerSpec(P=4, K_max=16, L=5), IBPHypers(), X)
+    gs, ss = s.init()
+    gs, ss = s.step(gs, ss)          # one full hybrid iteration
+    ss = s.to_canonical(ss)          # HybridShard, (P, N_p, K) layout
+    ss = s.from_canonical(ss)        # back onto the sampler's device
+
+The spec keeps the reference's field names and validation for what the
+port supports. Values that select work not yet ported raise
+``NotImplementedError`` naming the ROADMAP item that brings them. The
+kernel choice follows the device (CUDA kernels on a GPU, their plain
+versions on the CPU), so the reference's ``backend`` and
+``collapsed_backend`` are not knobs here; the tail always runs the
+mean-form recurrence, the reference's ``"pallas"`` flavor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch import prng
+
+from .collapsed import DEFAULT_REFRESH
+from .hybrid import (
+    HybridGlobal,
+    HybridShard,
+    _hybrid_iteration_body,
+    init_hybrid,
+)
+from .state import IBPHypers
+
+CHAIN_MODES = ("none", "vmap", "mesh")
+DATA_MODES = ("vmap", "shardmap")
+
+_LATER = {
+    "chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
+    "data": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
+    "stale_sync": "ROADMAP queue 1 item 8 (the bounded-staleness body)",
+    "harvest_every": "ROADMAP queue 1 item 9 (serving: SampleBank harvest)",
+    "k_tail_grow": "ROADMAP queue 1 item 6 (adaptive K_tail growth)",
+}
+
+
+def _not_yet(field: str, value) -> None:
+    raise NotImplementedError(
+        f"SamplerSpec: {field}={value!r} is not ported yet; it comes with "
+        f"{_LATER[field]}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerSpec:
+    """All sampler knobs in one frozen, validated place."""
+
+    # ---- model / state sizes
+    P: int = 4                 # data shards (processors p of the paper)
+    K_max: int = 32            # instantiated-feature capacity
+    K_tail: int = 8            # in-flight tail features on p'
+    K_init: int = 4            # features seeded at init
+    alpha: float = 3.0
+    sigma_x: float = 1.0
+    sigma_a: float = 1.0
+    # ---- kernel dispatch
+    L: int = 5                 # sub-iterations per master sync
+    chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
+    # ---- parallelism layout
+    chains: str = "none"       # only "none" is ported
+    data: str = "vmap"         # only "vmap" is ported
+    stale_sync: int = 0        # only 0 is ported
+    # ---- run control (consumed by MCMCDriver, validated here)
+    n_iters: int = 1000
+    eval_every: int = 20
+    ckpt_every: int = 100
+    ckpt_dir: str = "artifacts/ckpt/ibp"
+    overflow_every: int = 8    # overflow-detection cadence (host sync)
+    k_tail_grow: int = 0       # only 0 (fixed K_tail) is ported
+    seed: int = 0
+    harvest_every: int = 0     # only 0 (no harvest) is ported
+
+    def __post_init__(self):
+        def bad(msg: str):
+            raise ValueError(f"SamplerSpec: {msg}")
+
+        if self.chains not in CHAIN_MODES:
+            bad(f"chains={self.chains!r} not in {CHAIN_MODES}")
+        if self.data not in DATA_MODES:
+            bad(f"data={self.data!r} not in {DATA_MODES}")
+        if self.chol_refresh < 1:
+            bad(f"chol_refresh={self.chol_refresh} must be >= 1")
+        if self.P < 1:
+            bad(f"P={self.P} must be >= 1")
+        if self.L < 1:
+            bad(f"L={self.L} must be >= 1")
+        if self.K_max < 1 or self.K_tail < 1:
+            bad(f"K_max={self.K_max}, K_tail={self.K_tail} must be >= 1")
+        if self.K_tail > self.K_max:
+            bad(f"K_tail={self.K_tail} exceeds K_max={self.K_max}: tail "
+                f"promotion scatters into free instantiated slots, so a "
+                f"tail wider than the capacity can try to place births "
+                f"with no slot to hold them")
+        if self.k_tail_grow < 0:
+            bad(f"k_tail_grow={self.k_tail_grow} must be >= 0 "
+                f"(0 disables adaptive K_tail growth)")
+        if not 0 <= self.K_init <= self.K_max:
+            bad(f"K_init={self.K_init} must be in [0, K_max={self.K_max}]")
+        if self.stale_sync < 0:
+            bad(f"stale_sync={self.stale_sync} must be >= 0")
+        if self.overflow_every < 1:
+            bad(f"overflow_every={self.overflow_every} must be >= 1")
+        if self.n_iters < 1 or self.eval_every < 1 or self.ckpt_every < 1:
+            bad(f"n_iters={self.n_iters}, eval_every={self.eval_every}, "
+                f"ckpt_every={self.ckpt_every} must all be >= 1")
+        if self.harvest_every < 0:
+            bad(f"harvest_every={self.harvest_every} must be >= 0 "
+                f"(0 disables harvesting)")
+        if self.chains != "none":
+            _not_yet("chains", self.chains)
+        if self.data != "vmap":
+            _not_yet("data", self.data)
+        if self.stale_sync > 0:
+            _not_yet("stale_sync", self.stale_sync)
+        if self.harvest_every > 0:
+            _not_yet("harvest_every", self.harvest_every)
+        if self.k_tail_grow > 0:
+            _not_yet("k_tail_grow", self.k_tail_grow)
+
+    def replace(self, **kw) -> "SamplerSpec":
+        return dataclasses.replace(self, **kw)
+
+
+class Sampler:
+    """A built sampler on one device. Construct via ``build_sampler``."""
+
+    def __init__(self, spec: SamplerSpec, hyp: IBPHypers, X: Any,
+                 device: torch.device):
+        self.spec = spec
+        self.hyp = hyp
+        self.device = device
+        X = np.asarray(X, np.float32)
+        N = (X.shape[0] // spec.P) * spec.P
+        if N == 0:
+            raise ValueError(
+                f"X has {X.shape[0]} rows; need at least P={spec.P}"
+            )
+        self.X_global = X[:N]
+        self.N, self.D = N, X.shape[1]
+        self.Xs = torch.as_tensor(
+            self.X_global.reshape(spec.P, N // spec.P, self.D)).to(device)
+
+    def init(self, key: torch.Tensor | None = None):
+        """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``."""
+        spec = self.spec
+        if key is None:
+            key = prng.key(spec.seed)
+        return init_hybrid(key, self.Xs, spec.K_max, K_tail=spec.K_tail,
+                           alpha=spec.alpha, sigma_x=spec.sigma_x,
+                           sigma_a=spec.sigma_a, K_init=spec.K_init)
+
+    def step(self, gs: HybridGlobal, ss: HybridShard):
+        """One full hybrid iteration (sub-iterations + master sync)."""
+        return _hybrid_iteration_body(self.Xs, gs, ss, self.hyp, self.spec.L,
+                                      float(self.N), self.spec.chol_refresh)
+
+    def to_canonical(self, ss: HybridShard) -> HybridShard:
+        """Native state -> canonical (P, N_p, K) HybridShard (the same
+        on the single-device layout)."""
+        return ss
+
+    def from_canonical(self, ss: HybridShard) -> HybridShard:
+        """Canonical HybridShard -> state on the sampler's device."""
+        return HybridShard(*(t.to(self.device) for t in
+                             (ss.Z, ss.Z_tail, ss.tail_active)))
+
+
+def build_sampler(spec: SamplerSpec, hyp: IBPHypers | None = None,
+                  X: Any = None, device: str | torch.device | None = None
+                  ) -> Sampler:
+    """Validated spec + hypers + data -> Sampler on ``device`` (default
+    ``cuda``; raises when no GPU is visible — pass ``device="cpu"`` for
+    the plain PyTorch path)."""
+    if X is None:
+        raise ValueError("build_sampler needs the data matrix X")
+    return Sampler(spec, hyp or IBPHypers(), X, _device.resolve(device))

@@ -1,0 +1,38 @@
+"""The uncollapsed Gibbs sweep, the hot loop of the hybrid sampler.
+
+For every row n (data-parallel) and every instantiated feature k
+(sequential: the likelihood couples features through the residual):
+
+    P(Z_nk = 1 | pi_k, A, X_n) ∝ pi_k · N(X_n | Z_n A, sigma_x^2 I).
+
+Port of ``repro/core/ibp/sweeps.py::uncollapsed_sweep``. The sweep itself
+is the ``gibbs_flip`` kernel on CUDA tensors and its plain version on CPU
+tensors; this module draws the logit-uniforms it consumes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.gibbs_flip import gibbs_flip_core
+
+Tensor = torch.Tensor
+
+
+def _logit(p: Tensor) -> Tensor:
+    p = torch.clamp(p, 1e-6, 1.0 - 1e-6)
+    return torch.log(p) - torch.log1p(-p)
+
+
+def uncollapsed_sweep(X: Tensor, Z: Tensor, A: Tensor, pi: Tensor,
+                      active: Tensor, sigma_x: Tensor,
+                      gen: torch.Generator) -> Tensor:
+    """One full Gibbs sweep of Z | pi, A over active columns. Returns new Z.
+
+    Rows are independent, so any number of shards' rows can go through
+    one call (the hybrid sampler sweeps all P shards at once).
+    """
+    # pre-drawn uniforms, in logit space so the accept test is logit > u
+    u = _logit(torch.rand(Z.shape, generator=gen, dtype=X.dtype,
+                          device=X.device))
+    inv2s2 = 0.5 / (sigma_x**2)
+    return gibbs_flip_core(X, Z, A, _logit(pi), active, u, inv2s2)

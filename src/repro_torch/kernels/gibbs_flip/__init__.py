@@ -1,0 +1,5 @@
+from . import ops, ref
+from .ops import gibbs_flip_core
+from .ref import gibbs_flip_ref
+
+__all__ = ["ops", "ref", "gibbs_flip_core", "gibbs_flip_ref"]

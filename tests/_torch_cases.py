@@ -1,0 +1,83 @@
+"""Inputs and decision checks shared by the port's kernel tests.
+
+No JAX here: tests/test_torch_cuda.py runs on the GPU machine, which
+has no JAX.
+"""
+import numpy as np
+import torch
+
+SHAPES = [(16, 8, 4), (100, 36, 16), (257, 64, 8), (64, 128, 32), (33, 20, 5)]
+
+
+def _inputs(N, D, K, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    Z = (rng.random((N, K)) < 0.3).astype(np.float32)
+    A = rng.standard_normal((K, D)).astype(np.float32)
+    act = (rng.random(K) < 0.8).astype(np.float32)
+    return X, Z, A, act, rng
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+def gibbs_margin(X, Z_in, Z_out, A, lpi, inv2s2, u, n, k):
+    """|logit - u| of decision (n, k) in float64, with bits < k taken from
+    the output row and bits > k from the input row."""
+    z = np.concatenate([Z_out[n, :k], [0.0], Z_in[n, k + 1:]]).astype(
+        np.float64)
+    A64 = A.astype(np.float64)
+    r = X[n].astype(np.float64) - z @ A64
+    logit = lpi[k] + (2.0 * r @ A64[k] - A64[k] @ A64[k]) * inv2s2
+    return abs(logit - u[n, k])
+
+
+def assert_decisions_match(got, want, margin_of, rel=1e-4, budget=1):
+    """Decisions equal except ``budget`` first-in-row float-boundary
+    events (|logit - u| < rel (1 + |u|))."""
+    diff = np.argwhere(got != want)
+    rows = sorted({int(n) for n, _ in diff})
+    assert len(rows) <= budget, f"{len(diff)} decisions differ in rows {rows}"
+    for n in rows:
+        k = int(diff[diff[:, 0] == n][:, 1].min())
+        m, u = margin_of(n, k)
+        assert m < rel * (1.0 + abs(u)), (n, k, m, u)
+
+
+def _collapsed_row_inputs(K, D, seed=0, frac_active=1.0):
+    rng = np.random.default_rng(seed)
+    act = (rng.random(K) < frac_active).astype(np.float32)
+    if act.sum() == 0:
+        act[0] = 1.0
+    Zb = ((rng.random((5 * K, K)) < 0.3) * act).astype(np.float32)
+    W = Zb.T @ Zb + 0.7 * np.diag(act) + np.diag(1 - act)
+    M = (np.linalg.inv(W) * np.outer(act, act)).astype(np.float32)
+    H = (M @ (Zb.T @ rng.standard_normal((5 * K, D)))).astype(np.float32)
+    x = rng.standard_normal(D).astype(np.float32)
+    z = ((rng.random(K) < 0.4) * act).astype(np.float32)
+    v = (M @ z).astype(np.float32)
+    q = np.float32(z @ v)
+    mean = (z @ H).astype(np.float32)
+    u = (rng.standard_normal(K) * 2).astype(np.float32)
+    mm = Zb.sum(0).astype(np.float32)
+    return [M, H, x, z, v, q, mean, u, mm, act, np.float32(8 * K),
+            np.float32(0.5)]
+
+
+def collapsed_row_margin(args, z_out, k):
+    """|logodds - u| of bit k in float64, bits < k from the output."""
+    M, H, x, z, v, q, mean, u, mm, act, N, inv2s2 = (
+        np.asarray(a, np.float64) for a in args)
+    D = x.shape[0]
+
+    def ll(zz):
+        s = 1.0 + zz @ M @ zz
+        r = x - zz @ H
+        return -0.5 * D * np.log(s) - inv2s2 * (r @ r) / s
+
+    zz = np.concatenate([z_out[:k], [0.0], z[k + 1:]])
+    z1 = zz.copy()
+    z1[k] = 1.0
+    lo = np.log(max(mm[k], 1e-20)) - np.log(N - mm[k]) + ll(z1) - ll(zz)
+    return abs(lo - u[k]), u[k]

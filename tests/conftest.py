@@ -11,3 +11,7 @@ def pytest_configure(config):
         "slow: long-chain statistical tests (run in the non-blocking CI job; "
         "deselect with -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (skips without one; run these on the GPU)",
+    )
