@@ -7,9 +7,10 @@ Phases, each of which raises on failure (exit code non-zero):
 2. Build: the four CUDA kernels from src/repro_torch/kernels/csrc into
    build/repro_torch_kernels (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions at the main path's
-   shapes, each timed with CUDA events (median of REPS launches) beside
-   its plain version, a one-call PyTorch yardstick where there is one,
-   and the least time the card could take (bound).
+   shapes. Each kernel's device time (torch.profiler) and call time
+   (CUDA events) are medians of REPS calls, beside its plain version, a
+   one-call PyTorch yardstick where there is one, and the least time the
+   card could take (bound).
 4. The CLI (repro_torch.launch.mcmc) on Cambridge data, 40 iterations.
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations.
@@ -82,10 +83,10 @@ def kernel_events(prof) -> list:
 
 
 def device_ms(fn, names: tuple[str, ...], reps: int = REPS) -> float | None:
-    """Device time per call of the kernels whose names contain one of
-    ``names``, from torch.profiler (None when the profiler sees no device
-    activity). Unlike ``time_ms`` this excludes the host's launch path,
-    which bounds a call whose kernel is shorter than its launch."""
+    """Median device time of one call: the kernels whose names contain one
+    of ``names``, from torch.profiler (None when the profiler sees no
+    device activity). Unlike ``time_ms`` this excludes the host's launch
+    path, which bounds a call whose kernel is shorter than its launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -95,9 +96,15 @@ def device_ms(fn, names: tuple[str, ...], reps: int = REPS) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in kernel_events(p)
-             if any(n in e.name for n in names))
-    return us / reps / 1e3 if us > 0 else None
+    ev = sorted((e for e in kernel_events(p)
+                 if any(n in e.name for n in names)),
+                key=lambda e: e.time_range.start)
+    if not ev or len(ev) % reps:
+        return None
+    per = len(ev) // reps  # kernels per call
+    calls = [sum(e.time_range.elapsed_us() for e in ev[i:i + per])
+             for i in range(0, len(ev), per)]
+    return statistics.median(calls) / 1e3
 
 
 def timed(fn, names: tuple[str, ...], reps: int = REPS) -> dict:
@@ -197,7 +204,7 @@ def check_gibbs_flip(dev) -> dict:
                 mismatched_decisions=len(diff),
                 **timed(lambda: gibbs_flip_core(*args),
                         ("gibbs_flip_kernel", "anorm_kernel")),
-                plain_ms=time_ms(lambda: gibbs_flip_ref(*args), reps=5),
+                plain_ms=time_ms(lambda: gibbs_flip_ref(*args)),
                 bound_ms=b, bound_by=by, library_ms=None, library_call=None)
 
 
@@ -279,7 +286,7 @@ def check_collapsed_row(dev) -> dict:
             shape=f"K={K} D={D}", max_abs_err=err,
             **timed(lambda: collapsed_row_flip(*args),
                     ("collapsed_row_kernel",)),
-            plain_ms=time_ms(lambda: collapsed_row_flip_ref(*args), reps=5),
+            plain_ms=time_ms(lambda: collapsed_row_flip_ref(*args)),
             bound_ms=b, bound_by=by))
     main = dict(name="collapsed_row", **variants[0], library_ms=None,
                 library_call=None)
