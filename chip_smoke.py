@@ -4,17 +4,20 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: the four CUDA kernels from src/repro_torch/kernels/csrc into
+2. Build: the five CUDA kernels from src/repro_torch/kernels/csrc into
    build/repro_torch_kernels (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions at the main path's
-   shapes. Each kernel's device time (torch.profiler) and call time
-   (CUDA events) are medians of REPS calls, beside its plain version, a
-   one-call PyTorch yardstick where there is one, and the least time the
-   card could take (bound).
+   shapes (collapsed_scan: one tail sub-iteration, N_p rows). Each
+   kernel's device time (torch.profiler) and call time (CUDA events) are
+   medians of REPS calls, beside its plain version, a one-call PyTorch
+   yardstick where there is one, and the least time the card could take
+   (bound).
 4. The CLI (repro_torch.launch.mcmc) on Cambridge data, 40 iterations.
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations.
-6. Every kernel's launch counter rose in phases 4 and 5.
+6. The kernel that carries each TPU kernel on the main path (CARRIED_BY:
+   collapsed_row's recurrence runs inside collapsed_scan) had its launch
+   counter rise in phases 4 and 5.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON. Run from the root of a checkout: python3 chip_smoke.py
@@ -32,17 +35,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tests"))  # _torch_cases: JAX-free test inputs
 
 REPS = 25
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNELS = ("gibbs_flip", "collapsed_row", "gaussian_sse", "feature_stats")
+KERNELS = ("gibbs_flip", "collapsed_row", "collapsed_scan", "gaussian_sse",
+           "feature_stats")
 REPLACES = {
     "gibbs_flip": "src/repro/kernels/gibbs_flip/kernel.py:66",
     "collapsed_row": "src/repro/kernels/collapsed_row/kernel.py:97",
+    "collapsed_scan": "src/repro/kernels/collapsed_row/kernel.py:97",
     "gaussian_sse": "src/repro/kernels/gaussian_sse/kernel.py:28",
     "feature_stats": "src/repro/kernels/feature_stats/kernel.py:36",
 }
+# the port kernel that runs each TPU kernel's work on the main path:
+# collapsed_row's recurrence runs inside collapsed_scan, one launch per
+# tail sub-iteration; the standalone collapsed_row kernel is checked in
+# phase 3 only
+CARRIED_BY = {
+    "src/repro/kernels/gibbs_flip/kernel.py:66": "gibbs_flip",
+    "src/repro/kernels/collapsed_row/kernel.py:97": "collapsed_scan",
+    "src/repro/kernels/gaussian_sse/kernel.py:28": "gaussian_sse",
+    "src/repro/kernels/feature_stats/kernel.py:36": "feature_stats",
+}
+MAIN_PATH = tuple(sorted(set(CARRIED_BY.values())))
 # phase 3: the main path's kernel shapes at full width
 SHAPE = dict(N=32768, K=64, D=1024)
 # phase 5: the widths the kernels' own docstrings size for
@@ -83,10 +100,13 @@ def kernel_events(prof) -> list:
 
 
 def device_ms(fn, names: tuple[str, ...], reps: int = REPS) -> float | None:
-    """Median device time of one call: the kernels whose names contain one
-    of ``names``, from torch.profiler (None when the profiler sees no
-    device activity). Unlike ``time_ms`` this excludes the host's launch
-    path, which bounds a call whose kernel is shorter than its launch."""
+    """Device time of one call: the kernels whose names contain one of
+    ``names``, from torch.profiler (None when the profiler sees none of
+    them). The median over calls when every call was recorded; the
+    profiler may drop a window's first calls, and then the mean over the
+    calls it recorded (kernels per call: the distinct kernel names).
+    Unlike ``time_ms`` this excludes the host's launch path, which bounds
+    a call whose kernel is shorter than its launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,8 +119,11 @@ def device_ms(fn, names: tuple[str, ...], reps: int = REPS) -> float | None:
     ev = sorted((e for e in kernel_events(p)
                  if any(n in e.name for n in names)),
                 key=lambda e: e.time_range.start)
-    if not ev or len(ev) % reps:
+    if not ev:
         return None
+    if len(ev) % reps:
+        calls = len(ev) / len({e.name for e in ev})
+        return sum(e.time_range.elapsed_us() for e in ev) / calls / 1e3
     per = len(ev) // reps  # kernels per call
     calls = [sum(e.time_range.elapsed_us() for e in ev[i:i + per])
              for i in range(0, len(ev), per)]
@@ -115,6 +138,15 @@ def timed(fn, names: tuple[str, ...], reps: int = REPS) -> dict:
     dev = device_ms(fn, names, reps)
     return dict(ms=call if dev is None else dev, call_ms=call,
                 timing="events" if dev is None else "profiler")
+
+
+def library(fn, reps: int = REPS) -> dict:
+    """A PyTorch yardstick timed as the kernels are: ``library_ms`` is the
+    device time of every kernel the call launches (profiler), or its
+    CUDA-event time where the profiler sees none; ``library_call_ms`` is
+    the CUDA-event time of the call."""
+    t = timed(fn, ("",), reps)  # "" matches every kernel name
+    return dict(library_ms=t["ms"], library_call_ms=t["call_ms"])
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -294,6 +326,86 @@ def check_collapsed_row(dev) -> dict:
     return main
 
 
+def check_collapsed_scan(dev) -> dict:
+    """The tail scan kernel against its plain version (the Python row loop)
+    on the same inputs and draws, at the main path's tail shape: one
+    sub-iteration of N_p = N / P rows, K_tail columns, D wide."""
+    import numpy as np
+    import torch
+    from _torch_cases import scan_case, scan_divergence
+
+    from repro_torch.kernels.collapsed_scan import (
+        collapsed_scan,
+        collapsed_scan_ref,
+    )
+
+    n_rows, K, D = FULL["N"] // FULL["P"], FULL["K_tail"], FULL["D"]
+    sx, sa, N = 0.5, 1.0, float(FULL["N"])
+    refresh = 64  # the sampler's DEFAULT_REFRESH
+    # births at 1% of rows (the sampler's alpha/N is ~1e-4) so that the
+    # check sees them
+    case = scan_case(n_rows, K, D, seed=31, lam=0.01)
+    per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc")
+
+    def tensors(rows=None):
+        return {k: torch.tensor(v[:rows] if k in per_row else v, device=dev)
+                for k, v in case.items()}
+
+    sx_t, sa_t = torch.tensor(sx, device=dev), torch.tensor(sa, device=dev)
+
+    def run(fn, t):
+        return fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
+                  t["u_logit"], t["j_prop"], t["log_u_acc"], sx_t, sa_t,
+                  N=N, refresh_every=refresh, drift_tol=1e-2)
+
+    got_t, want_t = tensors(), tensors()
+    cg, cw = run(collapsed_scan, got_t), run(collapsed_scan_ref, want_t)
+    torch.cuda.synchronize()
+    got = {k: got_t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX",
+                                                 "m")}
+    want = {k: want_t[k].cpu().numpy() for k in got}
+
+    def state_at(n):  # (active, m) entering row n, from the plain scan
+        t = tensors(n)
+        run(collapsed_scan_ref, t)
+        return t["active"].cpu().numpy(), t["m"].cpu().numpy()
+
+    ev = scan_divergence(case, want["Z"], got["Z"], state_at, sx, sa, N)
+    event = None
+    if ev is not None:  # one float-boundary event, then the chains part
+        n, what, margin, u = ev
+        if not margin < 1e-3 * (1.0 + abs(u)):
+            raise AssertionError(f"collapsed_scan: diverges from the plain "
+                                 f"scan at row {n} ({what}), margin {margin}")
+        event = dict(row=n, decision=str(what), margin=margin)
+    else:
+        for k in ("Z", "active", "m", "ZtZ"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"collapsed_scan: {k} differs")
+        if not np.allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4):
+            raise AssertionError("collapsed_scan: ZtX differs")
+        if int(cg[1]) != int(cw[1]):
+            raise AssertionError("collapsed_scan: n_sat differs")
+    err = float(np.abs(got["ZtX"] - want["ZtX"]).max()) if ev is None else None
+    # bytes: X_p, the draws and Z read once, Z and the statistics written
+    # once; operations this run's data needs per row, about: the removal
+    # and the factor moves (5 K D), the mean, and the flip of each live
+    # column (8 D each); far below what the chain of dependent rows allows
+    k_live = float(want["active"].sum())
+    nbytes = 4.0 * (n_rows * (D + 2 * K + 2) + n_rows * K
+                    + 2 * (K * K + K * D + 2 * K))
+    flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
+    b, by = bound_ms(nbytes, flops)
+    t = tensors()  # the kernel is timed scanning on from its own output
+    return dict(
+        name="collapsed_scan", shape=f"rows={n_rows} K={K} D={D}",
+        max_abs_err=err, boundary_event=event,
+        n_refresh=int(cg[0]), n_sat=int(cg[1]), k_live=k_live,
+        **timed(lambda: run(collapsed_scan, t), ("collapsed_scan_kernel",)),
+        plain_ms=time_ms(lambda: run(collapsed_scan_ref, tensors()), reps=1),
+        bound_ms=b, bound_by=by, library_ms=None, library_call=None)
+
+
 def check_stats_kernels(dev) -> list[dict]:
     import numpy as np
     import torch
@@ -339,10 +451,11 @@ def check_stats_kernels(dev) -> list[dict]:
     out.append(dict(
         name="feature_stats", shape=f"N={N} K={K} D={D}", max_abs_err=err,
         max_abs_err_vs_plain_f32=err32,
-        **timed(lambda: feature_stats(X, Z), ("feature_stats_kernel",)),
+        **timed(lambda: feature_stats(X, Z),
+                ("feature_stats_partial_kernel", "feature_stats_sum_kernel")),
         plain_ms=time_ms(lambda: feature_stats_ref(X, Z)),
         bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.matmul(Zt, ZX1)),
+        **library(lambda: torch.matmul(Zt, ZX1)),
         library_call="torch.matmul(Z^T, [Z | X | 1])"))
 
     # gaussian_sse: f32 and bf16 inputs, against the plain version in
@@ -372,9 +485,8 @@ def check_stats_kernels(dev) -> list[dict]:
                     ("sse_partial_kernel", "sse_final_kernel")),
             plain_ms=time_ms(lambda: gaussian_sse_ref(Xd, Zd, Ad, actd)),
             bound_ms=b, bound_by=by,
-            library_ms=time_ms(
-                lambda: torch.addmm(Xd, Zm, Ad, alpha=-1).float().square()
-                .sum())))
+            **library(lambda: torch.addmm(Xd, Zm, Ad, alpha=-1).float()
+                      .square().sum())))
     main = dict(name="gaussian_sse", **variants[0],
                 library_call="torch.addmm(X, Z*active, A, alpha=-1)"
                              ".square().sum()")
@@ -444,7 +556,7 @@ def run_full_width(tmp: Path, gpu: str) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
 
     # components, timed on the final state: one sweep of all P*N_p rows,
-    # one tail sub-iteration on p' (N_p rows, two host syncs per row)
+    # one tail sub-iteration on p' (N_p rows, one collapsed_scan launch)
     Xs = drv.sampler.Xs
     P, N_p, D = Xs.shape
     Xf, Zf = Xs.reshape(P * N_p, D), ss.Z.reshape(P * N_p, -1)
@@ -475,26 +587,38 @@ def run_full_width(tmp: Path, gpu: str) -> tuple[dict, dict]:
         tail_profile=prof), counts
 
 
-def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int,
-                 rows: int = 256) -> dict | None:
-    """torch.profiler over the tail scan of ``rows`` rows of p': wall and
-    device time per row, kernels per row, and the device's busy share."""
+def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int) -> dict | None:
+    """torch.profiler over one tail sub-iteration of all N_p rows of p':
+    wall and device time per row, kernels per row, host syncs per row
+    (the CUDA runtime's synchronising calls the profiler records, less
+    the window's own closing synchronize), and the device's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.ibp.hybrid import _tail_sub_iteration
 
+    rows = X_p.shape[0]
     zt = torch.zeros((rows, K_tail), device="cuda")
     ta = torch.zeros((K_tail,), device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        _tail_sub_iteration(X_p[:rows], Z_p[:rows], zt, ta, gs, N_g, g)
+        _tail_sub_iteration(X_p, Z_p, zt, ta, gs, N_g, g)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = kernel_events(p)
     if not ev:
         return None
+    runtime = [e.name for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith("cuda")]
+    # runtime calls that wait for the device, less the window's closing
+    # torch.cuda.synchronize() (recorded as cudaDeviceSynchronize); None
+    # where the profiler records no CUDA runtime call at all
+    syncs = (sum(1 for n in runtime if n in ("cudaStreamSynchronize",
+                                             "cudaEventSynchronize",
+                                             "cudaMemcpy"))
+             if any("LaunchKernel" in n for n in runtime) else None)
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e6
     by_name: dict[str, float] = {}
     for e in ev:
@@ -504,7 +628,8 @@ def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int,
     return dict(rows=rows, wall_ms_per_row=wall / rows * 1e3,
                 device_ms_per_row=busy / rows * 1e3,
                 kernels_per_row=len(ev) / rows, busy_share=busy / wall,
-                host_syncs_per_row=2,
+                host_syncs=syncs,
+                host_syncs_per_row=None if syncs is None else syncs / rows,
                 top_kernels_us=[(n, round(us, 1)) for n, us in top])
 
 
@@ -541,13 +666,13 @@ def main() -> int:
     t0 = time.perf_counter()
     results = {r["name"]: r for r in
                [check_gibbs_flip(dev), check_collapsed_row(dev),
-                *check_stats_kernels(dev)]}
+                check_collapsed_scan(dev), *check_stats_kernels(dev)]}
     for r in results.values():
         log(f"[3] {r['name']} {r['shape']}: ms={r['ms']:.4f} "
             f"call_ms={r['call_ms']:.4f} ({r['timing']}) "
             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={r['library_ms']} "
-            f"max_abs_err={r['max_abs_err']:.3g}")
+            f"max_abs_err={r['max_abs_err']}")
         for v in r.get("variants", []):
             log(f"[3]   {v}")
     log(f"[3] kernel checks took {time.perf_counter() - t0:.1f} s")
@@ -568,13 +693,15 @@ def main() -> int:
         log(f"[5] full width: {json.dumps(full)}")
         log(f"[5] launches {full_counts}")
 
-    # phase 6: the main path went through every kernel
-    for name in KERNELS:
+    # phase 6: the main path went through every kernel that carries it
+    for tpu, name in CARRIED_BY.items():
+        log(f"[6] {tpu} runs as {name} on the main path")
+    for name in MAIN_PATH:
         if cli_counts.get(name, 0) < 1 or full_counts.get(name, 0) < 1:
             raise AssertionError(f"{name} was not launched on the main path "
                                  f"(CLI {cli_counts.get(name)}, full width "
                                  f"{full_counts.get(name)})")
-    log("[6] every kernel launched in phases 4 and 5")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5")
 
     kernels = []
     for name in KERNELS:
@@ -582,13 +709,17 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=full_counts[name],
+            replaces=REPLACES[name], launches=full_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], call_ms=r["call_ms"],
             timing=r["timing"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"],
+            library_ms=r["library_ms"],
+            library_call_ms=r.get("library_call_ms"), shape=r["shape"],
             library_call=r["library_call"],
-            launches_cli=cli_counts[name],
+            **{k: r[k] for k in ("boundary_event", "n_refresh", "n_sat")
+               if k in r},
+            launches_cli=cli_counts.get(name, 0),
+            on_main_path=name in MAIN_PATH,
             variants=r.get("variants", [])))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "gpu": smi}), flush=True)

@@ -1,4 +1,4 @@
-"""Linear-Gaussian IBP math: conjugate posteriors, rank-one moves, draws.
+"""Linear-Gaussian IBP math: conjugate posteriors, likelihoods, draws.
 
 Port of ``repro/core/ibp/math.py`` (the parts the hybrid sampler runs).
 Model (paper Eq. 1):
@@ -6,9 +6,9 @@ Model (paper Eq. 1):
     X = Z A + eps,   eps ~ N(0, sigma_x^2 I),   A_k ~ N(0, sigma_a^2 I)
 
 Feature-indexed buffers are padded to a static ``K_max``; an ``active``
-mask (float {0,1}) selects live columns. The padded W has unit diagonal
-and zero off-diagonal in inactive slots, so its Cholesky factor and
-log-determinant are exact on the active block.
+mask (float {0,1}) selects live columns. The padded W, its Cholesky
+inverse and the rank-one Cholesky moves live in ``repro_torch.linalg``
+and are re-exported here under the reference's names.
 
 Draws take an explicit ``torch.Generator`` on the tensors' device.
 Gamma draws use ``torch._standard_gamma`` (``torch.distributions``
@@ -21,101 +21,20 @@ import math
 
 import torch
 
+from repro_torch.linalg import (  # noqa: F401  (the reference's names)
+    _cholesky,
+    _eye,
+    chol_inv,
+    chol_inv_logdet,
+    chol_rank1_downdate_t,
+    chol_rank1_update_t,
+    mask_outer,
+    padded_W,
+)
+
 Tensor = torch.Tensor
 
 LOG2PI = math.log(2.0 * math.pi)
-
-
-def mask_outer(active: Tensor) -> Tensor:
-    """(K,K) mask with 1 where both row & col active."""
-    return active[:, None] * active[None, :]
-
-
-def _eye(K: int, like: Tensor) -> Tensor:
-    return torch.eye(K, dtype=like.dtype, device=like.device)
-
-
-def padded_W(ZtZ: Tensor, active: Tensor, ratio: Tensor) -> Tensor:
-    """W = ZtZ + ratio*I on the active block; identity on the inactive one.
-
-    ratio = sigma_x^2 / sigma_a^2.
-    """
-    K = ZtZ.shape[0]
-    eye = _eye(K, ZtZ)
-    m2 = mask_outer(active)
-    W = ZtZ * m2 + ratio * eye * m2
-    return W + eye * (1.0 - active)
-
-
-def _cholesky(W: Tensor) -> Tensor:
-    # cholesky_ex: no host sync for the error check (W is SPD by
-    # construction; the reference does not check either)
-    return torch.linalg.cholesky_ex(W).L
-
-
-def chol_inv_logdet(W: Tensor) -> tuple[Tensor, Tensor]:
-    """Return (W^{-1}, logdet W) via Cholesky. W must be SPD."""
-    L = _cholesky(W)
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
-    Linv = torch.linalg.solve_triangular(L, _eye(W.shape[0], W), upper=False)
-    return Linv.T @ Linv, logdet
-
-
-def chol_inv(W: Tensor) -> tuple[Tensor, Tensor]:
-    """Return (L, W^{-1}) via Cholesky — the exact refactorization the
-    collapsed row scan refreshes its carried (L, M) from."""
-    L = _cholesky(W)
-    Linv = torch.linalg.solve_triangular(L, _eye(W.shape[0], W), upper=False)
-    return L, Linv.T @ Linv
-
-
-def _chol_rank1_t(Lt: Tensor, p: Tensor, sigma: float,
-                  eps: float) -> tuple[Tensor, Tensor]:
-    """Rank-one Cholesky up/downdate in the transposed layout.
-
-    Closed semiseparable form (Gill, Golub, Murray & Saunders Method C):
-    with p = L^{-1} x, chol(L L^T + sigma x x^T) = L chol(I + sigma p p^T),
-    and chol(I + sigma p p^T) has T[j,j] = sqrt(d_j / d_{j-1}),
-    T[i>j, j] = sigma p_i p_j / sqrt(d_j d_{j-1}), d_j = 1 + sigma
-    cumsum(p^2)_j. Works on Lt = L^T (upper triangular, row-major):
-    (L T)^T[j] = r_j Lt[j] + qc_j * sum_{i>j} p_i Lt[i].
-
-    Returns (Lt', ok); ``ok`` is False when some d_j fell below ``eps``
-    (the downdated matrix lost positive definiteness).
-
-    Padding contract: an inactive slot j has Lt[j, j] = 1, zero
-    off-diagonals and p_j = 0, so its row scales by exactly 1 and
-    receives exactly 0.
-    """
-    K = Lt.shape[0]
-    p2 = p * p
-    d = 1.0 + sigma * torch.cumsum(p2, 0)
-    d_prev = d - sigma * p2  # d_{j-1} with d_{-1} = 1
-    ok = torch.all(d > eps) & torch.all(d_prev > eps)
-    d = torch.clamp(d, min=eps)
-    d_prev = torch.clamp(d_prev, min=eps)
-    r = torch.sqrt(d / d_prev)
-    qc = sigma * p / torch.sqrt(d * d_prev)
-    Gt = Lt * p[:, None]
-    # exclusive tail sums over rows, as the reference computes them: a
-    # product with a lower-triangular ones matrix
-    tril = torch.tril(torch.ones((K, K), dtype=Lt.dtype, device=Lt.device))
-    acc = tril @ Gt
-    Ct = acc[-1][None, :] - acc
-    return Lt * r[:, None] + Ct * qc[:, None], ok
-
-
-def chol_rank1_update_t(Lt: Tensor, p: Tensor) -> Tensor:
-    """Transposed-layout rank-one update with precomputed p = L^{-1} x."""
-    Lp, _ = _chol_rank1_t(Lt, p, 1.0, 1e-12)
-    return Lp
-
-
-def chol_rank1_downdate_t(Lt: Tensor, p: Tensor,
-                          eps: float = 1e-12) -> tuple[Tensor, Tensor]:
-    """Transposed-layout rank-one downdate with precomputed p = L^{-1} x.
-    Returns (Lt', ok)."""
-    return _chol_rank1_t(Lt, p, -1.0, eps)
 
 
 def a_posterior(ZtZ: Tensor, ZtX: Tensor, active: Tensor, sigma_x: Tensor,

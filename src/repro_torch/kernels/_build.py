@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-KERNELS = ("gibbs_flip", "collapsed_row", "gaussian_sse", "feature_stats")
+KERNELS = ("gibbs_flip", "collapsed_row", "collapsed_scan", "gaussian_sse",
+           "feature_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,640 @@
+// collapsed_scan: the hybrid tail's whole collapsed row scan in one launch.
+//
+// Replaces the row loop around collapsed_row_flip_pallas
+// (src/repro/kernels/collapsed_row/kernel.py:97): the reference's
+// _packed_scan (src/repro/core/ibp/collapsed.py:259), one lax.scan over the
+// rows with lax.cond branches, at the full-width block B = K with MH
+// births and no G carry. Its plain version is
+// kernels/collapsed_scan/ref.py, whose docstring gives the row step.
+//
+// What bounds it on the H100: neither bytes nor operations but the chain
+// of dependent rows. The scan reads X and the draws once (16 MB at
+// N_p=4096, D=1024: about 5 us of device memory time) and does a few
+// hundred kFLOP per row, yet row n+1's carry is row n's result, so the
+// rows run one after another, each a chain of block barriers and
+// reductions over D. The design therefore spends nothing between rows:
+//   * one block of 256 threads walks every row, so there is no launch and
+//     no host sync per row;
+//   * the carry (Lt, M, H, their row-removed copies Lt1, M1, H1, ZtZ, ZtX,
+//     m, active and the row's vectors) stays in shared memory when it fits
+//     (about 3 K D + 7 K^2 + 4 D floats: 117 KB at K=8, D=1024), else in
+//     a global scratch the wrapper allocates (L2-resident);
+//   * rows of X, their draws and their old bits stream through a ring of
+//     two shared-memory stages with cp.async, row n+1 loading while row n
+//     runs (shared-memory layout only);
+//   * every branch of the row step (the refresh, the downdate test, the
+//     drift probe, drop masking, the flip, the MH births, the add-back and
+//     its identity swaps) is block-uniform, decided by every thread from
+//     the same values, and the counters are registers written once;
+//   * K-length dot products are recomputed by every thread (no barrier),
+//     D-length ones are block reductions; the bit flips are
+//     collapsed_row_recurrence (collapsed_row.cuh), the same code as the
+//     collapsed_row kernel.
+// Sums are taken in another order than the plain version's, so decisions
+// may differ from it only at float-boundary events.
+#include <cuda_runtime.h>
+
+#include "collapsed_row.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NW = THREADS / 32;
+constexpr int NSTAGE = 2;       // row ring depth
+constexpr int J_MAX = 4;        // ref.J_MAX: per-row new-dish truncation
+constexpr int PROBE_EVERY = 4;  // ref.PROBE_EVERY: drift-probe cadence
+
+// K-vectors of the row step, slots in the arena
+enum KVec {
+  kAct, kM, kZold, kMminus, kZu, kW, kP, kDrop, kZ, kActm, kV, kProbe,
+  kZ2, kNew, kW2, kPup, kTmp, kRq, kNKVec = kRq + 2  // kRq is 2K long
+};
+// D-vectors: zH (then b_add) and mean
+enum DVec { kZH, kMean, kNDVec };
+
+__host__ __device__ inline long round4(long n) { return (n + 3) / 4 * 4; }
+
+// Offsets (floats) of the carry and, with a ring, of the row stages.
+struct Layout {
+  long Lt, Lt1, M, M1, ZtZ, W, Y, H, H1, ZtX, kv, kstride, dv, dstride,
+      ring, stage, total;
+};
+
+__host__ __device__ inline Layout layout(int K, int D, bool ring) {
+  Layout L;
+  const long kk = round4((long)K * K), kd = round4((long)K * D);
+  long o = 0;
+  L.Lt = o, o += kk;
+  L.Lt1 = o, o += kk;
+  L.M = o, o += kk;
+  L.M1 = o, o += kk;
+  L.ZtZ = o, o += kk;
+  L.W = o, o += kk;
+  L.Y = o, o += kk;
+  L.H = o, o += kd;
+  L.H1 = o, o += kd;
+  L.ZtX = o, o += kd;
+  L.kstride = round4(K);
+  L.kv = o, o += kNKVec * L.kstride;
+  L.dstride = round4(D);
+  L.dv = o, o += kNDVec * L.dstride;
+  // a stage: x (D), u (K), old bits (K), j_prop and log_u_acc
+  L.stage = L.dstride + 2 * L.kstride + 4;
+  L.ring = o;
+  if (ring) o += NSTAGE * L.stage;
+  L.total = o;
+  return L;
+}
+
+// Lt_out = the transposed-layout rank-one Cholesky move of Lt_in by p
+// (linalg._chol_rank1_t; sigma = +1 update, -1 downdate, eps 1e-12).
+// Lt_out may be Lt_in: each column is one thread's, walked from the
+// bottom, reading each entry before writing it. rq holds 2K floats.
+// Ends with a barrier.
+__device__ void chol_rank1_t(const float* Lt_in, const float* p, float sigma,
+                             float* Lt_out, float* rq, int K) {
+  const float eps = 1e-12f;
+  if (threadIdx.x == 0) {
+    float c = 0.f;
+    for (int j = 0; j < K; ++j) {
+      const float p2 = p[j] * p[j];
+      c += p2;
+      float d = 1.f + sigma * c;
+      float dp = d - sigma * p2;
+      d = d < eps ? eps : d;  // keeps a NaN, as torch.clamp does
+      dp = dp < eps ? eps : dp;
+      rq[j] = sqrtf(d / dp);
+      rq[K + j] = sigma * p[j] / sqrtf(d * dp);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < K; c += THREADS) {
+    float S = 0.f;  // sum over rows below i of p_row Lt[row, c]
+    for (int i = K - 1; i >= 0; --i) {
+      const float l = Lt_in[(long)i * K + c];
+      Lt_out[(long)i * K + c] = l * rq[i] + S * rq[K + i];
+      S += p[i] * l;
+    }
+  }
+  __syncthreads();
+}
+
+// The exact factor (ref._exact_factor) of the statistics (ZtZ, ZtX),
+// with row (zrm, x) taken out when ``remove``: W = padded W, L = chol(W)
+// in W's lower triangle, Y = L^{-1}, M = (Y^T Y) masked, Lt = L^T,
+// H = M (ZtX * act). tmp holds K floats. Ends with a barrier.
+__device__ void exact_factor(const float* ZtZ, const float* ZtX,
+                             const float* act, const float* zrm,
+                             const float* x, bool remove, float ratio,
+                             float* W, float* Y, float* tmp, float* Lt,
+                             float* M, float* H, int K, int D) {
+  const int tid = threadIdx.x;
+  const int KK = K * K;
+  for (int e = tid; e < KK; e += THREADS) {
+    const int i = e / K, j = e % K;
+    float s = ZtZ[e];
+    if (remove) s = s - zrm[i] * zrm[j];
+    const float m2 = act[i] * act[j];
+    float w = s * m2;
+    if (i == j) w = w + ratio * m2 + (1.f - act[i]);
+    W[e] = w;
+  }
+  __syncthreads();
+  // Cholesky by columns (left-looking): column j from the finished ones
+  for (int j = 0; j < K; ++j) {
+    for (int i = j + tid; i < K; i += THREADS) {
+      float s = W[(long)i * K + j];
+      for (int k = 0; k < j; ++k) s -= W[(long)i * K + k] * W[(long)j * K + k];
+      tmp[i] = s;
+    }
+    __syncthreads();
+    const float djj = sqrtf(tmp[j]);
+    for (int i = j + tid; i < K; i += THREADS)
+      W[(long)i * K + j] = i == j ? djj : tmp[i] / djj;
+    __syncthreads();
+  }
+  // Y = L^{-1}: column c by forward substitution
+  for (int c = tid; c < K; c += THREADS) {
+    for (int i = 0; i < c; ++i) Y[(long)i * K + c] = 0.f;
+    for (int i = c; i < K; ++i) {
+      float s = i == c ? 1.f : 0.f;
+      for (int k = c; k < i; ++k) s -= W[(long)i * K + k] * Y[(long)k * K + c];
+      Y[(long)i * K + c] = s / W[(long)i * K + i];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < KK; e += THREADS) {
+    const int i = e / K, j = e % K;
+    float s = 0.f;
+    for (int k = i > j ? i : j; k < K; ++k)
+      s += Y[(long)k * K + i] * Y[(long)k * K + j];
+    M[e] = s * (act[i] * act[j]);
+    Lt[e] = j >= i ? W[(long)j * K + i] : 0.f;
+  }
+  __syncthreads();
+  for (int i = 0; i < K; ++i)
+    for (int d = tid; d < D; d += THREADS) {
+      float s = 0.f;
+      for (int k = 0; k < K; ++k) {
+        float t = ZtX[(long)k * D + d];
+        if (remove) t = t - zrm[k] * x[d];
+        s += M[(long)i * K + k] * (t * act[k]);
+      }
+      H[(long)i * D + d] = s;
+    }
+  __syncthreads();
+}
+
+// Copy row r's x, draws and old bits into ring stage st (cp.async).
+__device__ __forceinline__ void prefetch_row(
+    float* st, const Layout& L, const float* X, const float* Z,
+    const float* u_logit, const float* j_prop, const float* log_u_acc,
+    long r, int K, int D) {
+  const int tid = threadIdx.x;
+  for (int d = tid; d < D; d += THREADS)
+    cp_async4(st + d, X + r * D + d);
+  float* su = st + L.dstride;
+  float* sz = su + L.kstride;
+  for (int i = tid; i < K; i += THREADS) {
+    cp_async4(su + i, u_logit + r * K + i);
+    cp_async4(sz + i, Z + r * K + i);
+  }
+  if (tid == 0) {
+    cp_async4(sz + L.kstride, j_prop + r);
+    cp_async4(sz + L.kstride + 1, log_u_acc + r);
+  }
+}
+
+// One block scans every row. RING: the carry is in dynamic shared memory
+// and rows stream through the ring; otherwise the carry is the global
+// scratch ``arena`` and rows are read where they lie.
+template <bool RING>
+__global__ void __launch_bounds__(THREADS)
+collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
+                      float* __restrict__ ZtZ_io, float* __restrict__ ZtX_io,
+                      float* __restrict__ m_io, const float* __restrict__ X,
+                      const float* __restrict__ u_logit,
+                      const float* __restrict__ j_prop,
+                      const float* __restrict__ log_u_acc,
+                      const float* __restrict__ sx_p,
+                      const float* __restrict__ sa_p, int* __restrict__ counts,
+                      float* __restrict__ arena_g, int n_rows, int K, int D,
+                      float N, int refresh_every, float drift_tol) {
+  extern __shared__ float4 sh4[];
+  __shared__ float red[2 * NW];
+  float* arena = RING ? reinterpret_cast<float*>(sh4) : arena_g;
+  const Layout L = layout(K, D, RING);
+  float* Lt = arena + L.Lt;
+  float* Lt1 = arena + L.Lt1;
+  float* M = arena + L.M;
+  float* M1 = arena + L.M1;
+  float* ZtZ = arena + L.ZtZ;
+  float* W = arena + L.W;
+  float* Y = arena + L.Y;
+  float* H = arena + L.H;
+  float* H1 = arena + L.H1;
+  float* ZtX = arena + L.ZtX;
+  auto kv = [&](int slot) { return arena + L.kv + slot * L.kstride; };
+  float *act = kv(kAct), *m = kv(kM), *zold = kv(kZold),
+        *mminus = kv(kMminus), *zu = kv(kZu), *w = kv(kW), *p = kv(kP),
+        *drop = kv(kDrop), *z = kv(kZ), *actm = kv(kActm), *v = kv(kV),
+        *probe = kv(kProbe), *z2 = kv(kZ2), *nb = kv(kNew), *w2 = kv(kW2),
+        *pup = kv(kPup), *tmp = kv(kTmp), *rq = kv(kRq);
+  float* zH = arena + L.dv + kZH * L.dstride;  // then b_add
+  float* mean = arena + L.dv + kMean * L.dstride;
+  const int tid = threadIdx.x;
+  const int KK = K * K;
+
+  const float sx = *sx_p, sa = *sa_p;
+  const float t_r = sx / sa, t_rho = sa / sx;
+  const float ratio = t_r * t_r;
+  const float rho = t_rho * t_rho;
+  const float inv2s2 = 0.5f / (sx * sx);
+  const float sqrt_ratio_m1 = sqrtf(ratio) - 1.f;
+  const float halfD = -0.5f * (float)D;
+
+  for (int e = tid; e < KK; e += THREADS) ZtZ[e] = ZtZ_io[e];
+  for (int k = 0; k < K; ++k)
+    for (int d = tid; d < D; d += THREADS)
+      ZtX[(long)k * D + d] = ZtX_io[(long)k * D + d];
+  for (int i = tid; i < K; i += THREADS) {
+    act[i] = active_io[i];
+    m[i] = m_io[i];
+  }
+  if (RING && n_rows > 0) {
+    prefetch_row(arena + L.ring, L, X, Z, u_logit, j_prop, log_u_acc, 0, K,
+                 D);
+    cp_async_commit();
+  }
+  __syncthreads();
+  exact_factor(ZtZ, ZtX, act, nullptr, nullptr, false, ratio, W, Y, tmp, Lt,
+               M, H, K, D);
+
+  int since = 0, n_refresh = 0, n_sat = 0;
+  for (int n = 0; n < n_rows; ++n) {
+    // ---- the row: x, draws and old bits (ring stage or where they lie)
+    const float *x, *u, *zsrc;
+    float jp, lua;
+    if (RING) {
+      if (n + 1 < n_rows)
+        prefetch_row(arena + L.ring + ((n + 1) % NSTAGE) * L.stage, L, X, Z,
+                     u_logit, j_prop, log_u_acc, n + 1, K, D);
+      cp_async_commit();  // an empty group on the last row
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* st = arena + L.ring + (n % NSTAGE) * L.stage;
+      x = st;
+      u = st + L.dstride;
+      zsrc = u + L.kstride;
+      jp = zsrc[L.kstride];
+      lua = zsrc[L.kstride + 1];
+    } else {
+      x = X + (long)n * D;
+      u = u_logit + (long)n * K;
+      zsrc = Z + (long)n * K;
+      jp = j_prop[n];
+      lua = log_u_acc[n];
+    }
+
+    // ---- remove row n: masks and counts
+    for (int i = tid; i < K; i += THREADS) {
+      const float zo = zsrc[i];
+      const float mm = m[i] - zo;
+      const float dr = act[i] * (mm <= 0.5f ? 1.f : 0.f);
+      zold[i] = zo;
+      mminus[i] = mm;
+      zu[i] = zo * act[i];
+      drop[i] = dr;
+      z[i] = zo * (1.f - dr);
+      actm[i] = act[i] * (1.f - dr);
+    }
+    __syncthreads();
+    // w = M zu, zH = zu H
+    for (int i = tid; i < K; i += THREADS) {
+      float s = 0.f;
+      for (int j = 0; j < K; ++j) s += M[(long)i * K + j] * zu[j];
+      w[i] = s;
+    }
+    for (int d = tid; d < D; d += THREADS) {
+      float s = 0.f;
+      for (int k = 0; k < K; ++k) s += zu[k] * H[(long)k * D + d];
+      zH[d] = s;
+    }
+    __syncthreads();
+    float gamma = 0.f;
+    bool has_drop = false;
+    for (int k = 0; k < K; ++k) {
+      gamma += zu[k] * w[k];
+      has_drop |= drop[k] > 0.5f;
+    }
+    const float omg = 1.f - gamma;
+    const float delta_s = omg < 1e-6f ? 1e-6f : omg;
+    const float sq_delta = sqrtf(delta_s);
+    const bool probe_row = since % PROBE_EVERY == 0;
+    float dz_act = 0.f;  // z_old . active_m
+    if (probe_row)
+      for (int k = 0; k < K; ++k) dz_act += zold[k] * actm[k];
+    // p = Lt w; M1, H1: the row-removed factor, masked to active_m
+    for (int i = tid; i < K; i += THREADS) {
+      float s = 0.f;
+      for (int j = 0; j < K; ++j) s += Lt[(long)i * K + j] * w[j];
+      p[i] = s;
+      if (probe_row) {
+        float t = 0.f;
+        for (int j = 0; j < K; ++j) t += ZtZ[(long)i * K + j] * actm[j];
+        t = t - zold[i] * dz_act;
+        probe[i] = actm[i] * t + ratio * actm[i];
+      }
+    }
+    for (int e = tid; e < KK; e += THREADS) {
+      const int i = e / K, j = e % K;
+      const float wri = w[i] / sq_delta, wrj = w[j] / sq_delta;
+      M1[e] = (M[e] + wri * wrj) * (actm[i] * actm[j]);
+    }
+    for (int k = 0; k < K; ++k) {
+      const float wdk = w[k] / delta_s, ak = actm[k];
+      const float* Hk = H + (long)k * D;
+      float* H1k = H1 + (long)k * D;
+      for (int d = tid; d < D; d += THREADS)
+        H1k[d] = (Hk[d] + wdk * (zH[d] - x[d])) * ak;
+    }
+    __syncthreads();
+    bool down_ok = true;
+    {
+      float c = 0.f;
+      for (int k = 0; k < K; ++k) {
+        c += p[k] * p[k];
+        down_ok &= (1.f - c) > 1e-12f;
+      }
+    }
+    bool drift_ok = true;
+    if (probe_row) {  // ‖M1 W p − p‖∞ against the exact statistics
+      for (int i = tid; i < K; i += THREADS) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += M1[(long)i * K + j] * probe[j];
+        tmp[i] = fabsf(s - actm[i]);
+      }
+      __syncthreads();
+      float dm = tmp[0];
+      for (int k = 1; k < K; ++k)
+        dm = (tmp[k] > dm || tmp[k] != tmp[k]) ? tmp[k] : dm;
+      drift_ok = dm <= drift_tol;
+      __syncthreads();  // tmp is free again
+    }
+    const bool need = since >= refresh_every - 1 || !down_ok || !drift_ok;
+    if (need) {  // exact refresh from the row-removed statistics
+      exact_factor(ZtZ, ZtX, actm, zold, x, true, ratio, W, Y, tmp, Lt1, M1,
+                   H1, K, D);
+      since = 0;
+      ++n_refresh;
+    } else {
+      ++since;
+    }
+
+    // ---- bit flips: (v, q, mean) by mat-vec after a drop or a refresh,
+    // in closed form after a plain removal
+    float q;
+    if (has_drop || need) {
+      for (int i = tid; i < K; i += THREADS) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += M1[(long)i * K + j] * z[j];
+        v[i] = s;
+      }
+      for (int d = tid; d < D; d += THREADS) {
+        float s = 0.f;
+        for (int k = 0; k < K; ++k) s += z[k] * H1[(long)k * D + d];
+        mean[d] = s;
+      }
+      __syncthreads();
+      q = 0.f;
+      for (int k = 0; k < K; ++k) q += z[k] * v[k];
+    } else {
+      q = gamma / delta_s;
+      for (int i = tid; i < K; i += THREADS) v[i] = w[i] / delta_s;
+      for (int d = tid; d < D; d += THREADS)
+        mean[d] = zH[d] + q * (zH[d] - x[d]);
+      __syncthreads();
+    }
+    collapsed_row_recurrence<THREADS>(M1, H1, x, mean, v, z, q, u, mminus,
+                                      actm, N, inv2s2, K, D, red);
+
+    // ---- new dishes (ref._sample_dishes)
+    float rp = 0.f;
+    for (int d = tid; d < D; d += THREADS) {
+      const float r = x[d] - mean[d];
+      rp += r * r;
+    }
+    const float rss = block_sum<float, NW>(rp, red);
+    bool moved = false, mask_moved = false, any_new = false;
+    {
+      const float s = 1.f + q;
+      float ll[J_MAX + 1];
+#pragma unroll
+      for (int j = 0; j <= J_MAX; ++j) {
+        const float sj = s + __fmul_rn((float)j, rho);  // as js * rho
+        ll[j] = halfD * logf(sj) - inv2s2 * rss / sj;
+      }
+      float n_free = 0.f;
+      for (int k = 0; k < K; ++k) n_free += 1.f - fmaxf(actm[k], z[k]);
+      const float cap = n_free < (float)J_MAX ? n_free : (float)J_MAX;
+      const bool ok = jp <= cap;
+      const float jc = jp < 0.f ? 0.f : (jp > (float)J_MAX ? J_MAX : jp);
+      const float dll = ll[(int)jc] - ll[0];
+      const bool acc = lua < dll;
+      const float j_new = (ok && acc) ? jp : 0.f;
+      n_sat += (acc && jp <= (float)J_MAX && jp > n_free) ? 1 : 0;
+      float rank = 0.f;  // running count of free slots
+      for (int k = 0; k < K; ++k) {
+        const float fr = 1.f - fmaxf(actm[k], z[k]);
+        rank += fr;
+        const float frk = rank * fr;
+        const float b = (frk >= 1.f && frk <= j_new) ? 1.f : 0.f;
+        const float zk2 = z[k] + b;
+        const float ak2 = fmaxf(actm[k], b);
+        moved |= zk2 != zold[k];
+        mask_moved |= ak2 != act[k];
+        any_new |= b > 0.5f;
+        if (k % THREADS == tid) {
+          z2[k] = zk2;
+          nb[k] = b;
+        }
+      }
+    }
+    const bool changed = need || moved || mask_moved;
+    __syncthreads();  // z2, nb visible; act, m may move from here
+
+    // ---- add row n back: statistics, then the factor
+    if (has_drop) {
+      for (int e = tid; e < KK; e += THREADS) {
+        const int i = e / K, j = e % K;
+        ZtZ[e] = (ZtZ[e] - zold[i] * zold[j]) * (actm[i] * actm[j]) +
+                 z2[i] * z2[j];
+      }
+      for (int k = 0; k < K; ++k) {
+        float* row = ZtX + (long)k * D;
+        for (int d = tid; d < D; d += THREADS)
+          row[d] = (row[d] - zold[k] * x[d]) * actm[k] + z2[k] * x[d];
+      }
+    } else if (changed) {
+      for (int e = tid; e < KK; e += THREADS) {
+        const int i = e / K, j = e % K;
+        ZtZ[e] = ZtZ[e] + z2[i] * z2[j] - zold[i] * zold[j];
+      }
+      for (int k = 0; k < K; ++k) {
+        const float dz = z2[k] - zold[k];
+        if (dz == 0.f) continue;  // adds exact zeros
+        float* row = ZtX + (long)k * D;
+        for (int d = tid; d < D; d += THREADS) row[d] = row[d] + dz * x[d];
+      }
+    }
+    if (changed) {
+      if (!need) chol_rank1_t(Lt, p, -1.f, Lt1, rq, K);
+      if (has_drop || any_new) {  // identity swaps of dropped/born slots
+        for (int e = tid; e < KK; e += THREADS) {
+          const int i = e / K, j = e % K;
+          float l = Lt1[e] * (actm[i] * actm[j]);
+          if (i == j) {
+            l = l + (1.f - actm[i]);
+            l = l + nb[i] * sqrt_ratio_m1;
+            M1[e] = M1[e] + nb[i] / ratio;
+          }
+          Lt1[e] = l;
+        }
+        for (int k = 0; k < K; ++k) {
+          if (nb[k] == 0.f) continue;  // a factor of exactly 1
+          float* row = H1 + (long)k * D;
+          for (int d = tid; d < D; d += THREADS) row[d] = row[d] * 0.f;
+        }
+        __syncthreads();
+      }
+      // w2 = M1 z2, b_add = x - z2 H1
+      for (int i = tid; i < K; i += THREADS) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += M1[(long)i * K + j] * z2[j];
+        w2[i] = s;
+      }
+      for (int d = tid; d < D; d += THREADS) {
+        float s = 0.f;
+        for (int k = 0; k < K; ++k) s += z2[k] * H1[(long)k * D + d];
+        zH[d] = x[d] - s;
+      }
+      __syncthreads();
+      for (int i = tid; i < K; i += THREADS) {
+        float s = 0.f;
+        for (int j = 0; j < K; ++j) s += Lt1[(long)i * K + j] * w2[j];
+        pup[i] = s;
+      }
+      __syncthreads();
+      chol_rank1_t(Lt1, pup, 1.f, Lt, rq, K);
+      float d2 = 0.f;
+      for (int k = 0; k < K; ++k) d2 += z2[k] * w2[k];
+      d2 = 1.f + d2;
+      const float sq_d2 = sqrtf(d2);
+      for (int e = tid; e < KK; e += THREADS) {
+        const int i = e / K, j = e % K;
+        M[e] = M1[e] - (w2[i] / sq_d2) * (w2[j] / sq_d2);
+      }
+      for (int k = 0; k < K; ++k) {
+        const float ck = w2[k] / d2;
+        const float* H1k = H1 + (long)k * D;
+        float* Hk = H + (long)k * D;
+        for (int d = tid; d < D; d += THREADS) Hk[d] = H1k[d] + ck * zH[d];
+      }
+    }
+    for (int i = tid; i < K; i += THREADS) {
+      Z[(long)n * K + i] = z2[i];
+      act[i] = fmaxf(actm[i], nb[i]);
+      m[i] = mminus[i] * actm[i] + z2[i];
+    }
+    __syncthreads();  // end of the row: the carry and the stage are settled
+  }
+
+  for (int e = tid; e < KK; e += THREADS) ZtZ_io[e] = ZtZ[e];
+  for (int k = 0; k < K; ++k)
+    for (int d = tid; d < D; d += THREADS)
+      ZtX_io[(long)k * D + d] = ZtX[(long)k * D + d];
+  for (int i = tid; i < K; i += THREADS) {
+    active_io[i] = act[i];
+    m_io[i] = m[i];
+  }
+  if (tid == 0) {
+    counts[0] = n_refresh;
+    counts[1] = n_sat;
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The shared memory one block may opt in to, read once per device.
+int smem_optin(int device) {
+  static int cache[MAX_DEVICES] = {};
+  const bool cached = device >= 0 && device < MAX_DEVICES;
+  if (cached && cache[device] > 0) return cache[device];
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  if (cached) cache[device] = optin;
+  return optin;
+}
+
+// Bytes of dynamic shared memory the ring layout needs, and whether this
+// device grants them to one block (the static reduction slots share the
+// block's allowance).
+bool ring_fits(int device, int K, int D, size_t* bytes) {
+  *bytes = (size_t)layout(K, D, true).total * sizeof(float);
+  return *bytes + 2 * NW * sizeof(float) <= (size_t)smem_optin(device);
+}
+
+// Raise the ring kernel's dynamic shared memory limit to the device's
+// opt-in, once per device, so any layout that fits may launch.
+cudaError_t allow_smem(int device) {
+  static bool done[MAX_DEVICES] = {};
+  const bool cached = device >= 0 && device < MAX_DEVICES;
+  if (cached && done[device]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      collapsed_scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_optin(device) - (int)(2 * NW * sizeof(float)));
+  if (e == cudaSuccess && cached) done[device] = true;
+  return e;
+}
+
+}  // namespace
+
+// Floats of global scratch the kernel needs for (K, D) on `device`: 0 when
+// the carry fits in shared memory.
+extern "C" long collapsed_scan_scratch_floats(int device, int K, int D) {
+  size_t bytes;
+  if (ring_fits(device, K, D, &bytes)) return 0;
+  return layout(K, D, false).total;
+}
+
+// Z (n_rows,K), active (K), ZtZ (K,K), ZtX (K,D), m (K): updated in place;
+// X (n_rows,D), u_logit (n_rows,K), j_prop, log_u_acc (n_rows), sx, sa
+// (device scalars): read; counts (2 int32): n_refresh, n_sat; scratch:
+// collapsed_scan_scratch_floats(device, K, D) floats. Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int collapsed_scan_launch(
+    int device, float* Z, float* active, float* ZtZ, float* ZtX, float* m,
+    const float* X, const float* u_logit, const float* j_prop,
+    const float* log_u_acc, const float* sx, const float* sa, int* counts,
+    float* scratch, int n_rows, int K, int D, float N, int refresh_every,
+    float drift_tol, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  size_t bytes;
+  if (ring_fits(device, K, D, &bytes)) {
+    e = allow_smem(device);
+    if (e != cudaSuccess) return (int)e;
+    collapsed_scan_kernel<true><<<1, THREADS, bytes, stream>>>(
+        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa,
+        counts, nullptr, n_rows, K, D, N, refresh_every, drift_tol);
+  } else {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    collapsed_scan_kernel<false><<<1, THREADS, 0, stream>>>(
+        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa,
+        counts, scratch, n_rows, K, D, N, refresh_every, drift_tol);
+  }
+  return (int)cudaGetLastError();
+}

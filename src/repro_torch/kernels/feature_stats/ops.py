@@ -21,9 +21,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _launch():
-    return _build.function("feature_stats", "feature_stats_launch",
-                           [_I] + [_P] * 5 + [_I] * 3 + [_P])
+def _fns():
+    launch = _build.function("feature_stats", "feature_stats_launch",
+                             [_I] + [_P] * 6 + [_I] * 3 + [_P])
+    workspace = _build.function("feature_stats",
+                                "feature_stats_workspace_floats", [_I] * 4,
+                                ctypes.c_long)
+    return launch, workspace
 
 
 def feature_stats(X: Tensor, Z: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -37,9 +41,12 @@ def feature_stats(X: Tensor, Z: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     ztz = torch.empty((K, K), dtype=torch.float32, device=X.device)
     ztx = torch.empty((K, D), dtype=torch.float32, device=X.device)
     m = torch.empty((K,), dtype=torch.float32, device=X.device)
-    rc = _launch()(X.device.index,
-                   *(t.data_ptr() for t in (X, Z, ztz, ztx, m)), N, D, K,
-                   stream(X))
+    launch, workspace = _fns()
+    ws = torch.empty((workspace(X.device.index, N, D, K),),
+                     dtype=torch.float32, device=X.device)
+    rc = launch(X.device.index,
+                *(t.data_ptr() for t in (X, Z, ztz, ztx, m, ws)), N, D, K,
+                stream(X))
     _build.check(rc, name)
     counter.launches += 1
     return ztz, ztx, m

@@ -81,3 +81,77 @@ def collapsed_row_margin(args, z_out, k):
     z1[k] = 1.0
     lo = np.log(max(mm[k], 1e-20)) - np.log(N - mm[k]) + ll(z1) - ll(zz)
     return abs(lo - u[k]), u[k]
+
+
+def scan_case(n_rows, K, D, seed=0, lam=0.1):
+    """Inputs of one tail scan, made with numpy, float32.
+
+    The rows are a planted linear-Gaussian matrix: a third of the K slots
+    hold live features, two more features are in X but not in Z, so MH
+    births are accepted where those rows propose one (j ~ Poisson(lam)),
+    and one slot holds a singleton, dropped when its row is scanned."""
+    rng = np.random.default_rng(seed)
+    k_live = max(1, K // 3)
+    A = rng.standard_normal((k_live + 2, D))
+    Zt = (rng.random((n_rows, k_live + 2)) < 0.25).astype(np.float64)
+    X = (Zt @ A + 0.5 * rng.standard_normal((n_rows, D))).astype(np.float32)
+    Z = np.zeros((n_rows, K), np.float32)
+    Z[:, :k_live] = Zt[:, :k_live]
+    if K > k_live:
+        Z[n_rows // 3, k_live] = 1.0
+    act = (Z.sum(0) > 0).astype(np.float32)
+    uu = np.clip(rng.random((n_rows, K)), 1e-7, 1.0 - 1e-7)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(Z=Z, active=act, ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ X),
+                m=f32(Z.sum(0)), X=X, u_logit=f32(np.log(uu) - np.log1p(-uu)),
+                j_prop=f32(rng.poisson(lam, n_rows)),
+                log_u_acc=f32(np.log(rng.random(n_rows))))
+
+
+def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N):
+    """Where two scans of ``case`` first decide differently: (row, what,
+    margin, u). ``what`` is the bit k whose flip differs (margin |logodds -
+    u|) or "birth" (margin |dll - log u_acc| of the MH move). The margin
+    is computed in float64 from the statistics entering the row;
+    ``state_at(n)`` gives (active, m) there, from the plain scan."""
+    diff = np.argwhere(np.any(Z_plain != Z_kernel, axis=1))
+    if len(diff) == 0:
+        return None
+    n = int(diff[0, 0])
+    act, m = (np.asarray(a, np.float64) for a in state_at(n))
+    X = case["X"].astype(np.float64)
+    Zs = np.concatenate([Z_plain[:n], case["Z"][n:]]).astype(np.float64)
+    D = X.shape[1]
+    z_old = Zs[n]
+    m_minus = m - z_old
+    drop = act * (m_minus <= 0.5)
+    act_m = act * (1.0 - drop)
+    keep = np.arange(len(Zs)) != n
+    Zm, Xm = Zs[keep] * act_m, X[keep]
+    ratio = (sx / sa) ** 2
+    W = Zm.T @ Zm + ratio * np.diag(act_m) + np.diag(1.0 - act_m)
+    M = np.linalg.inv(W) * np.outer(act_m, act_m)
+    H = M @ (Zm.T @ Xm)
+    x, inv2s2 = X[n], 0.5 / sx**2
+
+    def ll(zz, extra=0.0):
+        s = 1.0 + zz @ M @ zz + extra
+        r = x - zz @ H
+        return -0.5 * D * np.log(s) - inv2s2 * (r @ r) / s
+
+    zz = z_old * (1.0 - drop)
+    u = case["u_logit"][n]
+    for k in range(len(zz)):
+        if not (act_m[k] > 0 and m_minus[k] > 0.5):
+            continue
+        z0, z1 = zz.copy(), zz.copy()
+        z0[k], z1[k] = 0.0, 1.0
+        lo = np.log(max(m_minus[k], 1e-20)) - np.log(N - m_minus[k]) \
+            + ll(z1) - ll(z0)
+        if Z_plain[n, k] != Z_kernel[n, k]:
+            return n, k, abs(lo - u[k]), u[k]
+        zz[k] = Z_plain[n, k]
+    j = min(float(case["j_prop"][n]), 4.0)
+    dll = ll(zz, j * (sa / sx) ** 2) - ll(zz)
+    lu = case["log_u_acc"][n]
+    return n, "birth", abs(dll - lu), lu

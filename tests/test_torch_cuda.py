@@ -8,7 +8,12 @@ skip. Run them on the GPU machine with
 Tolerances are those of tests/test_torch_kernels.py; feature_stats and
 gaussian_sse are held against the plain version evaluated in float64 (a
 float32 sum in any order is itself off by more than atol on long
-reductions). No JAX is imported: the GPU machine has none.
+reductions). The tail scan kernel is held against its plain version (the
+Python row loop, flips through collapsed_row_flip_ref) on the same inputs
+and draws: Z, the mask, m, ZtZ and the saturation count equal, ZtX at
+feature_stats' tolerance; the two may first differ only at a
+float-boundary event, whose row and margin the test names. No JAX is
+imported: the GPU machine has none.
 """
 import numpy as np
 import pytest
@@ -21,9 +26,12 @@ from _torch_cases import (
     assert_decisions_match,
     collapsed_row_margin,
     gibbs_margin,
+    scan_case,
+    scan_divergence,
 )
 
 from repro_torch.kernels.collapsed_row import collapsed_row_flip, collapsed_row_flip_ref
+from repro_torch.kernels.collapsed_scan import collapsed_scan, collapsed_scan_ref
 from repro_torch.kernels.feature_stats import feature_stats, feature_stats_ref
 from repro_torch.kernels.gaussian_sse import gaussian_sse, gaussian_sse_ref
 from repro_torch.kernels.gibbs_flip import gibbs_flip_core, gibbs_flip_ref
@@ -77,3 +85,67 @@ def test_stats_kernels_match_plain(cuda, N, D, K):
     np.testing.assert_allclose(
         float(gaussian_sse(X, Z, A, act)),
         float(gaussian_sse_ref(X.double(), Z, A, act)), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,K", [(1000, 36, 12), (777, 100, 5),
+                                   (4099, 1024, 64), (33, 20, 70)])
+def test_feature_stats_kernel_exact_and_repeatable(cuda, N, D, K):
+    X, Z, _, _, _ = _inputs(N, D, K, seed=N)
+    X, Z = (t.to(cuda) for t in _t(X, Z))
+    got = feature_stats(X, Z)
+    want = feature_stats_ref(X.double(), Z.double())
+    np.testing.assert_array_equal(got[0].double().cpu(), want[0].cpu())
+    np.testing.assert_array_equal(got[2].double().cpu(), want[2].cpu())
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    for a, b in zip(got, feature_stats(X, Z)):
+        assert torch.equal(a, b)  # no atomics: every call bitwise equal
+
+
+SCAN_SX, SCAN_SA = 0.5, 1.0
+
+
+def _scan(fn, case, dev, n_rows=None, refresh=16):
+    rows = slice(None, n_rows)
+    t = {k: torch.tensor(v[rows] if k in ("Z", "X", "u_logit", "j_prop",
+                                           "log_u_acc") else v, device=dev)
+         for k, v in case.items()}  # copies: the scan works in place
+    N = 4.0 * case["X"].shape[0]
+    counts = fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
+                t["u_logit"], t["j_prop"], t["log_u_acc"],
+                torch.tensor(SCAN_SX, device=dev),
+                torch.tensor(SCAN_SA, device=dev), N=N, refresh_every=refresh,
+                drift_tol=1e-2)
+    out = {k: t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX", "m")}
+    return out, counts.cpu().numpy()
+
+
+# K=8 D=1024 is the main path's tail; D=36 the CLI's; K=32 D=1024 keeps
+# its carry in global memory (too large for one block's shared memory)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,K,D", [(512, 8, 1024), (600, 8, 36),
+                                        (256, 32, 1024)])
+def test_collapsed_scan_kernel_matches_plain(cuda, n_rows, K, D):
+    case = scan_case(n_rows, K, D, seed=K + D)
+    got, cg = _scan(collapsed_scan, case, cuda)
+    want, cw = _scan(collapsed_scan_ref, case, cuda)
+    # the case exercises refreshes and births (the singleton slot drops)
+    assert cw[0] > 0 and np.any(want["Z"][:, case["active"] < 0.5] > 0)
+    ev = scan_divergence(
+        case, want["Z"], got["Z"],
+        lambda n: (_scan(collapsed_scan_ref, case, cuda, n)[0][k]
+                   for k in ("active", "m")),
+        SCAN_SX, SCAN_SA, 4.0 * n_rows)
+    if ev is not None:
+        n, what, margin, u = ev
+        assert margin < 1e-3 * (1.0 + abs(u)), (
+            f"scans diverge at row {n} ({what}) away from a float boundary: "
+            f"margin {margin}")
+        print(f"float-boundary event at row {n} ({what}), margin {margin}")
+        np.testing.assert_array_equal(got["Z"][:n], want["Z"][:n])
+        return  # the scans follow different chains from there
+    for k in ("Z", "active", "m", "ZtZ"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
+    assert cg[1] == cw[1]  # capacity-vetoed births
