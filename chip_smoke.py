@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code non-zero):
 2. Build: the five CUDA kernels from src/repro_torch/kernels/csrc into
    build/repro_torch_kernels (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions at the main path's
-   shapes (collapsed_scan: one tail sub-iteration, N_p rows). Each
+   shapes (collapsed_scan: one tail sub-iteration, N_p rows;
+   gaussian_sse: the sync's N=32768 in float32 and bfloat16, a
+   real-valued Z, and the held-out eval's N=1024). Each
    kernel's device time (torch.profiler) and call time (CUDA events) are
    medians of REPS calls, beside its plain version, a one-call PyTorch
    yardstick where there is one, and the least time the card could take
@@ -458,15 +460,26 @@ def check_stats_kernels(dev) -> list[dict]:
         **library(lambda: torch.matmul(Zt, ZX1)),
         library_call="torch.matmul(Z^T, [Z | X | 1])"))
 
-    # gaussian_sse: f32 and bf16 inputs, against the plain version in
-    # float64 on the same (rounded) inputs
+    # gaussian_sse: f32 and bf16 inputs at the sync's shape, a real-valued
+    # Z (f32; the kernel then runs its third product) and the held-out
+    # eval's N=1024 (f32); each against the plain version in float64 on the
+    # same (rounded) inputs, and two calls bitwise equal
+    Zr = Z * torch.from_numpy(
+        rng.uniform(0.5, 1.5, (N, K)).astype(np.float32)).to(dev)
     variants = []
-    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        Xd, Zd, Ad, actd = (t.to(dt) for t in (X, Z, A, act))
-        got = float(gaussian_sse(Xd, Zd, Ad, actd))
+    for dt, rows, Zv, tag in ((torch.float32, N, Z, ""),
+                              (torch.bfloat16, N, Z, ""),
+                              (torch.float32, N, Zr, " real_z"),
+                              (torch.float32, FULL["N_eval"], Z, "")):
+        rtol = 1e-5 if dt == torch.float32 else 2e-2
+        Xd, Zd, Ad, actd = (t.to(dt) for t in (X[:rows], Zv[:rows], A, act))
+        first = gaussian_sse(Xd, Zd, Ad, actd)
+        if not torch.equal(first, gaussian_sse(Xd, Zd, Ad, actd)):
+            raise AssertionError(f"gaussian_sse {dt}{tag}: two calls differ")
+        got = float(first)
         want = float(gaussian_sse_ref(Xd.double(), Zd, Ad, actd))
         if not math.isclose(got, want, rel_tol=rtol):
-            raise AssertionError(f"gaussian_sse {dt}: {got} vs {want}")
+            raise AssertionError(f"gaussian_sse {dt}{tag}: {got} vs {want}")
         if dt == torch.bfloat16:
             # the rounding of the inputs: the float32 plain version too
             ref32 = float(gaussian_sse_ref(Xd, Zd, Ad, actd))
@@ -474,19 +487,21 @@ def check_stats_kernels(dev) -> list[dict]:
                 raise AssertionError(f"gaussian_sse bf16: {got} vs {ref32}")
         esz = 4 if dt == torch.float32 else 2
         Zm = (Zd * actd).to(dt)
-        nbytes = esz * (N * D + N * K + K * D + K) + 4.0
-        nnz = float((Z * act != 0).sum())
-        flops = nnz * D + 3.0 * N * D
+        nbytes = esz * (rows * D + rows * K + K * D + K) + 4.0
+        nnz = float((Zv[:rows] * act != 0).sum())
+        flops = nnz * D + 3.0 * rows * D
         b, by = bound_ms(nbytes, flops)
         variants.append(dict(
-            shape=f"N={N} K={K} D={D} {str(dt).split('.')[-1]}",
+            shape=f"N={rows} K={K} D={D} {str(dt).split('.')[-1]}{tag}",
             max_abs_err=abs(got - want), rel_err=abs(got - want) / want,
             **timed(lambda: gaussian_sse(Xd, Zd, Ad, actd),
-                    ("sse_partial_kernel", "sse_final_kernel")),
+                    ("sse_mma_kernel", "sse_final_kernel")),
             plain_ms=time_ms(lambda: gaussian_sse_ref(Xd, Zd, Ad, actd)),
             bound_ms=b, bound_by=by,
             **library(lambda: torch.addmm(Xd, Zm, Ad, alpha=-1).float()
-                      .square().sum())))
+                      .square().sum()),
+            # one read of X alone: the floor the fused kernel approaches
+            read_x_ms=device_ms(lambda: Xd.sum(dtype=torch.float32), ("",))))
     main = dict(name="gaussian_sse", **variants[0],
                 library_call="torch.addmm(X, Z*active, A, alpha=-1)"
                              ".square().sum()")
@@ -716,8 +731,8 @@ def main() -> int:
             library_ms=r["library_ms"],
             library_call_ms=r.get("library_call_ms"), shape=r["shape"],
             library_call=r["library_call"],
-            **{k: r[k] for k in ("boundary_event", "n_refresh", "n_sat")
-               if k in r},
+            **{k: r[k] for k in ("boundary_event", "n_refresh", "n_sat",
+                                 "read_x_ms") if k in r},
             launches_cli=cli_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", [])))

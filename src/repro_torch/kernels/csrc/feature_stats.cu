@@ -40,7 +40,7 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -56,50 +56,6 @@ constexpr int LDS = BM + 8;     // padded smem row: conflict-free fragments
 static_assert(BN == BM, "one padded row length for both operands");
 constexpr int STAGE_FLOATS = 2 * BK * LDS;  // Z rows, then Y rows
 constexpr int SMEM_BYTES = NSTAGE * STAGE_FLOATS * (int)sizeof(float);
-
-// The split by truncation: hi keeps the top 19 bits (tf32), lo = x - hi
-// is exact in float32, and the tensor cores read lo's top 19 bits, so
-// hi + lo is within about 2^-21 |x| of x; a binary z gives hi = z and
-// lo = 0. No conversion instruction: on this kernel's critical path
-// cvt.rna.tf32 cost more than the rounding it buys.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Stage rows [r0, r0 + BK) x columns [c0, c0 + 64) of src (ld ncols) into
-// dst (ld LDS): 16-byte copies where a group of 4 lies inside and ``vec``
-// says rows are 16-byte aligned, else 4-byte copies; zeros outside.
-__device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           long r0, long rend, int c0,
-                                           int ncols, bool vec) {
-  for (int g = threadIdx.x; g < BK * 16; g += THREADS) {
-    const int r = g >> 4, c = (g & 15) * 4;
-    const long row = r0 + r;
-    float* d = dst + r * LDS + c;
-    const int col = c0 + c;
-    if (row < rend && vec && col + 3 < ncols) {
-      cp_async16(d, src + row * ncols + col);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (row < rend && col + j < ncols)
-          cp_async4(d + j, src + row * ncols + col + j);
-        else
-          d[j] = 0.f;
-      }
-    }
-  }
-}
 
 // grid (tiles, chunks). Tile t: feature tile t / nyt, column tile t % nyt
 // of Y = [X | Z] (the first ceil(D/BN) are X tiles). ws[(chunk K + k)
@@ -142,8 +98,9 @@ feature_stats_partial_kernel(const float* __restrict__ X,
   auto load = [&](int s) {
     float* st = sh + (s % NSTAGE) * STAGE_FLOATS;
     const long r0 = r_begin + (long)s * BK;
-    stage_tile(st, Z, r0, r_end, m0, K, vz);
-    stage_tile(st + BK * LDS, Ysrc, r0, r_end, y0, ycols, vy);
+    stage_tile<float, BK, BM, LDS, THREADS>(st, Z, r0, r_end, m0, K, vz);
+    stage_tile<float, BK, BN, LDS, THREADS>(st + BK * LDS, Ysrc, r0, r_end,
+                                            y0, ycols, vy);
   };
 
 #pragma unroll
@@ -252,19 +209,6 @@ struct Plan {
 };
 
 constexpr int MAX_DEVICES = 64;
-
-// The device's SM count, read once per device (the launch path is on the
-// host's critical path of every call).
-int sm_count(int device) {
-  static int cache[MAX_DEVICES] = {};
-  if (device < 0 || device >= MAX_DEVICES) return 132;
-  if (cache[device] == 0) {
-    int sms = 132;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cache[device] = sms;
-  }
-  return cache[device];
-}
 
 Plan plan(int device, int N, int D, int K) {
   Plan p;

@@ -2,7 +2,11 @@
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
 kernel on the current stream or raise. X, Z, A and active share one
-dtype, float32 or bfloat16; the result is a float32 0-d tensor.
+dtype, float32 or bfloat16; Z may hold any values, active is the
+sampler's 0/1 mask (the bfloat16 kernel rounds z*active to bfloat16,
+exact for a 0/1 mask); the result is a float32 0-d tensor. The kernel's
+partial sums go to a float64 scratch allocated here, one per block of
+its first pass.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fns():
     launch = _build.function("gaussian_sse", "gaussian_sse_launch",
                              [_I] + [_P] * 6 + [_I] * 4 + [_P])
-    blocks = _build.function("gaussian_sse", "gaussian_sse_blocks", [_I])
+    blocks = _build.function("gaussian_sse", "gaussian_sse_blocks", [_I] * 3)
     return launch, blocks
 
 
@@ -42,7 +46,8 @@ def gaussian_sse(X: Tensor, Z: Tensor, A: Tensor, active: Tensor) -> Tensor:
     expect(name, (X.dtype,), X=(X, (N, D)), Z=(Z, (N, K)), A=(A, (K, D)),
            active=(active, (K,)))
     launch, blocks = _fns()
-    partial = torch.empty((blocks(N),), dtype=torch.float64, device=X.device)
+    partial = torch.empty((blocks(X.device.index, N, D),),
+                          dtype=torch.float64, device=X.device)
     out = torch.empty((), dtype=torch.float32, device=X.device)
     rc = launch(X.device.index,
                 *(t.data_ptr() for t in (X, Z, A, active, partial, out)),

@@ -103,6 +103,34 @@ def test_feature_stats_kernel_exact_and_repeatable(cuda, N, D, K):
         assert torch.equal(a, b)  # no atomics: every call bitwise equal
 
 
+# shapes that are not tile multiples (128 rows, 64 columns, 16-64 k), one
+# with K > 64 (Z walked in two chunks), the eval's N=1024 (D split across
+# blocks) and a sync-like 4099 rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,K", [(1000, 36, 12), (777, 100, 5), (33, 20, 70),
+                                   (1024, 1024, 64), (4099, 1024, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gaussian_sse_kernel_matches_plain(cuda, N, D, K, dtype):
+    X, Z, A, act, rng = _inputs(N, D, K, seed=N + K)
+    Zr = Z * rng.uniform(0.5, 1.5, Z.shape).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    rtol = 1e-5 if dtype == "float32" else 2e-2
+    cases = {"binary": (Z, act), "real_z": (Zr, act),
+             "inactive": (Z, np.zeros_like(act))}
+    for case, (z, a) in cases.items():
+        Xd, Zd, Ad, actd = (t.to(cuda, tdt) for t in _t(X, z, A, a))
+        got = gaussian_sse(Xd, Zd, Ad, actd)
+        assert got.dtype == torch.float32 and got.shape == ()
+        want = float(gaussian_sse_ref(Xd.double(), Zd, Ad, actd))
+        np.testing.assert_allclose(float(got), want, rtol=rtol, err_msg=case)
+        if dtype == "bfloat16":  # and the float32 plain version
+            np.testing.assert_allclose(
+                float(got), float(gaussian_sse_ref(Xd, Zd, Ad, actd)),
+                rtol=rtol, err_msg=case)
+        # no atomics: every call bitwise equal
+        assert torch.equal(got, gaussian_sse(Xd, Zd, Ad, actd)), case
+
+
 SCAN_SX, SCAN_SA = 0.5, 1.0
 
 

@@ -91,10 +91,20 @@ def test_feature_stats_matches_reference(N, D, K):
     np.testing.assert_allclose(ztx, ztx_w, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("N,D,K", SHAPES)
+# binary Z at SHAPES and the CLI's shape (N=900, D=36, K=32); real-valued
+# Z (the kernel takes any Z, not only the sampler's 0/1)
+SSE_CASES = ([pytest.param(*s, False, id="-".join(map(str, s)))
+              for s in SHAPES + [(900, 36, 32)]]
+             + [pytest.param(*s, True, id="-".join(map(str, s)) + "-realz")
+                for s in [(100, 36, 16), (33, 20, 5), (900, 36, 32)]])
+
+
+@pytest.mark.parametrize("N,D,K,real_z", SSE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gaussian_sse_matches_reference(N, D, K, dtype):
-    X, Z, A, act, _ = _inputs(N, D, K)
+def test_gaussian_sse_matches_reference(N, D, K, real_z, dtype):
+    X, Z, A, act, rng = _inputs(N, D, K)
+    if real_z:
+        Z = Z * rng.uniform(0.5, 1.5, Z.shape).astype(np.float32)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = getattr(torch, dtype)
     want = float(jax_gaussian_sse(*(jnp.asarray(a, jdt) for a in (X, Z, A, act)),
