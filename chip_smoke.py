@@ -5,9 +5,12 @@ Phases, each of which raises on failure (exit code non-zero):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: the five CUDA kernels from src/repro_torch/kernels/csrc into
-   build/repro_torch_kernels (one nvcc per source, in parallel).
+   build/repro_torch_kernels (one nvcc per source, in parallel); the
+   HMMA (tensor-core) instructions of each kernel in its SASS.
 3. Kernels against their plain PyTorch versions at the main path's
-   shapes (collapsed_scan: one tail sub-iteration, N_p rows;
+   shapes (gibbs_flip: the sweep's N=32768 and the held-out eval's
+   N=1024 from Z=0, beside one read of X and the product X A^T alone;
+   collapsed_scan: one tail sub-iteration, N_p rows;
    gaussian_sse: the sync's N=32768 in float32 and bfloat16, a
    real-valued Z, and the held-out eval's N=1024). Each
    kernel's device time (torch.profiler) and call time (CUDA events) are
@@ -157,6 +160,34 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def sass_hmma(names: tuple[str, ...]) -> dict[str, dict[str, list[int]]]:
+    """Tensor-core instructions in each built library's SASS
+    (cuobjdump --dump-sass): {library: {kernel: [HMMA count per
+    instance]}}; {} where cuobjdump is missing."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists() and shutil.which("cuobjdump") is None:
+        return {}
+    tool = str(tool) if tool.exists() else "cuobjdump"
+    out: dict[str, dict[str, list[int]]] = {}
+    for lib in names:
+        sass = subprocess.run([tool, "--dump-sass", str(_build._target(lib))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts: dict[str, list[int]] = {}
+        for part in sass.split("Function : ")[1:]:
+            fn = re.findall(r"(?:^|\d)([a-z][a-z_]*_kernel)",
+                            part.split("\n", 1)[0])
+            counts.setdefault(fn[-1] if fn else "?", []).append(
+                part.count("HMMA"))
+        out[lib] = counts
+    return out
+
+
 def planted_data(N: int, D: int, K_true: int, p: float, sigma_n: float,
                  seed: int):
     """X = Z A + noise: K_true N(0,1) feature rows, Bernoulli(p) Z."""
@@ -186,7 +217,29 @@ def gibbs_margin(X, Z_in, Z_out, A, lpi, inv2s2, u, n, k) -> float:
     return float(abs(logit - u[n, k].double()))
 
 
+def gibbs_decisions_ok(X, Z, got, want, A, lpi, inv2s2, u, tag) -> int:
+    """At most a 1e-5 share of decisions differ, each row's first
+    difference at |logit - u| < 1e-3 in float64; returns the count."""
+    diff = (got != want).nonzero().tolist()
+    frac = len(diff) / got.numel()
+    if frac > 1e-5:
+        raise AssertionError(f"gibbs_flip{tag}: {len(diff)} decisions differ "
+                             f"({frac:.2e} > 1e-5)")
+    rows = sorted({n for n, _ in diff})
+    for n in rows:
+        k = min(kk for nn, kk in diff if nn == n)
+        m = gibbs_margin(X, Z, want, A, lpi, inv2s2, u, n, k)
+        if not m < 1e-3:
+            raise AssertionError(f"gibbs_flip{tag}: decision ({n},{k}) "
+                                 f"differs away from the boundary "
+                                 f"(|logit-u|={m})")
+    return len(diff)
+
+
 def check_gibbs_flip(dev) -> dict:
+    """The sweep at the main path's shape (N=32768) and at the held-out
+    eval's (N=1024, from Z = 0), against the plain version (the residual
+    form in float32); two calls bitwise equal."""
     import numpy as np
     import torch
 
@@ -207,39 +260,45 @@ def check_gibbs_flip(dev) -> dict:
     lpi = _logit(torch.rand((K,), generator=g, device=dev))
     u = _logit(torch.rand((N, K), generator=g, device=dev))
     inv2s2 = torch.tensor(0.5 / 0.5**2, device=dev)
-    args = (X, Z, A, lpi, act, u, inv2s2)
-    got = gibbs_flip_core(*args)
-    want = gibbs_flip_ref(*args)
-    torch.cuda.synchronize()
-    diff = (got != want).nonzero().tolist()
-    frac = len(diff) / (N * K)
-    if frac > 1e-5:
-        raise AssertionError(f"gibbs_flip: {len(diff)} decisions differ "
-                             f"({frac:.2e} > 1e-5)")
-    rows = sorted({n for n, _ in diff})
-    for n in rows:
-        k = min(kk for nn, kk in diff if nn == n)
-        m = gibbs_margin(X, Z, want, A, lpi, inv2s2, u, n, k)
-        if not m < 1e-3:
-            raise AssertionError(f"gibbs_flip: decision ({n},{k}) differs "
-                                 f"away from the boundary (|logit-u|={m})")
-    # bytes: X, Z, A, logit_pi, active, u read once; Z written once.
-    # operations this data needs: the initial residual (one multiply-add
-    # per nonzero z per column) and, per active column, the dot product
-    # plus the residual move of the rows whose bit changed
-    nnz = float((Z != 0).sum())
     n_act = float(act.sum())
-    moved = float((got != Z).sum())
-    nbytes = 4.0 * (N * D + 3 * N * K + K * D + 2 * K)
-    flops = 2.0 * D * (nnz + N * n_act + moved)
-    b, by = bound_ms(nbytes, flops)
-    return dict(name="gibbs_flip", shape=f"N={N} K={K} D={D}",
-                max_abs_err=float((got - want).abs().max()),
-                mismatched_decisions=len(diff),
-                **timed(lambda: gibbs_flip_core(*args),
-                        ("gibbs_flip_kernel", "anorm_kernel")),
-                plain_ms=time_ms(lambda: gibbs_flip_ref(*args)),
-                bound_ms=b, bound_by=by, library_ms=None, library_call=None)
+    n_eval = FULL["N_eval"]
+    variants = []
+    for rows, Zv, tag in ((N, Z, ""),
+                          (n_eval, torch.zeros_like(Z[:n_eval]), " from Z=0")):
+        Xv, uv = X[:rows], u[:rows]
+        args = (Xv, Zv, A, lpi, act, uv, inv2s2)
+        got = gibbs_flip_core(*args)
+        if not torch.equal(got, gibbs_flip_core(*args)):
+            raise AssertionError(f"gibbs_flip{tag}: two calls differ")
+        want = gibbs_flip_ref(*args)
+        torch.cuda.synchronize()
+        n_diff = gibbs_decisions_ok(Xv, Zv, got, want, A, lpi, inv2s2, uv,
+                                    tag)
+        # bytes: X, Z, A, logit_pi, active, u read once; Z written once.
+        # operations this data needs in Gram form: P = X A^T over the
+        # active columns, G over them, the carry z G over the nonzero z,
+        # and one K-wide carry move per flip
+        nnz = float((Zv != 0).sum())
+        moved = float((got != Zv).sum())
+        nbytes = 4.0 * (rows * D + 3 * rows * K + K * D + 2 * K)
+        flops = 2.0 * n_act * (rows * D + K * D + nnz + moved)
+        b, by = bound_ms(nbytes, flops)
+        variants.append(dict(
+            shape=f"N={rows} K={K} D={D}{tag}",
+            max_abs_err=float((got - want).abs().max()),
+            mismatched_decisions=n_diff, flips=moved,
+            **timed(lambda: gibbs_flip_core(*args),
+                    ("gibbs_gram_kernel", "gibbs_flip_kernel")),
+            plain_ms=time_ms(lambda: gibbs_flip_ref(*args)),
+            bound_ms=b, bound_by=by,
+            # one read of X, and the product X A^T alone (no PyTorch call
+            # computes the sweep, so there is no library_ms)
+            read_x_ms=device_ms(lambda: Xv.sum(), ("",)),
+            product_ms=device_ms(lambda: torch.matmul(Xv, A.T), ("",))))
+    main = dict(name="gibbs_flip", **variants[0], library_ms=None,
+                library_call=None)
+    main["variants"] = variants[1:]
+    return main
 
 
 def collapsed_row_inputs(K: int, D: int, dev, seed: int):
@@ -677,6 +736,10 @@ def main() -> int:
             if "Used " in line or "spill" in line:
                 log(f"[2]   {name}: {line.strip()}")
 
+    sass = sass_hmma(KERNELS)
+    for name, counts in sass.items():
+        log(f"[2]   {name} SASS HMMA per kernel instance: {counts}")
+
     # phase 3: kernels against their plain versions
     t0 = time.perf_counter()
     results = {r["name"]: r for r in
@@ -732,7 +795,8 @@ def main() -> int:
             library_call_ms=r.get("library_call_ms"), shape=r["shape"],
             library_call=r["library_call"],
             **{k: r[k] for k in ("boundary_event", "n_refresh", "n_sat",
-                                 "read_x_ms") if k in r},
+                                 "read_x_ms", "product_ms") if k in r},
+            sass_hmma=sass.get(name),
             launches_cli=cli_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", [])))

@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the port's kernels: the 3xTF32 split,
-// the mma.sync wrappers (TF32 m16n8k8, bf16 m16n8k16), ldmatrix, and the
-// cp.async staging of a tile of a row-major matrix into shared memory.
+// the mma.sync wrappers (TF32 m16n8k8, bf16 m16n8k16, f64 m8n8k4),
+// ldmatrix, and the cp.async staging of a tile of a row-major matrix into
+// shared memory.
 //
 // Fragment layouts (PTX ISA, mma.sync m16n8k8 .tf32 and m16n8k16 .bf16),
 // with g = lane / 4 and t = lane % 4:
@@ -46,6 +47,17 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b, float64 (m8n8k4, the FP64 tensor cores): thread (g, t) holds
+// a (g, t) of A (8x4, row), b (t, g) of B (4x8, col) and c (g, 2t),
+// (g, 2t+1) of C.
+__device__ __forceinline__ void mma_f64(double* c, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
 // Four 8x8 b16 matrices from shared memory, transposed: lane l gives the

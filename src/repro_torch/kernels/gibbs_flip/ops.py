@@ -1,7 +1,10 @@
 """Wrapper of the gibbs_flip kernel (``csrc/gibbs_flip.cu``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel on the current stream or raise.
+kernel on the current stream or raise. The kernel sweeps in Gram form:
+G = A A^T over the active columns goes to a float64 scratch of K*K
+entries allocated here; K is at most ``gibbs_flip_max_k()`` (256) on the
+card.
 """
 from __future__ import annotations
 
@@ -23,10 +26,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _fns():
     launch = _build.function("gibbs_flip", "gibbs_flip_launch",
-                             [_I] + [_P] * 10 + [_I] * 3 + [_P])
-    scratch = _build.function("gibbs_flip", "gibbs_flip_scratch_floats",
-                              [_I, _I], ctypes.c_long)
-    return launch, scratch
+                             [_I] + [_P] * 9 + [_I] * 3 + [_P])
+    max_k = _build.function("gibbs_flip", "gibbs_flip_max_k", [])
+    return launch, max_k()
 
 
 def gibbs_flip_core(
@@ -47,11 +49,13 @@ def gibbs_flip_core(
     expect(name, (torch.float32,), X=(X, (N, D)), Z=(Z, (N, K)),
            A=(A, (K, D)), logit_pi=(logit_pi, (K,)), active=(active, (K,)),
            u_logit=(u_logit, (N, K)), inv2s2=(inv2s2, ()))
-    launch, scratch = _fns()
+    launch, max_k = _fns()
+    if K > max_k:
+        raise ValueError(f"{name}: K={K} columns, the kernel takes at most "
+                         f"{max_k} (its float64 P tile fills shared memory)")
     out = torch.empty_like(Z)
-    anorm = torch.empty((K,), dtype=torch.float32, device=X.device)
-    rg = torch.empty((scratch(N, D),), dtype=torch.float32, device=X.device)
-    bufs = (X, Z, A, logit_pi, active, u_logit, inv2s2, anorm, out, rg)
+    gram = torch.empty((K * K,), dtype=torch.float64, device=X.device)
+    bufs = (X, Z, A, logit_pi, active, u_logit, inv2s2, gram, out)
     rc = launch(X.device.index, *(t.data_ptr() for t in bufs), N, D, K,
                 stream(X))
     _build.check(rc, name)

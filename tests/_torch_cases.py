@@ -22,6 +22,30 @@ def _t(*arrays):
     return [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
+def gibbs_planted_case(N, D, K, n_active=40, k_true=24, seed=0):
+    """Sweep inputs with real cancellation, as chip_smoke's gibbs_flip
+    check makes them: X = Z_true A_true + 0.5 noise (k_true N(0,1)
+    features, Bernoulli(0.3) Z_true), A = 0.3 N(0,1) with its first
+    k_true rows near A_true, the first n_active columns active and
+    Bernoulli(0.3) on them, logit(pi) and u logit-uniforms, inv2s2 = 2
+    (sigma 0.5). Returns X, Z, A, lpi, act, u, inv2s2."""
+    rng = np.random.default_rng(seed)
+    A_true = rng.standard_normal((k_true, D)).astype(np.float32)
+    Zt = (rng.random((N, k_true)) < 0.3).astype(np.float32)
+    X = (Zt @ A_true + 0.5 * rng.standard_normal((N, D))).astype(np.float32)
+    A = (0.3 * rng.standard_normal((K, D))).astype(np.float32)
+    A[:k_true] = A_true + 0.05 * rng.standard_normal((k_true, D))
+    act = (np.arange(K) < n_active).astype(np.float32)
+    Z = ((rng.random((N, K)) < 0.3) * act).astype(np.float32)
+
+    def logit(p):
+        p = np.clip(p, 1e-6, 1 - 1e-6)
+        return (np.log(p) - np.log1p(-p)).astype(np.float32)
+
+    return (X, Z, A, logit(rng.random(K)), act, logit(rng.random((N, K))),
+            np.float32(2.0))
+
+
 def gibbs_margin(X, Z_in, Z_out, A, lpi, inv2s2, u, n, k):
     """|logit - u| of decision (n, k) in float64, with bits < k taken from
     the output row and bits > k from the input row."""

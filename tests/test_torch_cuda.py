@@ -26,6 +26,7 @@ from _torch_cases import (
     assert_decisions_match,
     collapsed_row_margin,
     gibbs_margin,
+    gibbs_planted_case,
     scan_case,
     scan_divergence,
 )
@@ -45,19 +46,46 @@ def cuda():
     return torch.device("cuda")
 
 
+# beside SHAPES: K=70 (52 active columns, G in shared memory), K=130 (103
+# active: P in two passes of 64 columns, G read from L2), K=256 (214
+# active: four passes, Z and u read from global memory too), K=1, row
+# counts that are not multiples of the 64-row tile, an all-zero mask
+# ("inactive") and planted data whose dot products cancel ("planted")
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D,K", SHAPES + [(1000, 1500, 12)])
-def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K):
-    X, Z, A, act, rng = _inputs(N, D, K)
-    lpi = rng.standard_normal(K).astype(np.float32)
-    u = (rng.standard_normal((N, K)) * 2).astype(np.float32)
-    args = [t.to(cuda) for t in _t(X, Z, A, lpi, act, u, np.float32(0.5))]
-    got = gibbs_flip_core(*args).cpu().numpy()
+@pytest.mark.parametrize("N,D,K,case", [
+    *[(*s, "random") for s in SHAPES + [(1000, 1500, 12)]],
+    (1000, 300, 70, "random"), (517, 200, 130, "random"),
+    (200, 64, 256, "random"), (300, 50, 1, "random"),
+    (129, 64, 64, "inactive"), (2049, 1024, 64, "planted")])
+def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K, case):
+    if case == "planted":
+        X, Z, A, lpi, act, u, inv2s2 = gibbs_planted_case(N, D, K, seed=N)
+    else:
+        X, Z, A, act, rng = _inputs(N, D, K)
+        lpi = rng.standard_normal(K).astype(np.float32)
+        u = (rng.standard_normal((N, K)) * 2).astype(np.float32)
+        inv2s2 = np.float32(0.5)
+        if case == "inactive":
+            act = np.zeros_like(act)
+    args = [t.to(cuda) for t in _t(X, Z, A, lpi, act, u, inv2s2)]
+    first = gibbs_flip_core(*args)
+    assert torch.equal(first, gibbs_flip_core(*args))  # bitwise repeatable
+    got = first.cpu().numpy()
     want = gibbs_flip_ref(*args).cpu().numpy()
+    np.testing.assert_array_equal(got[:, act < 0.5], Z[:, act < 0.5])
     assert_decisions_match(
         got, want,
-        lambda n, k: (gibbs_margin(X, Z, want, A, lpi, 0.5, u, n, k),
+        lambda n, k: (gibbs_margin(X, Z, want, A, lpi, inv2s2, u, n, k),
                       u[n, k]), rel=1e-3, budget=max(1, N * K // 100000))
+
+
+@pytest.mark.cuda
+def test_gibbs_flip_kernel_rejects_too_many_columns(cuda):
+    X, Z, A, act, rng = _inputs(8, 16, 257)
+    args = [t.to(cuda) for t in _t(X, Z, A, np.zeros(257, np.float32), act,
+                                     np.zeros_like(Z), np.float32(0.5))]
+    with pytest.raises(ValueError, match="at most 256"):
+        gibbs_flip_core(*args)
 
 
 @pytest.mark.cuda

@@ -34,12 +34,13 @@ from _torch_cases import (
     assert_decisions_match,
     collapsed_row_margin,
     gibbs_margin,
+    gibbs_planted_case,
 )
 from repro_torch.kernels import _build
 from repro_torch.kernels.collapsed_row import collapsed_row_flip
 from repro_torch.kernels.feature_stats import feature_stats
 from repro_torch.kernels.gaussian_sse import gaussian_sse
-from repro_torch.kernels.gibbs_flip import gibbs_flip_core
+from repro_torch.kernels.gibbs_flip import gibbs_flip_core, gibbs_flip_gram_ref
 
 torch.set_num_threads(1)
 
@@ -55,6 +56,32 @@ def test_gibbs_flip_matches_reference(N, D, K):
                                      jnp.asarray(act), jnp.asarray(u),
                                      jnp.float32(inv2s2), block_n=32))
     got = gibbs_flip_core(*_t(X, Z, A, lpi, act, u, inv2s2)).numpy()
+    assert set(np.unique(got)).issubset({0.0, 1.0})
+    np.testing.assert_array_equal(got[:, act < 0.5], Z[:, act < 0.5])
+    assert_decisions_match(
+        got, want,
+        lambda n, k: (gibbs_margin(X, Z, want, A, lpi, inv2s2, u, n, k),
+                      u[n, k]))
+
+
+# the Gram form of the CUDA kernel (P = X A^T per 64-wide chunk of D in
+# float32, chunks, G and the carry in float64) on SHAPES and on planted
+# data whose residual dot products cancel (N=256, D=1024, K=64, 40 active)
+@pytest.mark.parametrize(
+    "N,D,K,planted", [(*s, False) for s in SHAPES] + [(256, 1024, 64, True)])
+def test_gibbs_flip_gram_ref_matches_reference(N, D, K, planted):
+    if planted:
+        X, Z, A, lpi, act, u, inv2s2 = gibbs_planted_case(N, D, K, seed=7)
+    else:
+        X, Z, A, act, rng = _inputs(N, D, K)
+        lpi = rng.standard_normal(K).astype(np.float32)
+        u = (rng.standard_normal((N, K)) * 2).astype(np.float32)
+        inv2s2 = np.float32(0.5)
+    want = np.asarray(jax_gibbs_flip(jnp.asarray(X), jnp.asarray(Z),
+                                     jnp.asarray(A), jnp.asarray(lpi),
+                                     jnp.asarray(act), jnp.asarray(u),
+                                     jnp.float32(inv2s2), block_n=32))
+    got = gibbs_flip_gram_ref(*_t(X, Z, A, lpi, act, u, inv2s2)).numpy()
     assert set(np.unique(got)).issubset({0.0, 1.0})
     np.testing.assert_array_equal(got[:, act < 0.5], Z[:, act < 0.5])
     assert_decisions_match(
