@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch import prng
+from repro_torch.kernels.gibbs_flip import gibbs_flip_max_k
 
 from .collapsed import DEFAULT_REFRESH
 from .hybrid import (
@@ -150,6 +151,11 @@ class Sampler:
             raise ValueError(
                 f"X has {X.shape[0]} rows; need at least P={spec.P}"
             )
+        if device.type == "cuda" and spec.K_max > gibbs_flip_max_k(device):
+            raise ValueError(
+                f"SamplerSpec: K_max={spec.K_max} exceeds the "
+                f"{gibbs_flip_max_k(device)} columns the sweep kernel takes "
+                f"on {device}")
         self.X_global = X[:N]
         self.N, self.D = N, X.shape[1]
         self.Xs = torch.as_tensor(

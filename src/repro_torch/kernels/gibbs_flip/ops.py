@@ -3,8 +3,8 @@
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
 kernel on the current stream or raise. The kernel sweeps in Gram form:
 G = A A^T over the active columns goes to a float64 scratch of K*K
-entries allocated here; K is at most ``gibbs_flip_max_k()`` (256) on the
-card.
+entries allocated here; K is at most ``gibbs_flip_max_k(device)`` on the
+card (7808 on an H100).
 """
 from __future__ import annotations
 
@@ -24,11 +24,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _fns():
-    launch = _build.function("gibbs_flip", "gibbs_flip_launch",
-                             [_I] + [_P] * 9 + [_I] * 3 + [_P])
-    max_k = _build.function("gibbs_flip", "gibbs_flip_max_k", [])
-    return launch, max_k()
+def _launch():
+    return _build.function("gibbs_flip", "gibbs_flip_launch",
+                           [_I] + [_P] * 9 + [_I] * 3 + [_P])
+
+
+@functools.cache
+def gibbs_flip_max_k(device: torch.device) -> int:
+    """The most columns K the kernel takes on CUDA device ``device``
+    (bounded by the shared memory of its per-column arrays)."""
+    max_k = _build.function("gibbs_flip", "gibbs_flip_max_k", [_I])
+    return max_k(torch.device(device).index or 0)
 
 
 def gibbs_flip_core(
@@ -49,14 +55,14 @@ def gibbs_flip_core(
     expect(name, (torch.float32,), X=(X, (N, D)), Z=(Z, (N, K)),
            A=(A, (K, D)), logit_pi=(logit_pi, (K,)), active=(active, (K,)),
            u_logit=(u_logit, (N, K)), inv2s2=(inv2s2, ()))
-    launch, max_k = _fns()
+    max_k = gibbs_flip_max_k(X.device)
     if K > max_k:
         raise ValueError(f"{name}: K={K} columns, the kernel takes at most "
-                         f"{max_k} (its float64 P tile fills shared memory)")
+                         f"{max_k} on {X.device}")
     out = torch.empty_like(Z)
     gram = torch.empty((K * K,), dtype=torch.float64, device=X.device)
     bufs = (X, Z, A, logit_pi, active, u_logit, inv2s2, gram, out)
-    rc = launch(X.device.index, *(t.data_ptr() for t in bufs), N, D, K,
+    rc = _launch()(X.device.index, *(t.data_ptr() for t in bufs), N, D, K,
                 stream(X))
     _build.check(rc, name)
     counter.launches += 1

@@ -31,11 +31,16 @@ from _torch_cases import (
     scan_divergence,
 )
 
+from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
 from repro_torch.kernels.collapsed_row import collapsed_row_flip, collapsed_row_flip_ref
 from repro_torch.kernels.collapsed_scan import collapsed_scan, collapsed_scan_ref
 from repro_torch.kernels.feature_stats import feature_stats, feature_stats_ref
 from repro_torch.kernels.gaussian_sse import gaussian_sse, gaussian_sse_ref
-from repro_torch.kernels.gibbs_flip import gibbs_flip_core, gibbs_flip_ref
+from repro_torch.kernels.gibbs_flip import (
+    gibbs_flip_core,
+    gibbs_flip_max_k,
+    gibbs_flip_ref,
+)
 
 
 @pytest.fixture
@@ -47,15 +52,18 @@ def cuda():
 
 
 # beside SHAPES: K=70 (52 active columns, G in shared memory), K=130 (103
-# active: P in two passes of 64 columns, G read from L2), K=256 (214
-# active: four passes, Z and u read from global memory too), K=1, row
-# counts that are not multiples of the 64-row tile, an all-zero mask
-# ("inactive") and planted data whose dot products cancel ("planted")
+# active: P in two stages of 64 columns, G read from L2), K=256 (214
+# active: four stages, Z and u read from global memory too), K=400 (328
+# active: two column passes of 256 on an H100) and K=700 (573 active:
+# three passes), K=1, row counts that are not multiples of the 64-row
+# tile, an all-zero mask ("inactive") and planted data whose dot products
+# cancel ("planted")
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K,case", [
     *[(*s, "random") for s in SHAPES + [(1000, 1500, 12)]],
     (1000, 300, 70, "random"), (517, 200, 130, "random"),
-    (200, 64, 256, "random"), (300, 50, 1, "random"),
+    (200, 64, 256, "random"), (300, 96, 400, "random"),
+    (150, 64, 700, "random"), (300, 50, 1, "random"),
     (129, 64, 64, "inactive"), (2049, 1024, 64, "planted")])
 def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K, case):
     if case == "planted":
@@ -81,11 +89,15 @@ def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K, case):
 
 @pytest.mark.cuda
 def test_gibbs_flip_kernel_rejects_too_many_columns(cuda):
-    X, Z, A, act, rng = _inputs(8, 16, 257)
-    args = [t.to(cuda) for t in _t(X, Z, A, np.zeros(257, np.float32), act,
+    K = gibbs_flip_max_k(cuda) + 1
+    X, Z, A, act, rng = _inputs(8, 16, K)
+    args = [t.to(cuda) for t in _t(X, Z, A, np.zeros(K, np.float32), act,
                                      np.zeros_like(Z), np.float32(0.5))]
-    with pytest.raises(ValueError, match="at most 256"):
+    with pytest.raises(ValueError, match=f"at most {K - 1}"):
         gibbs_flip_core(*args)
+    # a sampler that would need it fails when built, not at its first sweep
+    with pytest.raises(ValueError, match=f"K_max={K}"):
+        build_sampler(SamplerSpec(P=2, K_max=K), IBPHypers(), X, device=cuda)
 
 
 @pytest.mark.cuda
