@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit code non-zero):
 3. Kernels against their plain PyTorch versions at the main path's
    shapes (gibbs_flip: the sweep's N=32768 and the held-out eval's
    N=1024 from Z=0, beside one read of X and the product X A^T alone;
-   collapsed_scan: one tail sub-iteration, N_p rows;
+   collapsed_scan: one tail sub-iteration, N_p rows, and 1024 rows at
+   the grown K_tail 16 and 32;
    gaussian_sse: the sync's N=32768 in float32 and bfloat16, a
    real-valued Z, and the held-out eval's N=1024). Each
    kernel's device time (torch.profiler) and call time (CUDA events) are
@@ -23,12 +24,25 @@ Phases, each of which raises on failure (exit code non-zero):
 6. The kernel that carries each TPU kernel on the main path (CARRIED_BY:
    collapsed_row's recurrence runs inside collapsed_scan) had its launch
    counter rise in phases 4 and 5.
+7. Capacity restarts and adaptive K_tail at full width: phase 5's
+   checkpoint restored under K_max=128 with k_tail_grow=2 and a
+   checkpoint every iteration, run to iteration 6 with tail saturation
+   forced at every step, so K_tail goes 8 -> 16 -> 32 (s/iteration at
+   each); the tail at K_tail 16 and 32 timed as phase 5 times 8; the
+   sweep, feature_stats and gaussian_sse at K_max=128 against their
+   plain versions; then the last checkpoint restored under the smallest
+   multiple of 8 >= K+ + 8 and run one iteration (the shrink).
+8. The serial uncollapsed baseline (uncollapsed_step) at full width:
+   phase 5's data, K=64 all active, 5 steps, each launching gibbs_flip,
+   feature_stats and gaussian_sse once; the sweep kernel at this shape
+   (all 64 columns active) against its plain version.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON. Run from the root of a checkout: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -70,6 +84,10 @@ SHAPE = dict(N=32768, K=64, D=1024)
 # phase 5: the widths the kernels' own docstrings size for
 FULL = dict(N=32768, D=1024, K_max=64, K_tail=8, P=8, L=5, iters=3,
             K_true=24, p=0.3, sigma_n=0.5, N_eval=1024)
+# phase 7: phase 5's run restarted at twice its K_max, K_tail doubling twice
+GROWTH = dict(K_max=128, K_tails=(8, 16, 32), k_tail_grow=2, iters=6)
+# phase 8: the serial uncollapsed baseline on phase 5's data
+BASELINE = dict(K=64, steps=5)
 
 
 def log(msg: str) -> None:
@@ -236,15 +254,54 @@ def gibbs_decisions_ok(X, Z, got, want, A, lpi, inv2s2, u, tag) -> int:
     return len(diff)
 
 
+def gibbs_variant(X, Z, A, lpi, act, u, inv2s2, tag: str = "") -> dict:
+    """The sweep kernel against its plain version (the residual form in
+    float32) on these inputs, two calls bitwise equal; its times beside
+    its bound."""
+    import torch
+
+    from repro_torch.kernels.gibbs_flip import gibbs_flip_core, gibbs_flip_ref
+
+    rows, D = X.shape
+    K = A.shape[0]
+    args = (X, Z, A, lpi, act, u, inv2s2)
+    got = gibbs_flip_core(*args)
+    if not torch.equal(got, gibbs_flip_core(*args)):
+        raise AssertionError(f"gibbs_flip{tag}: two calls differ")
+    want = gibbs_flip_ref(*args)
+    torch.cuda.synchronize()
+    n_diff = gibbs_decisions_ok(X, Z, got, want, A, lpi, inv2s2, u, tag)
+    # bytes: X, Z, A, logit_pi, active, u read once; Z written once.
+    # operations this data needs in Gram form: P = X A^T over the
+    # active columns, G over them, the carry z G over the nonzero z,
+    # and one K-wide carry move per flip
+    n_act = float(act.sum())
+    nnz = float((Z != 0).sum())
+    moved = float((got != Z).sum())
+    nbytes = 4.0 * (rows * D + 3 * rows * K + K * D + 2 * K)
+    flops = 2.0 * n_act * (rows * D + K * D + nnz + moved)
+    b, by = bound_ms(nbytes, flops)
+    return dict(
+        shape=f"N={rows} K={K} D={D}{tag}", n_active=n_act,
+        max_abs_err=float((got - want).abs().max()),
+        mismatched_decisions=n_diff, flips=moved,
+        **timed(lambda: gibbs_flip_core(*args),
+                ("gibbs_gram_kernel", "gibbs_flip_kernel")),
+        plain_ms=time_ms(lambda: gibbs_flip_ref(*args)),
+        bound_ms=b, bound_by=by,
+        # one read of X, and the product X A^T alone (no PyTorch call
+        # computes the sweep, so there is no library_ms)
+        read_x_ms=device_ms(lambda: X.sum(), ("",)),
+        product_ms=device_ms(lambda: torch.matmul(X, A.T), ("",)))
+
+
 def check_gibbs_flip(dev) -> dict:
     """The sweep at the main path's shape (N=32768) and at the held-out
-    eval's (N=1024, from Z = 0), against the plain version (the residual
-    form in float32); two calls bitwise equal."""
+    eval's (N=1024, from Z = 0)."""
     import numpy as np
     import torch
 
     from repro_torch.core.ibp.sweeps import _logit
-    from repro_torch.kernels.gibbs_flip import gibbs_flip_core, gibbs_flip_ref
 
     N, K, D = SHAPE["N"], SHAPE["K"], SHAPE["D"]
     X_np, _, A_true = planted_data(N, D, 24, 0.3, 0.5, seed=11)
@@ -260,41 +317,12 @@ def check_gibbs_flip(dev) -> dict:
     lpi = _logit(torch.rand((K,), generator=g, device=dev))
     u = _logit(torch.rand((N, K), generator=g, device=dev))
     inv2s2 = torch.tensor(0.5 / 0.5**2, device=dev)
-    n_act = float(act.sum())
     n_eval = FULL["N_eval"]
-    variants = []
-    for rows, Zv, tag in ((N, Z, ""),
-                          (n_eval, torch.zeros_like(Z[:n_eval]), " from Z=0")):
-        Xv, uv = X[:rows], u[:rows]
-        args = (Xv, Zv, A, lpi, act, uv, inv2s2)
-        got = gibbs_flip_core(*args)
-        if not torch.equal(got, gibbs_flip_core(*args)):
-            raise AssertionError(f"gibbs_flip{tag}: two calls differ")
-        want = gibbs_flip_ref(*args)
-        torch.cuda.synchronize()
-        n_diff = gibbs_decisions_ok(Xv, Zv, got, want, A, lpi, inv2s2, uv,
-                                    tag)
-        # bytes: X, Z, A, logit_pi, active, u read once; Z written once.
-        # operations this data needs in Gram form: P = X A^T over the
-        # active columns, G over them, the carry z G over the nonzero z,
-        # and one K-wide carry move per flip
-        nnz = float((Zv != 0).sum())
-        moved = float((got != Zv).sum())
-        nbytes = 4.0 * (rows * D + 3 * rows * K + K * D + 2 * K)
-        flops = 2.0 * n_act * (rows * D + K * D + nnz + moved)
-        b, by = bound_ms(nbytes, flops)
-        variants.append(dict(
-            shape=f"N={rows} K={K} D={D}{tag}",
-            max_abs_err=float((got - want).abs().max()),
-            mismatched_decisions=n_diff, flips=moved,
-            **timed(lambda: gibbs_flip_core(*args),
-                    ("gibbs_gram_kernel", "gibbs_flip_kernel")),
-            plain_ms=time_ms(lambda: gibbs_flip_ref(*args)),
-            bound_ms=b, bound_by=by,
-            # one read of X, and the product X A^T alone (no PyTorch call
-            # computes the sweep, so there is no library_ms)
-            read_x_ms=device_ms(lambda: Xv.sum(), ("",)),
-            product_ms=device_ms(lambda: torch.matmul(Xv, A.T), ("",))))
+    variants = [gibbs_variant(X[:rows], Zv, A, lpi, act, u[:rows], inv2s2,
+                              tag)
+                for rows, Zv, tag in (
+                    (N, Z, ""),
+                    (n_eval, torch.zeros_like(Z[:n_eval]), " from Z=0"))]
     main = dict(name="gibbs_flip", **variants[0], library_ms=None,
                 library_call=None)
     main["variants"] = variants[1:]
@@ -387,10 +415,10 @@ def check_collapsed_row(dev) -> dict:
     return main
 
 
-def check_collapsed_scan(dev) -> dict:
+def scan_variant(dev, n_rows: int, K: int, D: int, seed: int) -> dict:
     """The tail scan kernel against its plain version (the Python row loop)
-    on the same inputs and draws, at the main path's tail shape: one
-    sub-iteration of N_p = N / P rows, K_tail columns, D wide."""
+    on the same inputs and draws: one sub-iteration of ``n_rows`` rows, K
+    tail columns, D wide."""
     import numpy as np
     import torch
     from _torch_cases import scan_case, scan_divergence
@@ -400,12 +428,11 @@ def check_collapsed_scan(dev) -> dict:
         collapsed_scan_ref,
     )
 
-    n_rows, K, D = FULL["N"] // FULL["P"], FULL["K_tail"], FULL["D"]
     sx, sa, N = 0.5, 1.0, float(FULL["N"])
     refresh = 64  # the sampler's DEFAULT_REFRESH
     # births at 1% of rows (the sampler's alpha/N is ~1e-4) so that the
     # check sees them
-    case = scan_case(n_rows, K, D, seed=31, lam=0.01)
+    case = scan_case(n_rows, K, D, seed=seed, lam=0.01)
     per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc")
 
     def tensors(rows=None):
@@ -431,22 +458,23 @@ def check_collapsed_scan(dev) -> dict:
         run(collapsed_scan_ref, t)
         return t["active"].cpu().numpy(), t["m"].cpu().numpy()
 
+    tag = f"collapsed_scan K={K}"
     ev = scan_divergence(case, want["Z"], got["Z"], state_at, sx, sa, N)
     event = None
     if ev is not None:  # one float-boundary event, then the chains part
         n, what, margin, u = ev
         if not margin < 1e-3 * (1.0 + abs(u)):
-            raise AssertionError(f"collapsed_scan: diverges from the plain "
-                                 f"scan at row {n} ({what}), margin {margin}")
+            raise AssertionError(f"{tag}: diverges from the plain scan at "
+                                 f"row {n} ({what}), margin {margin}")
         event = dict(row=n, decision=str(what), margin=margin)
     else:
         for k in ("Z", "active", "m", "ZtZ"):
             if not np.array_equal(got[k], want[k]):
-                raise AssertionError(f"collapsed_scan: {k} differs")
+                raise AssertionError(f"{tag}: {k} differs")
         if not np.allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4):
-            raise AssertionError("collapsed_scan: ZtX differs")
+            raise AssertionError(f"{tag}: ZtX differs")
         if int(cg[1]) != int(cw[1]):
-            raise AssertionError("collapsed_scan: n_sat differs")
+            raise AssertionError(f"{tag}: n_sat differs")
     err = float(np.abs(got["ZtX"] - want["ZtX"]).max()) if ev is None else None
     # bytes: X_p, the draws and Z read once, Z and the statistics written
     # once; operations this run's data needs per row, about: the removal
@@ -458,24 +486,122 @@ def check_collapsed_scan(dev) -> dict:
     flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
     b, by = bound_ms(nbytes, flops)
     t = tensors()  # the kernel is timed scanning on from its own output
-    return dict(
-        name="collapsed_scan", shape=f"rows={n_rows} K={K} D={D}",
-        max_abs_err=err, boundary_event=event,
-        n_refresh=int(cg[0]), n_sat=int(cg[1]), k_live=k_live,
+    out = dict(
+        shape=f"rows={n_rows} K={K} D={D}", max_abs_err=err,
+        boundary_event=event, n_refresh=int(cg[0]), n_sat=int(cg[1]),
+        k_live=k_live,
         **timed(lambda: run(collapsed_scan, t), ("collapsed_scan_kernel",)),
         plain_ms=time_ms(lambda: run(collapsed_scan_ref, tensors()), reps=1),
-        bound_ms=b, bound_by=by, library_ms=None, library_call=None)
+        bound_ms=b, bound_by=by)
+    out["ms_per_row"] = out["ms"] / n_rows
+    return out
 
 
-def check_stats_kernels(dev) -> list[dict]:
-    import numpy as np
+def check_collapsed_scan(dev) -> dict:
+    """The tail scan at the main path's tail shape (N_p rows, K_tail=8,
+    D=1024), and at the grown tails of phase 7 (K_tail 16, whose carry
+    still fits one block's shared memory, and 32, whose carry lives in
+    global memory) on 1024 rows."""
+    n_rows, K, D = FULL["N"] // FULL["P"], FULL["K_tail"], FULL["D"]
+    main = dict(name="collapsed_scan", **scan_variant(dev, n_rows, K, D, 31),
+                library_ms=None, library_call=None)
+    main["variants"] = [scan_variant(dev, 1024, k, D, 31 + k)
+                        for k in GROWTH["K_tails"][1:]]
+    return main
+
+
+def stats_variant(X, Z, tag: str = "") -> dict:
+    """feature_stats against its plain version in float64 (the exact
+    function: a float32 sum over 32768 rows, in any order, is off by
+    ~1e-3 on entries near zero, beyond atol 1e-4), ZtZ and m exact; its
+    times beside its bound and the library GEMM."""
     import torch
 
     from repro_torch.kernels.feature_stats import (
         feature_stats,
         feature_stats_ref,
     )
+
+    N, D = X.shape
+    K = Z.shape[1]
+    got = feature_stats(X, Z)
+    want = feature_stats_ref(X.double(), Z.double())
+    plain32 = feature_stats_ref(X, Z)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ZtZ", "ZtX", "m"), got, want):
+        if name != "ZtX" and not torch.equal(a.double(), b):
+            raise AssertionError(f"feature_stats{tag}: {name} not exact")
+        if not torch.allclose(a.double(), b, rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"feature_stats{tag}: {name} off by "
+                                 f"{float((a.double() - b).abs().max())}")
+    err = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
+    err32 = max(float((a - b).abs().max()) for a, b in zip(got, plain32))
+    ZX1 = torch.cat([Z, X, torch.ones((N, 1), device=X.device)], dim=1)
+    Zt = Z.T.contiguous()
+    nbytes = 4.0 * (N * D + N * K + K * K + K * D + K)
+    nnz = float((Z != 0).sum())
+    flops = nnz * (D + 1) + float((Z.sum(1) ** 2).sum())  # binary Z: adds
+    b, by = bound_ms(nbytes, flops)
+    return dict(
+        shape=f"N={N} K={K} D={D}{tag}", max_abs_err=err,
+        max_abs_err_vs_plain_f32=err32,
+        **timed(lambda: feature_stats(X, Z),
+                ("feature_stats_partial_kernel", "feature_stats_sum_kernel")),
+        plain_ms=time_ms(lambda: feature_stats_ref(X, Z)),
+        bound_ms=b, bound_by=by,
+        **library(lambda: torch.matmul(Zt, ZX1)),
+        library_call="torch.matmul(Z^T, [Z | X | 1])")
+
+
+def sse_variant(X, Z, A, act, dt, tag: str = "") -> dict:
+    """gaussian_sse on inputs of dtype ``dt`` against the plain version in
+    float64 on the same (rounded) inputs, two calls bitwise equal; its
+    times beside its bound and the library call."""
+    import torch
+
     from repro_torch.kernels.gaussian_sse import gaussian_sse, gaussian_sse_ref
+
+    rows, D = X.shape
+    K = Z.shape[1]
+    rtol = 1e-5 if dt == torch.float32 else 2e-2
+    Xd, Zd, Ad, actd = (t.to(dt) for t in (X, Z, A, act))
+    first = gaussian_sse(Xd, Zd, Ad, actd)
+    if not torch.equal(first, gaussian_sse(Xd, Zd, Ad, actd)):
+        raise AssertionError(f"gaussian_sse {dt}{tag}: two calls differ")
+    got = float(first)
+    want = float(gaussian_sse_ref(Xd.double(), Zd, Ad, actd))
+    if not math.isclose(got, want, rel_tol=rtol):
+        raise AssertionError(f"gaussian_sse {dt}{tag}: {got} vs {want}")
+    if dt == torch.bfloat16:
+        # the rounding of the inputs: the float32 plain version too
+        ref32 = float(gaussian_sse_ref(Xd, Zd, Ad, actd))
+        if not math.isclose(got, ref32, rel_tol=rtol):
+            raise AssertionError(f"gaussian_sse bf16{tag}: {got} vs {ref32}")
+    esz = 4 if dt == torch.float32 else 2
+    Zm = (Zd * actd).to(dt)
+    nbytes = esz * (rows * D + rows * K + K * D + K) + 4.0
+    nnz = float((Z * act != 0).sum())
+    flops = nnz * D + 3.0 * rows * D
+    b, by = bound_ms(nbytes, flops)
+    return dict(
+        shape=f"N={rows} K={K} D={D} {str(dt).split('.')[-1]}{tag}",
+        max_abs_err=abs(got - want), rel_err=abs(got - want) / want,
+        **timed(lambda: gaussian_sse(Xd, Zd, Ad, actd),
+                ("sse_mma_kernel", "sse_final_kernel")),
+        plain_ms=time_ms(lambda: gaussian_sse_ref(Xd, Zd, Ad, actd)),
+        bound_ms=b, bound_by=by,
+        **library(lambda: torch.addmm(Xd, Zm, Ad, alpha=-1).float()
+                  .square().sum()),
+        # one read of X alone: the floor the fused kernel approaches
+        read_x_ms=device_ms(lambda: Xd.sum(dtype=torch.float32), ("",)))
+
+
+def check_stats_kernels(dev) -> list[dict]:
+    """feature_stats at the sync's shape; gaussian_sse there in float32
+    and bfloat16, with a real-valued Z (f32; the kernel then runs its
+    third product) and at the held-out eval's N=1024 (f32)."""
+    import numpy as np
+    import torch
 
     N, K, D = SHAPE["N"], SHAPE["K"], SHAPE["D"]
     X_np, _, A_true = planted_data(N, D, 24, 0.3, 0.5, seed=21)
@@ -486,87 +612,19 @@ def check_stats_kernels(dev) -> list[dict]:
         0.3 * rng.standard_normal((K, D), dtype=np.float32)).to(dev)
     A[:24] = torch.from_numpy(A_true).to(dev)
     act = torch.from_numpy((np.arange(K) < 40).astype(np.float32)).to(dev)
-    out = []
-
-    # feature_stats: against the plain version in float64 (the exact
-    # function): a float32 sum over N=32768 rows, in any order, is off
-    # by ~1e-3 on entries near zero, beyond atol 1e-4
-    got = feature_stats(X, Z)
-    want = feature_stats_ref(X.double(), Z.double())
-    plain32 = feature_stats_ref(X, Z)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("ZtZ", "ZtX", "m"), got, want):
-        if name != "ZtX" and not torch.equal(a.double(), b):
-            raise AssertionError(f"feature_stats: {name} not exact")
-        if not torch.allclose(a.double(), b, rtol=1e-5, atol=1e-4):
-            raise AssertionError(f"feature_stats: {name} off by "
-                                 f"{float((a.double() - b).abs().max())}")
-    err = max(float((a.double() - b).abs().max()) for a, b in zip(got, want))
-    err32 = max(float((a - b).abs().max()) for a, b in zip(got, plain32))
-    ZX1 = torch.cat([Z, X, torch.ones((N, 1), device=dev)], dim=1)
-    Zt = Z.T.contiguous()
-    nbytes = 4.0 * (N * D + N * K + K * K + K * D + K)
-    nnz = float((Z != 0).sum())
-    flops = nnz * (D + 1) + float((Z.sum(1) ** 2).sum())  # binary Z: adds
-    b, by = bound_ms(nbytes, flops)
-    out.append(dict(
-        name="feature_stats", shape=f"N={N} K={K} D={D}", max_abs_err=err,
-        max_abs_err_vs_plain_f32=err32,
-        **timed(lambda: feature_stats(X, Z),
-                ("feature_stats_partial_kernel", "feature_stats_sum_kernel")),
-        plain_ms=time_ms(lambda: feature_stats_ref(X, Z)),
-        bound_ms=b, bound_by=by,
-        **library(lambda: torch.matmul(Zt, ZX1)),
-        library_call="torch.matmul(Z^T, [Z | X | 1])"))
-
-    # gaussian_sse: f32 and bf16 inputs at the sync's shape, a real-valued
-    # Z (f32; the kernel then runs its third product) and the held-out
-    # eval's N=1024 (f32); each against the plain version in float64 on the
-    # same (rounded) inputs, and two calls bitwise equal
+    stats = dict(name="feature_stats", **stats_variant(X, Z))
     Zr = Z * torch.from_numpy(
         rng.uniform(0.5, 1.5, (N, K)).astype(np.float32)).to(dev)
-    variants = []
-    for dt, rows, Zv, tag in ((torch.float32, N, Z, ""),
-                              (torch.bfloat16, N, Z, ""),
-                              (torch.float32, N, Zr, " real_z"),
-                              (torch.float32, FULL["N_eval"], Z, "")):
-        rtol = 1e-5 if dt == torch.float32 else 2e-2
-        Xd, Zd, Ad, actd = (t.to(dt) for t in (X[:rows], Zv[:rows], A, act))
-        first = gaussian_sse(Xd, Zd, Ad, actd)
-        if not torch.equal(first, gaussian_sse(Xd, Zd, Ad, actd)):
-            raise AssertionError(f"gaussian_sse {dt}{tag}: two calls differ")
-        got = float(first)
-        want = float(gaussian_sse_ref(Xd.double(), Zd, Ad, actd))
-        if not math.isclose(got, want, rel_tol=rtol):
-            raise AssertionError(f"gaussian_sse {dt}{tag}: {got} vs {want}")
-        if dt == torch.bfloat16:
-            # the rounding of the inputs: the float32 plain version too
-            ref32 = float(gaussian_sse_ref(Xd, Zd, Ad, actd))
-            if not math.isclose(got, ref32, rel_tol=rtol):
-                raise AssertionError(f"gaussian_sse bf16: {got} vs {ref32}")
-        esz = 4 if dt == torch.float32 else 2
-        Zm = (Zd * actd).to(dt)
-        nbytes = esz * (rows * D + rows * K + K * D + K) + 4.0
-        nnz = float((Zv[:rows] * act != 0).sum())
-        flops = nnz * D + 3.0 * rows * D
-        b, by = bound_ms(nbytes, flops)
-        variants.append(dict(
-            shape=f"N={rows} K={K} D={D} {str(dt).split('.')[-1]}{tag}",
-            max_abs_err=abs(got - want), rel_err=abs(got - want) / want,
-            **timed(lambda: gaussian_sse(Xd, Zd, Ad, actd),
-                    ("sse_mma_kernel", "sse_final_kernel")),
-            plain_ms=time_ms(lambda: gaussian_sse_ref(Xd, Zd, Ad, actd)),
-            bound_ms=b, bound_by=by,
-            **library(lambda: torch.addmm(Xd, Zm, Ad, alpha=-1).float()
-                      .square().sum()),
-            # one read of X alone: the floor the fused kernel approaches
-            read_x_ms=device_ms(lambda: Xd.sum(dtype=torch.float32), ("",))))
-    main = dict(name="gaussian_sse", **variants[0],
-                library_call="torch.addmm(X, Z*active, A, alpha=-1)"
-                             ".square().sum()")
-    main["variants"] = variants[1:]
-    out.append(main)
-    return out
+    variants = [sse_variant(X[:rows], Zv[:rows], A, act, dt, tag)
+                for dt, rows, Zv, tag in (
+                    (torch.float32, N, Z, ""), (torch.bfloat16, N, Z, ""),
+                    (torch.float32, N, Zr, " real_z"),
+                    (torch.float32, FULL["N_eval"], Z, ""))]
+    sse = dict(name="gaussian_sse", **variants[0],
+               library_call="torch.addmm(X, Z*active, A, alpha=-1)"
+                            ".square().sum()")
+    sse["variants"] = variants[1:]
+    return [stats, sse]
 
 
 # --------------------------------------------------------------------------
@@ -592,23 +650,52 @@ def run_cli(tmp: Path) -> list[dict]:
     return hist
 
 
-def run_full_width(tmp: Path, gpu: str) -> tuple[dict, dict]:
+def full_data() -> tuple:
+    """Phase 5's planted matrix: (X_train, X_eval, seconds to make it)."""
+    f = FULL
+    t0 = time.perf_counter()
+    X, _, _ = planted_data(f["N"] + f["N_eval"], f["D"], f["K_true"], f["p"],
+                           f["sigma_n"], seed=0)
+    return X[:f["N"]], X[f["N"]:], time.perf_counter() - t0
+
+
+def time_tail(Xs, Z, gs, K_tail: int) -> dict:
+    """One tail sub-iteration on p' (N_p rows, one collapsed_scan launch)
+    from empty K_tail-wide buffers: host time around it, ended by a
+    device sync, and its profile."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp.hybrid import _tail_sub_iteration
+
+    P, N_p, _ = Xs.shape
+    g = prng.generator(prng.key(1), Xs.device)
+    pp = int(gs.p_prime)
+    zt = torch.zeros((N_p, K_tail), device=Xs.device)
+    ta = torch.zeros((K_tail,), device=Xs.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _tail_sub_iteration(Xs[pp], Z[pp], zt, ta, gs, float(P * N_p), g)
+    torch.cuda.synchronize()
+    t_tail = time.perf_counter() - t0
+    return dict(tail_rows_per_s=N_p / t_tail,
+                tail_ms_per_row=t_tail / N_p * 1e3,
+                tail_profile=profile_tail(Xs[pp], Z[pp], gs, float(P * N_p),
+                                          g, K_tail))
+
+
+def run_full_width(tmp: Path, gpu: str, data: tuple) -> tuple[dict, dict]:
     """Phase 5; returns (results, kernel launches of the driver's run)."""
     import torch
 
     from repro_torch import prng
     from repro_torch.core.ibp import IBPHypers, SamplerSpec
-    from repro_torch.core.ibp.hybrid import _tail_sub_iteration
     from repro_torch.core.ibp.sweeps import uncollapsed_sweep
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import MCMCDriver
 
     f = FULL
-    t0 = time.perf_counter()
-    X, _, _ = planted_data(f["N"] + f["N_eval"], f["D"], f["K_true"], f["p"],
-                           f["sigma_n"], seed=0)
-    X_train, X_eval = X[:f["N"]], X[f["N"]:]
-    t_data = time.perf_counter() - t0
+    X_train, X_eval, t_data = data
     spec = SamplerSpec(P=f["P"], K_max=f["K_max"], K_tail=f["K_tail"],
                        L=f["L"], n_iters=f["iters"], eval_every=f["iters"],
                        ckpt_every=f["iters"], ckpt_dir=str(tmp / "full_ckpt"))
@@ -630,7 +717,7 @@ def run_full_width(tmp: Path, gpu: str) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
 
     # components, timed on the final state: one sweep of all P*N_p rows,
-    # one tail sub-iteration on p' (N_p rows, one collapsed_scan launch)
+    # one tail sub-iteration on p'
     Xs = drv.sampler.Xs
     P, N_p, D = Xs.shape
     Xf, Zf = Xs.reshape(P * N_p, D), ss.Z.reshape(P * N_p, -1)
@@ -640,25 +727,180 @@ def run_full_width(tmp: Path, gpu: str) -> tuple[dict, dict]:
         uncollapsed_sweep(Xf, Zf, gs.A, gs.pi, gs.active, gs.sigma_x, g)
 
     t_sweep = time_ms(sweep, reps=5) / 1e3
-    pp = int(gs.p_prime)
-    zt = torch.zeros((N_p, f["K_tail"]), device="cuda")
-    ta = torch.zeros((f["K_tail"],), device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _tail_sub_iteration(Xs[pp], ss.Z[pp], zt, ta, gs, float(P * N_p), g)
-    torch.cuda.synchronize()
-    t_tail = time.perf_counter() - t0
-    prof = profile_tail(Xs[pp], ss.Z[pp], gs, float(P * N_p), g, f["K_tail"])
     return dict(
         gpu=gpu, N=f["N"], D=D, K_max=f["K_max"], K_tail=f["K_tail"], P=P,
         L=f["L"], iters=f["iters"], data_seconds=t_data,
         seconds_per_iteration=t_run / f["iters"],
         sweep_rows_per_s=P * N_p / t_sweep,
-        tail_rows_per_s=N_p / t_tail,
-        tail_ms_per_row=t_tail / N_p * 1e3,
+        **time_tail(Xs, ss.Z, gs, f["K_tail"]),
         max_memory_allocated=peak, K=rec["K"], sigma_x=rec["sigma_x"],
-        joint_ll_eval=rec["joint_ll_eval"], tail_sat=rec["tail_sat"],
-        tail_profile=prof), counts
+        joint_ll_eval=rec["joint_ll_eval"], tail_sat=rec["tail_sat"]), counts
+
+
+def run_growth(tmp: Path, data: tuple, dev) -> tuple[dict, dict, dict]:
+    """Phase 7: restart from phase 5's checkpoint (K_max=64, it=3) under
+    K_max=128 with ``k_tail_grow=2`` and a checkpoint every iteration, to
+    iteration 6, with tail saturation forced at every step (each step
+    adds 1 to ``tail_sat``), so that K_tail goes 8 -> 16 -> 32; then
+    restore the last checkpoint under the smallest multiple of 8 that
+    is >= K+ + 8 and run one iteration. Returns (results, launches of
+    the growth run, the kernels at the grown widths)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec
+    from repro_torch.core.ibp.api import Sampler
+    from repro_torch.core.ibp.sweeps import _logit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import MCMCDriver
+
+    f, gr = FULL, GROWTH
+    X_train, X_eval, _ = data
+    ckpt = str(tmp / "full_ckpt")
+    spec = SamplerSpec(P=f["P"], K_max=gr["K_max"], K_tail=f["K_tail"],
+                       L=f["L"], n_iters=gr["iters"], eval_every=gr["iters"],
+                       ckpt_every=1, k_tail_grow=gr["k_tail_grow"],
+                       ckpt_dir=ckpt)
+    drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval, device=dev)
+    steps = []  # one entry per iteration of the growth run
+    plain_step = Sampler.step
+
+    def saturating_step(self, gs, ss):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry = dict(it=int(gs.it), K_max=ss.Z.shape[-1],
+                     K_tail=ss.Z_tail.shape[-1],
+                     overflow_in=int(gs.overflow))
+        gs, ss = plain_step(self, gs, ss)
+        torch.cuda.synchronize()
+        entry["seconds"] = time.perf_counter() - t0
+        steps.append(entry)
+        return dataclasses.replace(gs, tail_sat=gs.tail_sat + 1), ss
+
+    Sampler.step = saturating_step
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        gs, ss = drv.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Sampler.step = plain_step
+    tails = [e["K_tail"] for e in steps]
+    if tails != list(gr["K_tails"]):
+        raise AssertionError(f"growth: K_tail per iteration {tails}, "
+                             f"expected {list(gr['K_tails'])}")
+    if {e["K_max"] for e in steps} != {gr["K_max"]} or \
+            ss.Z.shape[-1] != gr["K_max"]:
+        raise AssertionError(f"growth: Z widths {steps}, {tuple(ss.Z.shape)}")
+    if steps[0]["overflow_in"] != 0 or int(gs.overflow) != 0:
+        raise AssertionError(f"growth: overflow {steps[0]['overflow_in']} "
+                             f"after the restart, {int(gs.overflow)} at end")
+    if steps[0]["it"] != f["iters"] or int(gs.it) != gr["iters"]:
+        raise AssertionError(f"growth: ran iterations {steps[0]['it']} to "
+                             f"{int(gs.it)}")
+    rec = drv.history[-1]
+    if not (math.isfinite(rec["joint_ll_eval"]) and math.isfinite(
+            rec["sigma_x"]) and 1 <= rec["K"] <= gr["K_max"]
+            and rec["K_tail"] == gr["K_tails"][-1]):
+        raise AssertionError(f"growth record out of range: {rec}")
+    for name in MAIN_PATH:
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"growth: {name} was not launched ({counts})")
+
+    # the tail at each grown width, timed as phase 5 times K_tail 8; the
+    # kernels at the grown K_max on the final state, each against its
+    # plain version
+    Xs = drv.sampler.Xs
+    P, N_p, D = Xs.shape
+    tail = {k: time_tail(Xs, ss.Z, gs, k) for k in gr["K_tails"][1:]}
+    Xf, Zf = Xs.reshape(P * N_p, D), ss.Z.reshape(P * N_p, -1)
+    g = torch.Generator(device=dev).manual_seed(71)
+    u = _logit(torch.rand(Zf.shape, generator=g, device=dev))
+    kernels = dict(
+        gibbs_flip=gibbs_variant(Xf, Zf, gs.A, _logit(gs.pi), gs.active, u,
+                                 0.5 / gs.sigma_x**2, " grown K_max"),
+        feature_stats=stats_variant(Xf, Zf, " grown K_max"),
+        gaussian_sse=sse_variant(Xf, Zf, gs.A, gs.active, torch.float32,
+                                 " grown K_max"))
+    k_plus = int(torch.sum(gs.active))
+
+    # shrink: the last checkpoint under the smallest multiple of 8 >= K+ + 8
+    K_small = 8 * math.ceil((k_plus + 8) / 8)
+    if K_small >= gr["K_max"]:
+        raise AssertionError(f"growth: K+={k_plus} leaves nothing to shrink")
+    small = MCMCDriver(X_train, SamplerSpec(
+        P=f["P"], K_max=K_small, K_tail=f["K_tail"], L=f["L"],
+        n_iters=gr["iters"] + 1, eval_every=gr["iters"] + 1, ckpt_dir=ckpt),
+        IBPHypers(), X_eval=X_eval, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs2, ss2 = small.run()
+    torch.cuda.synchronize()
+    t_small = time.perf_counter() - t0
+    rec2 = small.history[-1]
+    if ss2.Z.shape[-1] != K_small or gs2.A.shape[0] != K_small \
+            or int(gs2.it) != gr["iters"] + 1 \
+            or not math.isfinite(rec2["joint_ll_eval"]):
+        raise AssertionError(f"shrink to {K_small}: Z {tuple(ss2.Z.shape)}, "
+                             f"it {int(gs2.it)}, record {rec2}")
+    by_tail = {}
+    for e in steps:
+        by_tail.setdefault(e["K_tail"], []).append(e["seconds"])
+    return dict(
+        K_max=gr["K_max"], k_tail_grow=gr["k_tail_grow"],
+        iterations=steps, seconds_per_iteration_by_K_tail={
+            k: float(np.median(v)) for k, v in by_tail.items()},
+        run_seconds=t_run, K=rec["K"], sigma_x=rec["sigma_x"],
+        joint_ll_eval=rec["joint_ll_eval"], K_tail=rec["K_tail"],
+        tail=tail, shrunk_K_max=K_small, shrunk_K=rec2["K"],
+        shrunk_run_seconds=t_small), counts, kernels
+
+
+def run_baseline(dev, data: tuple) -> tuple[dict, dict, dict]:
+    """Phase 8: the serial uncollapsed baseline at full width on phase 5's
+    data, K=64 all active, A seeded from the first 64 data rows + 0.01;
+    BASELINE["steps"] uncollapsed_steps. Returns (results, launches, the
+    sweep kernel at this shape against its plain version)."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import IBPHypers, init_state, uncollapsed_step
+    from repro_torch.core.ibp.sweeps import _logit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    K, n = BASELINE["K"], BASELINE["steps"]
+    X = torch.from_numpy(data[0]).to(dev)
+    N, D = X.shape
+    state = init_state(prng.key(8), N, D, K_max=K, K_init=K, device=dev)
+    state = dataclasses.replace(state, A=X[:K] + 0.01)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state = uncollapsed_step(state, X, IBPHypers())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    for name in ("gibbs_flip", "feature_stats", "gaussian_sse"):
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"baseline: {name} launched "
+                                 f"{counts.get(name, 0)} times in {n} steps")
+    sx = float(state.sigma_x)
+    if not (math.isfinite(sx) and sx > 0):
+        raise AssertionError(f"baseline: sigma_x = {sx}")
+    g = torch.Generator(device=dev).manual_seed(81)
+    u = _logit(torch.rand(state.Z.shape, generator=g, device=dev))
+    sweep = gibbs_variant(X, state.Z, state.A, _logit(state.pi),
+                          state.active, u, 0.5 / state.sigma_x**2,
+                          " all active")
+    return dict(N=N, D=D, K=K, steps=n, seconds_per_step=times,
+                median_seconds_per_step=statistics.median(times), sigma_x=sx,
+                sigma_a=float(state.sigma_a), alpha=float(state.alpha),
+                m_live=int((state.Z.sum(0) > 0.5).sum())), counts, sweep
 
 
 def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int) -> dict | None:
@@ -767,20 +1009,53 @@ def main() -> int:
         for r in hist:
             log(f"[4] {json.dumps(r)}")
         # phase 5: full width through the driver
-        full, full_counts = run_full_width(tmp, smi)
+        data = full_data()
+        full, full_counts = run_full_width(tmp, smi, data)
         log(f"[5] full width: {json.dumps(full)}")
         log(f"[5] launches {full_counts}")
 
-    # phase 6: the main path went through every kernel that carries it
-    for tpu, name in CARRIED_BY.items():
-        log(f"[6] {tpu} runs as {name} on the main path")
-    for name in MAIN_PATH:
-        if cli_counts.get(name, 0) < 1 or full_counts.get(name, 0) < 1:
-            raise AssertionError(f"{name} was not launched on the main path "
-                                 f"(CLI {cli_counts.get(name)}, full width "
-                                 f"{full_counts.get(name)})")
-    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5")
+        # phase 6: the main path went through every kernel that carries it
+        for tpu, name in CARRIED_BY.items():
+            log(f"[6] {tpu} runs as {name} on the main path")
+        for name in MAIN_PATH:
+            if cli_counts.get(name, 0) < 1 or full_counts.get(name, 0) < 1:
+                raise AssertionError(
+                    f"{name} was not launched on the main path (CLI "
+                    f"{cli_counts.get(name)}, full width "
+                    f"{full_counts.get(name)})")
+        log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5")
 
+        # phase 7: capacity growth, K_tail growth, shrink
+        t0 = time.perf_counter()
+        growth, growth_counts, grown = run_growth(tmp, data, dev)
+        log(f"[7] growth: {json.dumps(growth)}")
+        log(f"[7] launches {growth_counts}")
+        log(f"[7] s/iteration at K_max={growth['K_max']} by K_tail: "
+            f"{growth['seconds_per_iteration_by_K_tail']}")
+        log(f"[7] tail ms/row by K_tail: " + ", ".join(
+            f"{k}: {v['tail_ms_per_row']:.5f}"
+            for k, v in growth["tail"].items()))
+        for name, v in grown.items():
+            log(f"[7] {name} {v['shape']}: ms={v['ms']:.4f} "
+                f"bound_ms={v['bound_ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+                f"library_ms={v.get('library_ms')}")
+        log(f"[7] shrunk to K_max={growth['shrunk_K_max']} "
+            f"(K+={growth['shrunk_K']}); phase took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # phase 8: the serial uncollapsed baseline
+        t0 = time.perf_counter()
+        base, base_counts, base_sweep = run_baseline(dev, data)
+        log(f"[8] baseline: {json.dumps(base)}")
+        log(f"[8] launches {base_counts}")
+        log(f"[8] gibbs_flip {base_sweep['shape']}: ms={base_sweep['ms']:.4f} "
+            f"(phase 3, 40 of 64 active: {results['gibbs_flip']['ms']:.4f}) "
+            f"bound_ms={base_sweep['bound_ms']:.4f}; phase took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep],
+             "feature_stats": [grown["feature_stats"]],
+             "gaussian_sse": [grown["gaussian_sse"]]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -798,8 +1073,10 @@ def main() -> int:
                                  "read_x_ms", "product_ms") if k in r},
             sass_hmma=sass.get(name),
             launches_cli=cli_counts.get(name, 0),
+            launches_growth=growth_counts.get(name, 0),
+            launches_baseline=base_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
-            variants=r.get("variants", [])))
+            variants=r.get("variants", []) + later.get(name, [])))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "gpu": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

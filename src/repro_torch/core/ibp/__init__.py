@@ -1,12 +1,17 @@
 from . import convergence, predict
 from .api import Sampler, SamplerSpec, build_sampler
 from .hybrid import HybridGlobal, HybridShard, init_hybrid
-from .state import IBPHypers
-from .sweeps import uncollapsed_sweep
+from .state import IBPHypers, IBPState, init_state
+from .sweeps import sufficient_stats, uncollapsed_sweep
+from .uncollapsed import uncollapsed_step
 
 __all__ = [
     "IBPHypers",
+    "IBPState",
+    "init_state",
     "uncollapsed_sweep",
+    "sufficient_stats",
+    "uncollapsed_step",
     "HybridGlobal",
     "HybridShard",
     "init_hybrid",

@@ -19,6 +19,7 @@ mean-form recurrence, the reference's ``"pallas"`` flavor.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -46,13 +47,19 @@ _LATER = {
     "data": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "stale_sync": "ROADMAP queue 1 item 8 (the bounded-staleness body)",
     "harvest_every": "ROADMAP queue 1 item 9 (serving: SampleBank harvest)",
-    "k_tail_grow": "ROADMAP queue 1 item 6 (adaptive K_tail growth)",
+    "driver": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
+    "n_chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
+    "sync": "ROADMAP queue 1 item 8 (the fused master sync)",
+    "collapsed_backend": "ROADMAP queue 1 item 7b (the serial collapsed "
+                         "sampler's O(K^3) row step)",
+    "k_live_buckets": "ROADMAP queue 1 item 7c (the unpacked collapsed "
+                      "carry)",
 }
 
 
-def _not_yet(field: str, value) -> None:
+def _not_yet(field: str, value, owner: str = "SamplerSpec") -> None:
     raise NotImplementedError(
-        f"SamplerSpec: {field}={value!r} is not ported yet; it comes with "
+        f"{owner}: {field}={value!r} is not ported yet; it comes with "
         f"{_LATER[field]}"
     )
 
@@ -82,7 +89,10 @@ class SamplerSpec:
     ckpt_every: int = 100
     ckpt_dir: str = "artifacts/ckpt/ibp"
     overflow_every: int = 8    # overflow-detection cadence (host sync)
-    k_tail_grow: int = 0       # only 0 (fixed K_tail) is ported
+    k_tail_grow: int = 0       # adaptive K_tail: max automatic tail
+    #                            doublings at checkpoint boundaries when
+    #                            the tail-saturation counter fires
+    #                            (0 = fixed K_tail; ceiling is K_max)
     seed: int = 0
     harvest_every: int = 0     # only 0 (no harvest) is ported
 
@@ -130,8 +140,6 @@ class SamplerSpec:
             _not_yet("stale_sync", self.stale_sync)
         if self.harvest_every > 0:
             _not_yet("harvest_every", self.harvest_every)
-        if self.k_tail_grow > 0:
-            _not_yet("k_tail_grow", self.k_tail_grow)
 
     def replace(self, **kw) -> "SamplerSpec":
         return dataclasses.replace(self, **kw)
@@ -151,15 +159,23 @@ class Sampler:
             raise ValueError(
                 f"X has {X.shape[0]} rows; need at least P={spec.P}"
             )
-        if device.type == "cuda" and spec.K_max > gibbs_flip_max_k(device):
-            raise ValueError(
-                f"SamplerSpec: K_max={spec.K_max} exceeds the "
-                f"{gibbs_flip_max_k(device)} columns the sweep kernel takes "
-                f"on {device}")
+        _check_capacity(spec, device)
         self.X_global = X[:N]
         self.N, self.D = N, X.shape[1]
         self.Xs = torch.as_tensor(
             self.X_global.reshape(spec.P, N // spec.P, self.D)).to(device)
+
+    def with_spec(self, spec: SamplerSpec) -> "Sampler":
+        """This sampler under another ``spec`` of the same P, sharing the
+        device copy of X (a K_tail growth rebuilds the sampler without
+        copying the data to the device again)."""
+        if spec.P != self.spec.P:
+            raise ValueError(f"with_spec: P={spec.P} differs from this "
+                             f"sampler's P={self.spec.P}")
+        _check_capacity(spec, self.device)
+        out = copy.copy(self)
+        out.spec = spec
+        return out
 
     def init(self, key: torch.Tensor | None = None):
         """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``."""
@@ -184,6 +200,14 @@ class Sampler:
         """Canonical HybridShard -> state on the sampler's device."""
         return HybridShard(*(t.to(self.device) for t in
                              (ss.Z, ss.Z_tail, ss.tail_active)))
+
+
+def _check_capacity(spec: SamplerSpec, device: torch.device) -> None:
+    if device.type == "cuda" and spec.K_max > gibbs_flip_max_k(device):
+        raise ValueError(
+            f"SamplerSpec: K_max={spec.K_max} exceeds the "
+            f"{gibbs_flip_max_k(device)} columns the sweep kernel takes "
+            f"on {device}")
 
 
 def build_sampler(spec: SamplerSpec, hyp: IBPHypers | None = None,

@@ -5,14 +5,16 @@ For every row n (data-parallel) and every instantiated feature k
 
     P(Z_nk = 1 | pi_k, A, X_n) ∝ pi_k · N(X_n | Z_n A, sigma_x^2 I).
 
-Port of ``repro/core/ibp/sweeps.py::uncollapsed_sweep``. The sweep itself
-is the ``gibbs_flip`` kernel on CUDA tensors and its plain version on CPU
+Port of ``repro/core/ibp/sweeps.py``. The sweep itself is the
+``gibbs_flip`` kernel on CUDA tensors and its plain version on CPU
 tensors; this module draws the logit-uniforms it consumes.
+``sufficient_stats`` goes through the ``feature_stats`` kernel likewise.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.feature_stats import feature_stats
 from repro_torch.kernels.gibbs_flip import gibbs_flip_core
 
 Tensor = torch.Tensor
@@ -36,3 +38,10 @@ def uncollapsed_sweep(X: Tensor, Z: Tensor, A: Tensor, pi: Tensor,
                           device=X.device))
     inv2s2 = 0.5 / (sigma_x**2)
     return gibbs_flip_core(X, Z, A, _logit(pi), active, u, inv2s2)
+
+
+def sufficient_stats(X: Tensor, Z: Tensor
+                     ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(m, ZtZ, ZtX, trXtX) of the rows of X (N, D) and Z (N, K)."""
+    ZtZ, ZtX, m = feature_stats(X, Z)
+    return m, ZtZ, ZtX, torch.sum(X * X)

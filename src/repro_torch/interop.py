@@ -1,9 +1,10 @@
 """Carry the reference package's sampler state into the port.
 
 ``from_reference`` takes the fields of the reference's ``HybridGlobal``
-and ``HybridShard`` as numpy arrays (the key as ``jax.random.key_data``,
-uint32[2]) and returns the port's state on ``device``. Tests use it to
-start both packages from the same state.
+and ``HybridShard``, ``state_from_reference`` those of its ``IBPState``,
+as numpy arrays (the key as ``jax.random.key_data``, uint32[2]), and
+each returns the port's state on ``device``. Tests use them to start
+both packages from the same state.
 """
 from __future__ import annotations
 
@@ -12,25 +13,33 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
+from repro_torch.core.ibp.state import IBPState
 
 _HOST_FIELDS = ("key", "p_prime", "it")
+
+
+def _field(name: str, value, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(value)
+    if name == "key":
+        return torch.as_tensor(a.astype(np.uint32).reshape(2))
+    if a.dtype.kind in "iu":
+        t = torch.as_tensor(a.astype(np.int32))
+    else:
+        t = torch.as_tensor(a.astype(np.float32))
+    return t if name in _HOST_FIELDS else t.to(dev)
 
 
 def from_reference(gs_np: dict, ss_np: dict,
                    device: str | torch.device | None = None
                    ) -> tuple[HybridGlobal, HybridShard]:
     dev = _device.resolve(device)
-
-    def field(name: str, value) -> torch.Tensor:
-        a = np.asarray(value)
-        if name == "key":
-            return torch.as_tensor(a.astype(np.uint32).reshape(2))
-        if a.dtype.kind in "iu":
-            t = torch.as_tensor(a.astype(np.int32))
-        else:
-            t = torch.as_tensor(a.astype(np.float32))
-        return t if name in _HOST_FIELDS else t.to(dev)
-
-    gs = HybridGlobal(**{k: field(k, v) for k, v in gs_np.items()})
-    ss = HybridShard(**{k: field(k, v) for k, v in ss_np.items()})
+    gs = HybridGlobal(**{k: _field(k, v, dev) for k, v in gs_np.items()})
+    ss = HybridShard(**{k: _field(k, v, dev) for k, v in ss_np.items()})
     return gs, ss
+
+
+def state_from_reference(st_np: dict,
+                         device: str | torch.device | None = None
+                         ) -> IBPState:
+    dev = _device.resolve(device)
+    return IBPState(**{k: _field(k, v, dev) for k, v in st_np.items()})

@@ -32,6 +32,12 @@ def main(argv=None):
     ap.add_argument("--K-tail", type=int, default=8,
                     help="in-flight tail features on shard p' (the "
                          "collapsed-birth truncation; <= K_max)")
+    ap.add_argument("--k-tail-grow", type=int, default=0,
+                    help="adaptive K_tail: maximum automatic tail "
+                         "doublings at checkpoint boundaries when the "
+                         "tail-saturation counter (eval record "
+                         "'tail_sat') accrues; 0 = fixed K_tail, "
+                         "ceiling is K_max (DESIGN.md §12)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sigma-n", type=float, default=0.5)
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt/mcmc")
@@ -51,7 +57,7 @@ def main(argv=None):
         P=args.P, K_max=args.K_max, K_tail=args.K_tail, L=args.L,
         n_iters=args.iters, eval_every=args.eval_every,
         ckpt_dir=args.ckpt_dir, seed=args.seed,
-        chol_refresh=args.chol_refresh,
+        chol_refresh=args.chol_refresh, k_tail_grow=args.k_tail_grow,
     )
     drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval,
                      device=args.device)

@@ -1,5 +1,5 @@
-"""MCMC driver: run loop, checkpoint/restart, overflow detection, eval
-records — over a ``Sampler`` built by ``build_sampler``.
+"""MCMC driver: run loop, checkpoint/restart, capacity restarts, adaptive
+K_tail, eval records — over a ``Sampler`` built by ``build_sampler``.
 
 Port of ``repro/runtime/driver.py`` for the single-device layout:
 
@@ -9,24 +9,30 @@ Port of ``repro/runtime/driver.py`` for the single-device layout:
 * overflow (a promoted tail feature dropped for lack of a free K_max slot,
   ``gs.overflow``) is checked every ``overflow_every`` iterations; the
   driver then checkpoints and raises, asking for a restart with a larger
-  K_max. Restoring into another K_max (grow/shrink) and adaptive K_tail
-  come with a later slice (ROADMAP queue 1 item 6).
+  K_max. A restart under a larger K_max pads the checkpoint's feature
+  axis with empty slots; under a smaller one it compacts the live
+  features into the new capacity and refuses when they do not fit.
+* adaptive K_tail (``k_tail_grow``): new tail saturation at a
+  checkpoint boundary doubles K_tail in-process.
 * eval records hold K, alpha, sigma_x, the train and held-out joint
   log-likelihoods, K_tail, tail_sat and split-R-hat / ESS / MCSE of the
   per-iteration sigma_x and K+ traces.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.checkpoint import restore, save_pytree
 from repro_torch.core.ibp import convergence
-from repro_torch.core.ibp.api import SamplerSpec, build_sampler
+from repro_torch.core.ibp.api import SamplerSpec, _not_yet, build_sampler
+from repro_torch.core.ibp.collapsed import DEFAULT_REFRESH
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
 from repro_torch.core.ibp.predict import (
     heldout_joint_loglik,
@@ -35,14 +41,103 @@ from repro_torch.core.ibp.predict import (
 from repro_torch.core.ibp.state import IBPHypers
 
 
+DRIVERS = ("vmap", "multichain", "shardmap", "mesh")
+SWEEP_BACKENDS = ("jnp", "pallas")
+COLLAPSED_BACKENDS = ("ref", "fast", "pallas")
+K_LIVE_MODES = ("on", "off")
+SYNC_MODES = ("staged", "fused")
+# the DriverConfig values the port runs; other valid values are refused
+_PORTED = {"driver": ("vmap",), "n_chains": (1,), "sync": ("staged",),
+           "collapsed_backend": ("fast", "pallas"), "k_live_buckets": ("on",)}
+
+
+@dataclasses.dataclass
+class DriverConfig:
+    """The reference's older construction surface, mapped onto a
+    ``SamplerSpec`` by ``to_spec``; it keeps the reference's fields and
+    defaults, so ``DriverConfig()`` builds.
+
+    Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
+    device chooses the kernels), ``collapsed_backend`` "fast" or
+    "pallas" (the tail runs the mean-form recurrence either way),
+    ``k_live_buckets="on"``, ``sync="staged"``, ``n_chains=1`` with
+    ``driver="vmap"``, ``harvest_burn`` and ``bank_path`` (read only
+    when harvesting). A value that selects work the port has not ported
+    raises ``NotImplementedError`` naming its ROADMAP item; a value the
+    reference rejects raises ``ValueError``.
+    """
+
+    P: int = 4
+    K_max: int = 32
+    K_tail: int = 8
+    L: int = 5
+    n_iters: int = 1000
+    ckpt_every: int = 100
+    ckpt_dir: str = "artifacts/ckpt/ibp"
+    eval_every: int = 20
+    seed: int = 0
+    alpha: float = 3.0
+    sigma_x: float = 1.0
+    sigma_a: float = 1.0
+    K_init: int = 4
+    backend: str = "jnp"       # "jnp" | "pallas" for the uncollapsed sweep
+    stale_sync: int = 0        # >0 = bounded staleness (non-exact)
+    driver: str = "vmap"       # "vmap"|"multichain"|"shardmap"|"mesh"
+    n_chains: int = 1          # chain count (multichain / mesh)
+    sync: str = "staged"       # "staged" | "fused" master sync (collective)
+    overflow_every: int = 8    # overflow-detection cadence (host sync)
+    k_tail_grow: int = 0       # adaptive K_tail: max tail doublings (0=off)
+    collapsed_backend: str = "fast"  # "ref" | "fast" | "pallas" tail step
+    chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
+    k_live_buckets: str = "on"  # occupancy-adaptive packing
+    harvest_every: int = 0     # SampleBank harvest cadence (0 = off)
+    harvest_burn: float = 0.5  # burn-in fraction before harvesting
+    bank_path: str = ""        # bank npz ("" = <ckpt_dir>/bank.npz)
+
+    def to_spec(self) -> SamplerSpec:
+        for field, value, allowed in (
+                ("driver", self.driver, DRIVERS),
+                ("backend", self.backend, SWEEP_BACKENDS),
+                ("collapsed_backend", self.collapsed_backend,
+                 COLLAPSED_BACKENDS),
+                ("k_live_buckets", self.k_live_buckets, K_LIVE_MODES),
+                ("sync", self.sync, SYNC_MODES)):
+            if value not in allowed:
+                raise ValueError(f"DriverConfig: {field}={value!r} not in "
+                                 f"{allowed}")
+        if not 0.0 <= self.harvest_burn < 1.0:
+            raise ValueError(f"DriverConfig: harvest_burn="
+                             f"{self.harvest_burn} must be in [0, 1)")
+        for field, ported in _PORTED.items():
+            if getattr(self, field) not in ported:
+                _not_yet(field, getattr(self, field), owner="DriverConfig")
+        return SamplerSpec(
+            P=self.P, K_max=self.K_max, K_tail=self.K_tail,
+            K_init=self.K_init, alpha=self.alpha, sigma_x=self.sigma_x,
+            sigma_a=self.sigma_a, L=self.L, chol_refresh=self.chol_refresh,
+            stale_sync=self.stale_sync, n_iters=self.n_iters,
+            eval_every=self.eval_every, ckpt_every=self.ckpt_every,
+            ckpt_dir=self.ckpt_dir, overflow_every=self.overflow_every,
+            k_tail_grow=self.k_tail_grow, seed=self.seed,
+            harvest_every=self.harvest_every,
+        )
+
+
+def as_spec(cfg: DriverConfig | SamplerSpec) -> SamplerSpec:
+    """Normalize either config surface to a validated SamplerSpec."""
+    return cfg.to_spec() if isinstance(cfg, DriverConfig) else cfg
+
+
 class MCMCDriver:
     """Runs a built Sampler with checkpoint/restart."""
 
-    def __init__(self, X: np.ndarray, spec: SamplerSpec,
+    def __init__(self, X: np.ndarray, cfg: DriverConfig | SamplerSpec,
                  hyp: IBPHypers | None = None,
                  X_eval: np.ndarray | None = None,
                  device: str | torch.device | None = None):
+        spec = as_spec(cfg)
         self.spec = spec
+        self.cfg = spec  # the reference's alias: run knobs live on the spec
         self.hyp = hyp or IBPHypers()
         self.sampler = build_sampler(spec, self.hyp, X, device=device)
         self.device = self.sampler.device
@@ -53,6 +148,10 @@ class MCMCDriver:
         self.history: list[dict[str, Any]] = []
         # per-iteration scalar traces, kept on the device until an eval
         self.trace: dict[str, list] = {"sigma_x": [], "K": []}
+        # adaptive K_tail: doublings so far, and the tail_sat watermark at
+        # the last checkpoint boundary (growth fires on new saturation only)
+        self._tail_growths = 0
+        self._sat_mark = 0
 
     # ---- state <-> checkpoint layout (global Z) --------------------------
     def _to_ckpt(self, gs: HybridGlobal, ss: HybridShard) -> dict:
@@ -62,17 +161,54 @@ class MCMCDriver:
         return {"gs": gs, "Z_global": ss.Z.reshape(P * N_p, K),
                 "meta": {"it": gs.it}}
 
+    def _shrink_features(self, gs: HybridGlobal, Zg: torch.Tensor,
+                         K_new: int) -> tuple[HybridGlobal, torch.Tensor]:
+        """Shrink restart: compact a checkpoint's feature axis into a
+        smaller K_max. The kept columns are every live feature plus the
+        lowest-index free slots, in ascending order, so the posterior
+        state is untouched and only dead slots are dropped. Refuses when
+        the live features do not fit. The port's checkpoints carry no
+        chain axis, so there is one live set to compact."""
+        live = torch.nonzero(gs.active > 0.5).flatten()
+        if live.numel() > K_new:
+            raise ValueError(
+                f"cannot shrink to K_max={K_new}: the checkpoint carries "
+                f"{live.numel()} live features; restart with "
+                f"K_max >= {live.numel()}"
+            )
+        free = torch.nonzero(gs.active <= 0.5).flatten()
+        cols, _ = torch.sort(torch.cat([live, free[:K_new - live.numel()]]))
+        gs = dataclasses.replace(gs, A=gs.A.index_select(0, cols),
+                                 pi=gs.pi.index_select(0, cols),
+                                 active=gs.active.index_select(0, cols))
+        return gs, Zg.index_select(1, cols)
+
     def _from_ckpt(self, blob: dict) -> tuple[HybridGlobal, HybridShard]:
+        """Checkpoint -> (gs, ss) under this driver's spec. A checkpoint of
+        another K_max is grown (empty slots appended, overflow reset) or
+        shrunk (``_shrink_features``; overflow kept, as the reference
+        does). Tail buffers are rebuilt empty at the configured K_tail:
+        checkpoints are written post-sync, where tails are cleared."""
         spec = self.spec
         gs: HybridGlobal = blob["gs"]
         Zg = blob["Z_global"]
-        N, K = Zg.shape
-        if K != spec.K_max:
-            raise NotImplementedError(
-                f"checkpoint in {spec.ckpt_dir} has K_max={K}, this driver "
-                f"K_max={spec.K_max}: restoring into another capacity "
-                f"(grow/shrink restarts) comes with ROADMAP queue 1 item 6"
+        if Zg.dim() != 2:
+            raise ValueError(
+                f"checkpoint in {spec.ckpt_dir} carries a chain axis "
+                f"(Z_global {tuple(Zg.shape)}); chains come with ROADMAP "
+                f"queue 1 item 8"
             )
+        K_ck = Zg.shape[1]
+        if K_ck > spec.K_max:
+            gs, Zg = self._shrink_features(gs, Zg, spec.K_max)
+        if K_ck < spec.K_max:
+            grow = spec.K_max - K_ck
+            Zg = F.pad(Zg, (0, grow))
+            gs = dataclasses.replace(
+                gs, A=F.pad(gs.A, (0, 0, 0, grow)), pi=F.pad(gs.pi, (0, grow)),
+                active=F.pad(gs.active, (0, grow)),
+                overflow=torch.zeros_like(gs.overflow))
+        N, K = Zg.shape
         if N != self.N:
             raise ValueError(
                 f"checkpoint has N={N} observations but this driver "
@@ -88,6 +224,38 @@ class MCMCDriver:
     def _template(self):
         gs, ss = self.sampler.init()
         return self._to_ckpt(gs, ss)
+
+    # ---- adaptive K_tail --------------------------------------------------
+    def _maybe_grow_tail(self, gs: HybridGlobal, ss: HybridShard
+                         ) -> tuple[HybridGlobal, HybridShard, bool]:
+        """Double K_tail (up to K_max, at most ``k_tail_grow`` times) when
+        new tail saturation (``gs.tail_sat``: accepted births vetoed by
+        K_tail capacity) accrued since the last checkpoint boundary. Runs
+        at a post-sync checkpoint boundary, where tails are empty, so the
+        sampler is rebuilt with empty tail buffers at the new width and the
+        posterior state is untouched; the counter is zeroed so the next
+        decision sees only post-growth saturation. Reading ``tail_sat``
+        waits for the iteration. Returns (gs, ss, grew)."""
+        spec = self.spec
+        sat = int(gs.tail_sat)
+        grew = False
+        if (self._tail_growths < spec.k_tail_grow
+                and spec.K_tail < spec.K_max and sat > self._sat_mark):
+            new_tail = min(2 * spec.K_tail, spec.K_max)
+            spec = spec.replace(K_tail=new_tail)
+            self.spec = self.cfg = spec
+            self.sampler = self.sampler.with_spec(spec)
+            P, N_p, _ = ss.Z.shape
+            z = ss.Z.new_zeros((P, N_p, new_tail))
+            ss = HybridShard(Z=ss.Z, Z_tail=z,
+                             tail_active=z[:, 0, :].clone())
+            gs = dataclasses.replace(gs,
+                                     tail_sat=torch.zeros_like(gs.tail_sat))
+            self._tail_growths += 1
+            grew = True
+            sat = 0
+        self._sat_mark = sat
+        return gs, ss, grew
 
     # ---- main loop --------------------------------------------------------
     def run(self, n_iters: int | None = None,
@@ -127,6 +295,14 @@ class MCMCDriver:
                     on_eval(rec)
             if need_ckpt or overflowed:
                 save_pytree(spec.ckpt_dir, self._to_ckpt(gs, ss), it + 1)
+            # adaptive K_tail rides the checkpoint boundary, where tails are
+            # empty; the checkpoint just written stays valid (tails are not
+            # serialized)
+            if (need_ckpt and spec.k_tail_grow > 0 and not last
+                    and not overflowed):
+                gs, ss, grew = self._maybe_grow_tail(gs, ss)
+                if grew:
+                    spec, sampler = self.spec, self.sampler
             if overflowed:
                 raise RuntimeError(
                     f"K_max={spec.K_max} overflow at it={it}; restart with "

@@ -56,15 +56,17 @@ def cuda():
 # active: four stages, Z and u read from global memory too), K=400 (328
 # active: two column passes of 256 on an H100) and K=700 (573 active:
 # three passes), K=1, row counts that are not multiples of the 64-row
-# tile, an all-zero mask ("inactive") and planted data whose dot products
-# cancel ("planted")
+# tile, an all-zero mask ("inactive"), planted data whose dot products
+# cancel ("planted") and a grown K_max of 128 with every column active,
+# the serial baseline's layout ("all_active")
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K,case", [
     *[(*s, "random") for s in SHAPES + [(1000, 1500, 12)]],
     (1000, 300, 70, "random"), (517, 200, 130, "random"),
     (200, 64, 256, "random"), (300, 96, 400, "random"),
     (150, 64, 700, "random"), (300, 50, 1, "random"),
-    (129, 64, 64, "inactive"), (2049, 1024, 64, "planted")])
+    (129, 64, 64, "inactive"), (2049, 1024, 64, "planted"),
+    (4099, 1024, 128, "all_active")])
 def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K, case):
     if case == "planted":
         X, Z, A, lpi, act, u, inv2s2 = gibbs_planted_case(N, D, K, seed=N)
@@ -75,6 +77,8 @@ def test_gibbs_flip_kernel_matches_plain(cuda, N, D, K, case):
         inv2s2 = np.float32(0.5)
         if case == "inactive":
             act = np.zeros_like(act)
+        elif case == "all_active":
+            act = np.ones_like(act)
     args = [t.to(cuda) for t in _t(X, Z, A, lpi, act, u, inv2s2)]
     first = gibbs_flip_core(*args)
     assert torch.equal(first, gibbs_flip_core(*args))  # bitwise repeatable
@@ -129,7 +133,8 @@ def test_stats_kernels_match_plain(cuda, N, D, K):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K", [(1000, 36, 12), (777, 100, 5),
-                                   (4099, 1024, 64), (33, 20, 70)])
+                                   (4099, 1024, 64), (33, 20, 70),
+                                   (4099, 1024, 128)])
 def test_feature_stats_kernel_exact_and_repeatable(cuda, N, D, K):
     X, Z, _, _, _ = _inputs(N, D, K, seed=N)
     X, Z = (t.to(cuda) for t in _t(X, Z))
@@ -145,10 +150,11 @@ def test_feature_stats_kernel_exact_and_repeatable(cuda, N, D, K):
 
 # shapes that are not tile multiples (128 rows, 64 columns, 16-64 k), one
 # with K > 64 (Z walked in two chunks), the eval's N=1024 (D split across
-# blocks) and a sync-like 4099 rows
+# blocks), a sync-like 4099 rows, and the sync after a K_max growth to 128
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,K", [(1000, 36, 12), (777, 100, 5), (33, 20, 70),
-                                   (1024, 1024, 64), (4099, 1024, 64)])
+                                   (1024, 1024, 64), (4099, 1024, 64),
+                                   (4099, 1024, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gaussian_sse_kernel_matches_plain(cuda, N, D, K, dtype):
     X, Z, A, act, rng = _inputs(N, D, K, seed=N + K)
@@ -189,11 +195,12 @@ def _scan(fn, case, dev, n_rows=None, refresh=16):
     return out, counts.cpu().numpy()
 
 
-# K=8 D=1024 is the main path's tail; D=36 the CLI's; K=32 D=1024 keeps
-# its carry in global memory (too large for one block's shared memory)
+# K=8 D=1024 is the main path's tail; D=36 the CLI's; K=16 D=1024 is a
+# grown tail whose carry still fits one block's shared memory, near its
+# limit; K=32 D=1024 keeps its carry in global memory
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rows,K,D", [(512, 8, 1024), (600, 8, 36),
-                                        (256, 32, 1024)])
+                                        (512, 16, 1024), (256, 32, 1024)])
 def test_collapsed_scan_kernel_matches_plain(cuda, n_rows, K, D):
     case = scan_case(n_rows, K, D, seed=K + D)
     got, cg = _scan(collapsed_scan, case, cuda)
