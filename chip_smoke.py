@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code non-zero):
    shapes (gibbs_flip: the sweep's N=32768 and the held-out eval's
    N=1024 from Z=0, beside one read of X and the product X A^T alone;
    collapsed_scan: one tail sub-iteration, N_p rows, and 1024 rows at
-   the grown K_tail 16 and 32;
+   the grown K_tail 16 and 32; with Gibbs births, 1024 rows at K=32, 64,
+   16, and 4 with births common; each plain scan runs once, timed;
    gaussian_sse: the sync's N=32768 in float32 and bfloat16, a
    real-valued Z, and the held-out eval's N=1024). Each
    kernel's device time (torch.profiler) and call time (CUDA events) are
@@ -21,9 +22,10 @@ Phases, each of which raises on failure (exit code non-zero):
 4. The CLI (repro_torch.launch.mcmc) on Cambridge data, 40 iterations.
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations.
-6. The kernel that carries each TPU kernel on the main path (CARRIED_BY:
-   collapsed_row's recurrence runs inside collapsed_scan) had its launch
-   counter rise in phases 4 and 5.
+6. (Checked last, after phase 9.) The kernel that carries each TPU
+   kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
+   inside collapsed_scan) had its launch counter rise in phases 4 and 5,
+   and collapsed_scan and feature_stats theirs in phase 9.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
    checkpoint every iteration, run to iteration 6 with tail saturation
@@ -36,6 +38,17 @@ Phases, each of which raises on failure (exit code non-zero):
    phase 5's data, K=64 all active, 5 steps, each launching gibbs_flip,
    feature_stats and gaussian_sse once; the sweep kernel at this shape
    (all 64 columns active) against its plain version.
+9. The serial collapsed sampler (collapsed_sweep, Gibbs births) at full
+   width: phase 5's data, K_max=32 from K_init=4, one warm and 3 timed
+   sweeps, each launching feature_stats and collapsed_scan once and no
+   other kernel; the scan's carried ZᵀZ and m exact against its Z; each
+   sweep's sigma moves replayed from its keys (proposal, difference,
+   decision) and equal to the sampler's; the sigma_x MH's collapsed
+   log-likelihoods in float32 and float64; feature_stats on the last
+   sweep's entry Z, and the scan over the first 1024 rows of that sweep's
+   own inputs, against their plain versions (the prefix's Z equal to the
+   sweep's own rows); then one sweep at K_max=64, feature_stats held on
+   its entry and returned Z.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON. Run from the root of a checkout: python3 chip_smoke.py
@@ -79,6 +92,8 @@ CARRIED_BY = {
     "src/repro/kernels/feature_stats/kernel.py:36": "feature_stats",
 }
 MAIN_PATH = tuple(sorted(set(CARRIED_BY.values())))
+# the kernels of the serial collapsed sampler's sweep (phase 9)
+COLLAPSED_PATH = ("collapsed_scan", "feature_stats")
 # phase 3: the main path's kernel shapes at full width
 SHAPE = dict(N=32768, K=64, D=1024)
 # phase 5: the widths the kernels' own docstrings size for
@@ -88,6 +103,10 @@ FULL = dict(N=32768, D=1024, K_max=64, K_tail=8, P=8, L=5, iters=3,
 GROWTH = dict(K_max=128, K_tails=(8, 16, 32), k_tail_grow=2, iters=6)
 # phase 8: the serial uncollapsed baseline on phase 5's data
 BASELINE = dict(K=64, steps=5)
+# phase 9: the serial collapsed sampler on phase 5's data, then one sweep
+# at benchmarks/collapsed.py's top K
+COLLAPSED = dict(K_max=32, K_init=4, alpha=3.0, warm=1, sweeps=3,
+                 K_max_wide=64, prefix_rows=1024)
 
 
 def log(msg: str) -> None:
@@ -415,25 +434,58 @@ def check_collapsed_row(dev) -> dict:
     return main
 
 
-def scan_variant(dev, n_rows: int, K: int, D: int, seed: int) -> dict:
-    """The tail scan kernel against its plain version (the Python row loop)
-    on the same inputs and draws: one sub-iteration of ``n_rows`` rows, K
-    tail columns, D wide."""
+def scan_bound_ms(n_rows: int, K: int, D: int, k_live: float,
+                  gibbs: bool) -> tuple[float, str]:
+    """The scan's bound. Bytes: X, the draws (u, and 2 MH or 5 Gumbel
+    values a row) and Z read once, Z and the statistics written once.
+    Operations this run's data needs per row, about: the removal and the
+    factor moves (5 K D), the mean, and the flip of each live column (8 D
+    each); far below what the chain of dependent rows allows."""
+    nbytes = 4.0 * (n_rows * (D + 2 * K + (5 if gibbs else 2)) + n_rows * K
+                    + 2 * (K * K + K * D + 2 * K))
+    flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
+    return bound_ms(nbytes, flops)
+
+
+def once_ms(fn) -> float:
+    """CUDA-event time of one call, no warm-up: for the plain row loops,
+    whose one call takes seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
+              rest=None):
+    """The scan kernel against its plain version (the Python row loop) on
+    the same inputs and draws. ``case`` holds numpy arrays: the scan's
+    state (Z, active, ZtZ, ZtX, m), its rows X and its draws (u_logit, and
+    j_prop and log_u_acc, or gumbel and alpha); ``rest`` is as in
+    ``scan_divergence``. Two launches must be bitwise equal; the kernel
+    must agree with the plain scan in every decision (Z, active, m and ZᵀZ
+    equal, ZᵀX within rtol 1e-5, atol 1e-4, the counts equal) unless the
+    two first part at one float-boundary event (margin < 1e-3 (1 + |u|)),
+    after which the chains part. The plain scan runs once, timed.
+    Returns (report, run, tensors): ``run(fn, t)`` scans ``t`` with
+    ``fn``, ``tensors()`` makes a fresh copy of the case on the card."""
     import numpy as np
     import torch
-    from _torch_cases import scan_case, scan_divergence
+    from _torch_cases import scan_divergence
 
     from repro_torch.kernels.collapsed_scan import (
         collapsed_scan,
         collapsed_scan_ref,
     )
 
-    sx, sa, N = 0.5, 1.0, float(FULL["N"])
     refresh = 64  # the sampler's DEFAULT_REFRESH
-    # births at 1% of rows (the sampler's alpha/N is ~1e-4) so that the
-    # check sees them
-    case = scan_case(n_rows, K, D, seed=seed, lam=0.01)
-    per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc")
+    per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc", "gumbel")
 
     def tensors(rows=None):
         return {k: torch.tensor(v[:rows] if k in per_row else v, device=dev)
@@ -443,23 +495,29 @@ def scan_variant(dev, n_rows: int, K: int, D: int, seed: int) -> dict:
 
     def run(fn, t):
         return fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
-                  t["u_logit"], t["j_prop"], t["log_u_acc"], sx_t, sa_t,
-                  N=N, refresh_every=refresh, drift_tol=1e-2)
+                  t["u_logit"], t.get("j_prop"), t.get("log_u_acc"), sx_t,
+                  sa_t, N=N, refresh_every=refresh, drift_tol=1e-2,
+                  gumbel=t.get("gumbel"), alpha=t.get("alpha"))
 
-    got_t, want_t = tensors(), tensors()
-    cg, cw = run(collapsed_scan, got_t), run(collapsed_scan_ref, want_t)
-    torch.cuda.synchronize()
+    got_t, again_t, want_t = tensors(), tensors(), tensors()
+    cg, ca = run(collapsed_scan, got_t), run(collapsed_scan, again_t)
+    cw = []
+    plain_ms = once_ms(lambda: cw.append(run(collapsed_scan_ref, want_t)))
+    cw = cw[0]
     got = {k: got_t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX",
                                                  "m")}
     want = {k: want_t[k].cpu().numpy() for k in got}
+    if not (torch.equal(cg, ca) and all(
+            torch.equal(got_t[k], again_t[k]) for k in got)):
+        raise AssertionError(f"{tag}: two launches differ")
 
     def state_at(n):  # (active, m) entering row n, from the plain scan
         t = tensors(n)
         run(collapsed_scan_ref, t)
         return t["active"].cpu().numpy(), t["m"].cpu().numpy()
 
-    tag = f"collapsed_scan K={K}"
-    ev = scan_divergence(case, want["Z"], got["Z"], state_at, sx, sa, N)
+    ev = scan_divergence(case, want["Z"], got["Z"], state_at, sx, sa, N,
+                         rest=rest)
     event = None
     if ev is not None:  # one float-boundary event, then the chains part
         n, what, margin, u = ev
@@ -473,25 +531,45 @@ def scan_variant(dev, n_rows: int, K: int, D: int, seed: int) -> dict:
                 raise AssertionError(f"{tag}: {k} differs")
         if not np.allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4):
             raise AssertionError(f"{tag}: ZtX differs")
-        if int(cg[1]) != int(cw[1]):
-            raise AssertionError(f"{tag}: n_sat differs")
+        if not torch.equal(cg.cpu(), cw.cpu()):
+            raise AssertionError(f"{tag}: counts differ {cg} {cw}")
     err = float(np.abs(got["ZtX"] - want["ZtX"]).max()) if ev is None else None
-    # bytes: X_p, the draws and Z read once, Z and the statistics written
-    # once; operations this run's data needs per row, about: the removal
-    # and the factor moves (5 K D), the mean, and the flip of each live
-    # column (8 D each); far below what the chain of dependent rows allows
-    k_live = float(want["active"].sum())
-    nbytes = 4.0 * (n_rows * (D + 2 * K + 2) + n_rows * K
-                    + 2 * (K * K + K * D + 2 * K))
-    flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
-    b, by = bound_ms(nbytes, flops)
+    report = dict(
+        max_abs_err=err, boundary_event=event, n_refresh=int(cg[0]),
+        n_sat=int(cg[1]),
+        decisions_differing=int((got["Z"] != want["Z"]).sum()),
+        counts_equal=bool((cg.cpu() == cw.cpu()).all()),
+        born=int((want["Z"][:, case["active"] < 0.5].sum(0) > 0).sum()),
+        k_live=float(want["active"].sum()), plain_ms=plain_ms,
+        Z=got["Z"])
+    return report, run, tensors
+
+
+def scan_variant(dev, n_rows: int, K: int, D: int, seed: int,
+                 alpha: float | None = None) -> dict:
+    """``hold_scan`` on a planted case: one tail sub-iteration of
+    ``n_rows`` rows, K tail columns, D wide, with MH births; or, with
+    ``alpha``, ``n_rows`` rows of the serial sweep's scan with Gibbs
+    births; then the kernel's times beside its bound."""
+    from _torch_cases import scan_case
+
+    from repro_torch.kernels.collapsed_scan import collapsed_scan
+
+    sx, sa, N = 0.5, 1.0, float(FULL["N"])
+    # MH births proposed at 1% of rows (the sampler's alpha/N is ~1e-4) so
+    # that the check sees them
+    case = scan_case(n_rows, K, D, seed=seed, lam=0.01, alpha=alpha)
+    gibbs = alpha is not None
+    tag = f"collapsed_scan K={K}{' gibbs' if gibbs else ''}"
+    rep, run, tensors = hold_scan(dev, case, sx, sa, N, tag)
+    del rep["Z"]
+    b, by = scan_bound_ms(n_rows, K, D, rep["k_live"], gibbs)
     t = tensors()  # the kernel is timed scanning on from its own output
     out = dict(
-        shape=f"rows={n_rows} K={K} D={D}", max_abs_err=err,
-        boundary_event=event, n_refresh=int(cg[0]), n_sat=int(cg[1]),
-        k_live=k_live,
+        shape=f"rows={n_rows} K={K} D={D}" + (
+            f" gibbs alpha={alpha:g}" if gibbs else ""), **rep,
+        free_left=K - rep["k_live"],
         **timed(lambda: run(collapsed_scan, t), ("collapsed_scan_kernel",)),
-        plain_ms=time_ms(lambda: run(collapsed_scan_ref, tensors()), reps=1),
         bound_ms=b, bound_by=by)
     out["ms_per_row"] = out["ms"] / n_rows
     return out
@@ -501,12 +579,22 @@ def check_collapsed_scan(dev) -> dict:
     """The tail scan at the main path's tail shape (N_p rows, K_tail=8,
     D=1024), and at the grown tails of phase 7 (K_tail 16, whose carry
     still fits one block's shared memory, and 32, whose carry lives in
-    global memory) on 1024 rows."""
+    global memory) on 1024 rows; then the serial sweep's scan with Gibbs
+    births on 1024 rows at its K_max=32 and at phase 9's wide K_max=64
+    (global memory), at K=16 (shared memory, the Gumbel values through
+    the ring), and at K=4 with alpha = N/4, where births are common and
+    fill every free column, so that the capacity mask (j <= the free
+    columns) binds."""
     n_rows, K, D = FULL["N"] // FULL["P"], FULL["K_tail"], FULL["D"]
     main = dict(name="collapsed_scan", **scan_variant(dev, n_rows, K, D, 31),
                 library_ms=None, library_call=None)
     main["variants"] = [scan_variant(dev, 1024, k, D, 31 + k)
                         for k in GROWTH["K_tails"][1:]]
+    main["variants"] += [
+        scan_variant(dev, 1024, k, D, 91 + k, alpha=a)
+        for k, a in ((COLLAPSED["K_max"], COLLAPSED["alpha"]),
+                     (COLLAPSED["K_max_wide"], COLLAPSED["alpha"]),
+                     (16, COLLAPSED["alpha"]), (4, FULL["N"] / 4))]
     return main
 
 
@@ -903,6 +991,262 @@ def run_baseline(dev, data: tuple) -> tuple[dict, dict, dict]:
                 m_live=int((state.Z.sum(0) > 0.5).sum())), counts, sweep
 
 
+def sigma_replay(before, after, scan_out, X) -> dict:
+    """One sweep's sigma_x and sigma_a MH moves replayed from the sweep's
+    own keys, on its device and from its scan's output, as
+    ``collapsed._finish_sweep`` makes them: the proposal, the difference
+    of the two collapsed log-likelihoods plus the log-scale Jacobian, the
+    log uniform and the decision. The sampler's new sigma_x and sigma_a
+    must equal the replay's bitwise."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import math as ibm
+
+    N, D = X.shape
+    _, _, _, ksx, ksa = prng.split(before.key, 5)
+    _, act, ZtZ, ZtX, m = scan_out[:5]
+    act = act * (m > 0.5)
+    ZtZ, ZtX = ZtZ * ibm.mask_outer(act), ZtX * act[:, None]
+    trXtX = torch.sum(X * X)
+
+    def cll(sx_, sa_):
+        return ibm.collapsed_loglik(trXtX, ZtX, ZtZ, act, float(N), D, sx_,
+                                    sa_)
+
+    out, sx, sa = {}, before.sigma_x, before.sigma_a
+    for name, key in (("x", ksx), ("a", ksa)):
+        cur = sx if name == "x" else sa
+        g = prng.generator(key, X.device)
+        eps = torch.randn((), generator=g, dtype=cur.dtype, device=X.device)
+        prop = cur * torch.exp(0.1 * eps)
+        lls = (cll(prop, sa), cll(cur, sa)) if name == "x" else (
+            cll(sx, prop), cll(sx, cur))
+        d = lls[0] - lls[1] + torch.log(prop) - torch.log(cur)
+        log_u = torch.log(torch.rand((), generator=g, dtype=cur.dtype,
+                                     device=X.device))
+        new = torch.where(log_u < d, prop, cur)
+        got = after.sigma_x if name == "x" else after.sigma_a
+        if not torch.equal(new, got):
+            raise AssertionError(f"collapsed: sigma_{name} {float(got)} is "
+                                 f"not the replayed move's {float(new)}")
+        out[f"sigma_{name}"] = dict(
+            cur=float(cur), prop=float(prop), step=float(0.1 * eps),
+            delta=float(d), log_u=float(log_u), accepted=bool(log_u < d))
+        if name == "x":
+            sx = new
+    return out
+
+
+def run_collapsed(dev, data: tuple) -> tuple[dict, dict]:
+    """Phase 9: the serial collapsed sampler (collapsed_sweep, Gibbs
+    births, the carried scan on the card) on phase 5's data at K_max=32
+    from init_state (K_init=4): one warm sweep, then COLLAPSED["sweeps"]
+    timed sweeps, each launching feature_stats and collapsed_scan once and
+    no other kernel; after each sweep, outside its time, its sigma moves
+    are replayed (``sigma_replay``). After the last sweep the scan's
+    carried ZᵀZ and m must equal those recomputed from its Z exactly
+    (integer counts), and the returned Z must be the scan's, pruned. The
+    kernels are then held against their plain versions on the sweep's
+    own inputs: feature_stats on the last sweep's entry Z, and the scan
+    over the first
+    COLLAPSED["prefix_rows"] rows of the last sweep (its entry state,
+    which counts all N rows, and its draws), whose Z must also equal the
+    sweep's own first rows bitwise. Then one sweep at K_max=64, with
+    feature_stats held on its entry and returned Z. Returns (results,
+    launches of the timed sweeps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import IBPHypers, collapsed_sweep, init_state
+    from repro_torch.core.ibp import collapsed as coll
+    from repro_torch.core.ibp import math as ibm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    c = COLLAPSED
+    X = torch.from_numpy(data[0]).to(dev)
+    N, D = X.shape
+    hyp = IBPHypers()
+    # the last sweep's scan, its inputs and outputs: the carried
+    # statistics, which collapsed_sweep prunes and does not return
+    scans = []
+    plain_scan = coll.collapsed_row_scan
+
+    def keeping_scan(*args, **kw):
+        out = plain_scan(*args, **kw)
+        scans[:] = [(args, kw, out)]
+        return out
+
+    replay = []  # each sweep's sigma moves, replayed after the sweep
+
+    coll.collapsed_row_scan = keeping_scan
+    try:
+        state = init_state(prng.key(9), N, D, K_max=c["K_max"],
+                           K_init=c["K_init"], alpha=c["alpha"], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(c["warm"]):
+            entry, state = state, collapsed_sweep(state, X, hyp)
+            replay.append(sigma_replay(entry, state, scans[0][2], X))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        times, k_plus = [], []
+        for _ in range(c["sweeps"]):
+            t0 = time.perf_counter()
+            entry, state = state, collapsed_sweep(state, X, hyp)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            k_plus.append(int(state.active.sum()))
+            replay.append(sigma_replay(entry, state, scans[0][2], X))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        scan_in, scan_kw, scan_out = scans[0]
+        # one more sweep under the profiler: the device's busy share and
+        # time by kernel
+        sweep_profile = profile_call(lambda: collapsed_sweep(state, X, hyp))
+
+        wide0 = init_state(prng.key(10), N, D, K_max=c["K_max_wide"],
+                           K_init=c["K_init"], alpha=c["alpha"], device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        wide = collapsed_sweep(wide0, X, hyp)
+        torch.cuda.synchronize()
+        t_wide = time.perf_counter() - t0
+        wide_counts = launch_counts()
+    finally:
+        coll.collapsed_row_scan = plain_scan
+
+    n = c["sweeps"]
+    for name in ("collapsed_scan", "feature_stats"):
+        if counts.get(name, 0) != n or wide_counts.get(name, 0) != 1:
+            raise AssertionError(
+                f"collapsed: {name} launched {counts.get(name, 0)} times in "
+                f"{n} sweeps, {wide_counts.get(name, 0)} in the K_max="
+                f"{c['K_max_wide']} sweep")
+    others = {k: v for k, v in counts.items()
+              if k not in ("collapsed_scan", "feature_stats") and v}
+    if others:
+        raise AssertionError(f"collapsed: other kernels launched {others}")
+    # carried statistics exact against the scan's Z (0/1 sums)
+    Z_s, act_s, ZtZ_s, ZtX_s, m_s, n_refresh, n_sat = scan_out
+    Zd = Z_s.double()
+    if not (torch.equal(m_s.double(), Zd.sum(0))
+            and torch.equal(ZtZ_s.double(), Zd.T @ Zd)):
+        raise AssertionError("collapsed: carried m or ZtZ differ from the "
+                             "scan's Z")
+    if not torch.equal(state.Z, Z_s * state.active[None, :]) or \
+            int(n_sat) != 0:
+        raise AssertionError("collapsed: returned Z is not the scan's, "
+                             "pruned, or n_sat != 0")
+    sx, sa, alpha = (float(state.sigma_x), float(state.sigma_a),
+                     float(state.alpha))
+    if not (all(math.isfinite(v) and v > 0 for v in (sx, sa, alpha))
+            and 1 <= k_plus[-1] <= c["K_max"]
+            and math.isfinite(float(wide.sigma_x))):
+        raise AssertionError(f"collapsed: sigma_x={sx}, sigma_a={sa}, "
+                             f"alpha={alpha}, K+={k_plus}")
+    # the sigma_x MH's collapsed log-likelihoods on the final state, at
+    # sigma_x and at proposals exp(+0.1) and exp(-0.1) away, in float32
+    # (the sampler's arithmetic) and in float64 (the rounding of the first)
+    act = state.active
+    ZtZ = ZtZ_s * ibm.mask_outer(act)
+    ZtX = ZtX_s * act[:, None]
+    trXtX = torch.sum(X * X)
+
+    def lls(dt):
+        f = lambda t: t.to(dt)  # noqa: E731
+        ll = [float(ibm.collapsed_loglik(f(trXtX), f(ZtX), f(ZtZ), f(act),
+                                         float(N), D, f(state.sigma_x * s_),
+                                         f(state.sigma_a)))
+              for s_ in (1.0, math.exp(0.1), math.exp(-0.1))]
+        return ll + [ll[1] - ll[0], ll[2] - ll[0]]
+
+    ll32, ll64 = lls(torch.float32), lls(torch.float64)
+    med = statistics.median(times)
+
+    # the kernels against their plain versions on the sweep's own inputs:
+    # feature_stats on the last timed sweep's entry Z (all columns that
+    # the sweep found live)
+    stats = [stats_variant(X, entry.Z, " (phase 9 entry)")]
+    # the scan over the first rows of the last timed sweep: its entry
+    # state, which counts all N rows, its draws and its sigmas
+    Z0, act0, ZtZ0, ZtX0, m0, _, sx0, sa0, draws = scan_in
+    R = c["prefix_rows"]
+    np_ = lambda t: t.cpu().numpy()  # noqa: E731
+    case = dict(Z=np_(Z0[:R]), active=np_(act0), ZtZ=np_(ZtZ0),
+                ZtX=np_(ZtX0), m=np_(m0), X=np_(X[:R]),
+                u_logit=np_(draws.u_logit[:R]), gumbel=np_(draws.gumbel[:R]),
+                alpha=np_(scan_kw["alpha"]))
+    Zr = Z0[R:].double()
+    rest = (np_(Zr.T @ Zr), np_(Zr.T @ X[R:].double()))
+    t0 = time.perf_counter()
+    prefix, _, _ = hold_scan(dev, case, float(sx0), float(sa0),
+                             scan_kw["N"], "collapsed_scan phase 9 prefix",
+                             rest=rest)
+    if not np.array_equal(prefix.pop("Z"), np_(Z_s[:R])):
+        raise AssertionError("collapsed: the prefix launch's Z differs from "
+                             "the sweep's own first rows")
+    prefix.update(shape=f"rows={R} of the K_max={c['K_max']} sweep, "
+                  f"N={N} D={D} gibbs", seconds=time.perf_counter() - t0)
+
+    # the scan kernel alone at the sweep's shape (one launch over all N
+    # rows at K_max), on the final state with fresh draws, beside its bound
+    m1, ZtZ1, ZtX1, _ = coll._sweep_stats(state.Z, state.active, X)
+    draws1 = coll.draw_scan(N, c["K_max"], state.alpha, float(N),
+                            prng.generator(prng.key(11), dev), birth="gibbs")
+
+    def scan():
+        plain_scan(state.Z, state.active, ZtZ1, ZtX1, m1, X, state.sigma_x,
+                   state.sigma_a, draws1, N=float(N), alpha=state.alpha,
+                   birth="gibbs")
+
+    b, by = scan_bound_ms(N, c["K_max"], D, float(act.sum()), True)
+    kernel = dict(shape=f"rows={N} K={c['K_max']} D={D} gibbs (the sweep)",
+                  **timed(scan, ("collapsed_scan_kernel",), reps=1),
+                  bound_ms=b, bound_by=by, k_live=float(act.sum()))
+    kernel["ms_per_row"] = kernel["ms"] / N
+    # feature_stats at K_max=64: the wide sweep's entry Z and its result
+    stats += [stats_variant(X, wide0.Z, " (phase 9 K_max=64 entry)"),
+              stats_variant(X, wide.Z, " (phase 9 K_max=64 result)")]
+    return dict(
+        N=N, D=D, K_max=c["K_max"], K_init=c["K_init"], sweeps=n,
+        seconds_per_sweep=times, median_seconds_per_sweep=med,
+        min_seconds_per_sweep=min(times), max_seconds_per_sweep=max(times),
+        ms_per_row=med / N * 1e3, rows_per_s=N / med, K_plus=k_plus,
+        sigma_x=sx, sigma_a=sa, alpha=alpha, n_refresh=int(n_refresh),
+        sigma_moves=replay, loglik_f32=ll32, loglik_f64=ll64,
+        loglik_diff_rounding=abs(ll32[3] - ll64[3]),
+        max_memory_allocated=peak, wide_K_max=c["K_max_wide"],
+        wide_seconds_per_sweep=t_wide, wide_ms_per_row=t_wide / N * 1e3,
+        wide_K_plus=int(wide.active.sum()), sweep_profile=sweep_profile,
+        scan_kernel=kernel, scan_prefix=prefix, stats=stats), counts
+
+
+def profile_call(fn) -> dict:
+    """torch.profiler over one call of ``fn``: its wall time (ended by a
+    device sync), the device's busy share of it, and the device time of
+    its kernels by name (the six longest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for e in kernel_events(p):
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
+            e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_s=wall, busy_share=busy / wall,
+                top_kernels_us=[(n, round(us, 1)) for n, us in top])
+
+
 def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int) -> dict | None:
     """torch.profiler over one tail sub-iteration of all N_p rows of p':
     wall and device time per row, kernels per row, host syncs per row
@@ -1014,17 +1358,6 @@ def main() -> int:
         log(f"[5] full width: {json.dumps(full)}")
         log(f"[5] launches {full_counts}")
 
-        # phase 6: the main path went through every kernel that carries it
-        for tpu, name in CARRIED_BY.items():
-            log(f"[6] {tpu} runs as {name} on the main path")
-        for name in MAIN_PATH:
-            if cli_counts.get(name, 0) < 1 or full_counts.get(name, 0) < 1:
-                raise AssertionError(
-                    f"{name} was not launched on the main path (CLI "
-                    f"{cli_counts.get(name)}, full width "
-                    f"{full_counts.get(name)})")
-        log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5")
-
         # phase 7: capacity growth, K_tail growth, shrink
         t0 = time.perf_counter()
         growth, growth_counts, grown = run_growth(tmp, data, dev)
@@ -1053,8 +1386,65 @@ def main() -> int:
             f"bound_ms={base_sweep['bound_ms']:.4f}; phase took "
             f"{time.perf_counter() - t0:.1f} s")
 
+    # phase 9: the serial collapsed sampler
+    t0 = time.perf_counter()
+    coll, coll_counts = run_collapsed(dev, data)
+    log(f"[9] collapsed: {json.dumps(coll)}")
+    log(f"[9] launches {coll_counts}")
+    log(f"[9] s/sweep at K_max={coll['K_max']}, N={coll['N']}, "
+        f"D={coll['D']}: median {coll['median_seconds_per_sweep']:.4f} "
+        f"(min {coll['min_seconds_per_sweep']:.4f}, max "
+        f"{coll['max_seconds_per_sweep']:.4f}), {coll['ms_per_row']:.5f} "
+        f"ms/row, {coll['rows_per_s']:.0f} rows/s, K+ {coll['K_plus']}, "
+        f"sigma_x {coll['sigma_x']:.4f}, alpha {coll['alpha']:.4f}")
+    for i, mv in enumerate(coll["sigma_moves"]):
+        log(f"[9] sweep {i} sigma moves (replayed, equal to the sampler's): "
+            f"{json.dumps(mv)}")
+    log(f"[9] collapsed_loglik at sigma_x, exp(0.1) sigma_x and exp(-0.1) "
+        f"sigma_x, and the two differences: float32 {coll['loglik_f32']}, "
+        f"float64 {coll['loglik_f64']}; the float32 up-difference is off by "
+        f"{coll['loglik_diff_rounding']:.4f}")
+    pre = coll["scan_prefix"]
+    log(f"[9] collapsed_scan {pre['shape']} against the plain scan: "
+        f"{pre['decisions_differing']} decisions differ, boundary event "
+        f"{pre['boundary_event']}, counts equal {pre['counts_equal']}, Z equal "
+        f"to the sweep's own rows; plain_ms={pre['plain_ms']:.1f}, "
+        f"{pre['seconds']:.1f} s")
+    for v in coll["stats"]:
+        log(f"[9] feature_stats {v['shape']}: ms={v['ms']:.4f} "
+            f"bound_ms={v['bound_ms']:.4f} plain_ms={v['plain_ms']:.4f} "
+            f"max_abs_err={v['max_abs_err']}")
+    log(f"[9] one sweep profiled: {json.dumps(coll['sweep_profile'])}")
+    k = coll["scan_kernel"]
+    log(f"[9] collapsed_scan {k['shape']}: ms={k['ms']:.2f} "
+        f"call_ms={k['call_ms']:.2f} ({k['timing']}) "
+        f"ms/row={k['ms_per_row']:.5f} bound_ms={k['bound_ms']:.4f} "
+        f"({k['bound_by']}), {k['k_live']:.0f} live columns")
+    log(f"[9] s/sweep at K_max={coll['wide_K_max']}: "
+        f"{coll['wide_seconds_per_sweep']:.4f} "
+        f"({coll['wide_ms_per_row']:.5f} ms/row); peak device memory "
+        f"{coll['max_memory_allocated']} bytes; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 6: the main paths went through every kernel that carries them
+    for tpu, name in CARRIED_BY.items():
+        log(f"[6] {tpu} runs as {name} on the main path")
+    for name in MAIN_PATH:
+        if cli_counts.get(name, 0) < 1 or full_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched on the main path (CLI "
+                f"{cli_counts.get(name)}, full width "
+                f"{full_counts.get(name)})")
+    for name in COLLAPSED_PATH:
+        if coll_counts.get(name, 0) < 1:
+            raise AssertionError(f"{name} was not launched by the serial "
+                                 f"collapsed sampler ({coll_counts})")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5; "
+        f"{', '.join(COLLAPSED_PATH)} in phase 9")
+
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep],
-             "feature_stats": [grown["feature_stats"]],
+             "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"]],
+             "feature_stats": [grown["feature_stats"], *coll["stats"]],
              "gaussian_sse": [grown["gaussian_sse"]]}
     kernels = []
     for name in KERNELS:
@@ -1075,6 +1465,7 @@ def main() -> int:
             launches_cli=cli_counts.get(name, 0),
             launches_growth=growth_counts.get(name, 0),
             launches_baseline=base_counts.get(name, 0),
+            launches_collapsed=coll_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 from . import convergence, predict
 from .api import Sampler, SamplerSpec, build_sampler
+from .collapsed import collapsed_sweep
 from .hybrid import HybridGlobal, HybridShard, init_hybrid
 from .state import IBPHypers, IBPState, init_state
 from .sweeps import sufficient_stats, uncollapsed_sweep
@@ -12,6 +13,7 @@ __all__ = [
     "uncollapsed_sweep",
     "sufficient_stats",
     "uncollapsed_step",
+    "collapsed_sweep",
     "HybridGlobal",
     "HybridShard",
     "init_hybrid",

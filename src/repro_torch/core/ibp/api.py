@@ -13,9 +13,12 @@ The spec keeps the reference's field names and validation for what the
 port supports. Values that select work not yet ported raise
 ``NotImplementedError`` naming the ROADMAP item that brings them. The
 kernel choice follows the device (CUDA kernels on a GPU, their plain
-versions on the CPU), so the reference's ``backend`` and
-``collapsed_backend`` are not knobs here; the tail always runs the
-mean-form recurrence, the reference's ``"pallas"`` flavor.
+versions on the CPU), so the reference's ``backend`` is not a knob here.
+``collapsed_backend`` selects the tail's row step: ``"pallas"`` runs the
+carried scan with the mean-form recurrence (on the card one
+``collapsed_scan`` launch), ``"ref"`` the O(K^3) oracle. The default is
+the reference's ``"fast"``, kept in the spec as the reference keeps it
+and read as ``"pallas"`` by ``collapsed.row_step_backend``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.kernels.gibbs_flip import gibbs_flip_max_k
 
-from .collapsed import DEFAULT_REFRESH
+from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH
 from .hybrid import (
     HybridGlobal,
     HybridShard,
@@ -50,8 +53,6 @@ _LATER = {
     "driver": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "n_chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "sync": "ROADMAP queue 1 item 8 (the fused master sync)",
-    "collapsed_backend": "ROADMAP queue 1 item 7b (the serial collapsed "
-                         "sampler's O(K^3) row step)",
     "k_live_buckets": "ROADMAP queue 1 item 7c (the unpacked collapsed "
                       "carry)",
 }
@@ -78,6 +79,7 @@ class SamplerSpec:
     sigma_a: float = 1.0
     # ---- kernel dispatch
     L: int = 5                 # sub-iterations per master sync
+    collapsed_backend: str = "fast"  # tail row step: "ref"|"pallas" ("fast")
     chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
     # ---- parallelism layout
     chains: str = "none"       # only "none" is ported
@@ -104,6 +106,9 @@ class SamplerSpec:
             bad(f"chains={self.chains!r} not in {CHAIN_MODES}")
         if self.data not in DATA_MODES:
             bad(f"data={self.data!r} not in {DATA_MODES}")
+        if self.collapsed_backend not in COLLAPSED_BACKENDS:
+            bad(f"collapsed_backend={self.collapsed_backend!r} not in "
+                f"{COLLAPSED_BACKENDS}")
         if self.chol_refresh < 1:
             bad(f"chol_refresh={self.chol_refresh} must be >= 1")
         if self.P < 1:
@@ -189,7 +194,8 @@ class Sampler:
     def step(self, gs: HybridGlobal, ss: HybridShard):
         """One full hybrid iteration (sub-iterations + master sync)."""
         return _hybrid_iteration_body(self.Xs, gs, ss, self.hyp, self.spec.L,
-                                      float(self.N), self.spec.chol_refresh)
+                                      float(self.N), self.spec.chol_refresh,
+                                      self.spec.collapsed_backend)
 
     def to_canonical(self, ss: HybridShard) -> HybridShard:
         """Native state -> canonical (P, N_p, K) HybridShard (the same

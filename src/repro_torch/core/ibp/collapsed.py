@@ -1,22 +1,36 @@
-"""The collapsed row scan of the hybrid sampler's tail.
+"""Collapsed Gibbs sampler for the linear-Gaussian IBP (Griffiths &
+Ghahramani), and the collapsed row scan it shares with the hybrid tail.
 
-Port of what ``repro/core/ibp/collapsed.py`` runs for the hybrid tail:
-``collapsed_row_scan(..., birth="mh", backend="pallas")``, the
-reference's ``_packed_scan`` at the full-width block. The row step, the
-carried factor, the refresh and drift probe and the MH births are
-documented beside the plain version, ``kernels/collapsed_scan/ref.py``.
+Port of ``repro/core/ibp/collapsed.py``. A is integrated out; for each
+row n the posterior-predictive form
 
-On a CUDA tensor the whole scan is one launch of the ``collapsed_scan``
-kernel: one block walks every row with the carry on chip and every
-branch of the row step decided on the device, so a scan costs no host
-sync and the rows' bit flips run the ``collapsed_row`` recurrence inside
-it. On a CPU tensor the scan is the plain version, a Python loop that
-reads its branch flags on the host. The tail's Z, mask and statistics
-are updated in place on copies of the caller's.
+    x_n | z_n, Z_-n, X_-n ~ N( z_n H_-,  sigma_x^2 (1 + z_n M_- z_n^T) I )
 
-Draws: the scan's randomness is drawn up front (``draw_scan``), as the
+with M_- = (Z_-^T Z_- + (sx^2/sa^2) I)^{-1}, H_- = M_- Z_-^T X_-, makes
+each bit flip O(K + D) once the row's posterior map is in hand. New
+dishes are the exact truncated Gibbs draw over j = 0..J_MAX (the serial
+sweep) or the paper's MH move (the hybrid tail). Everything is padded to
+K_max with an ``active`` mask.
+
+Row-step backends, selected by ``backend=``:
+
+* ``"pallas"``: the factor is CARRIED across the scan and moved between
+  rows by rank-one Cholesky moves and Sherman–Morrison (documented
+  beside the plain version, ``kernels/collapsed_scan/ref.py``). On a
+  CUDA tensor the whole scan is one launch of the ``collapsed_scan``
+  kernel, with every branch of the row step decided on the device, so a
+  scan costs no host sync; on a CPU tensor it is the plain version.
+  ``"fast"`` is accepted as an alias (``row_step_backend``): the
+  reference's ``"fast"`` differs from its ``"pallas"`` in the flip's
+  flavor only, and on the card the flip runs inside the scan kernel.
+* ``"ref"``: ``_row_step``, the O(K^3) oracle, a fresh factorization per
+  row in plain PyTorch on any device (the reference runs it in plain jnp
+  too). It runs only when asked for.
+
+Draws: a scan's randomness is drawn up front (``draw_scan``), as the
 reference hoists it, and passed in, so a test can feed the port the
-reference's own draws.
+reference's own draws. Keys are host-side (``prng``) and the streams are
+not JAX's.
 """
 from __future__ import annotations
 
@@ -24,36 +38,123 @@ import dataclasses
 
 import torch
 
+from repro_torch import prng
+from repro_torch.kernels.collapsed_row import collapsed_row_flip_ref
 from repro_torch.kernels.collapsed_scan import collapsed_scan
+from repro_torch.kernels.collapsed_scan.ref import (
+    BIRTHS,
+    J_MAX,
+    _log_poisson,  # noqa: F401  (the reference's name)
+    _sample_dishes,
+)
+
+from . import math as ibm
+from .state import IBPHypers, IBPState
+from .sweeps import sufficient_stats
 
 Tensor = torch.Tensor
 
+COLLAPSED_BACKENDS = ("ref", "fast", "pallas")  # "fast": alias of "pallas"
+K_LIVE_MODES = ("on", "off")  # occupancy-adaptive packing knob values
 DEFAULT_REFRESH = 64      # exact refactorization cadence
 DEFAULT_DRIFT_TOL = 1e-2  # probe-residual threshold forcing an early refresh
 
 
+def row_step_backend(name: str) -> str:
+    """``name`` checked against ``COLLAPSED_BACKENDS``, with the
+    reference's ``"fast"`` read as ``"pallas"``: "ref" or "pallas"."""
+    if name not in COLLAPSED_BACKENDS:
+        raise ValueError(f"backend={name!r} not in {COLLAPSED_BACKENDS}")
+    return "pallas" if name == "fast" else name
+
+
 @dataclasses.dataclass
 class ScanDraws:
-    """The row scan's random numbers, one row of each per scanned row."""
+    """The row scan's random numbers, one row of each per scanned row:
+    the bit-flip thresholds and, for MH births, ``j_prop`` and
+    ``log_u_acc`` or, for Gibbs births, ``gumbel``."""
 
-    u_logit: Tensor    # (n_rows, K) logit-uniform bit-flip thresholds
-    j_prop: Tensor     # (n_rows,) MH birth proposals, Poisson(alpha/N)
-    log_u_acc: Tensor  # (n_rows,) log of the MH accept uniforms
+    u_logit: Tensor                  # (n_rows, K) logit-uniform thresholds
+    j_prop: Tensor | None = None     # (n_rows,) MH proposals, Poisson(alpha/N)
+    log_u_acc: Tensor | None = None  # (n_rows,) log of the MH accept uniforms
+    gumbel: Tensor | None = None     # (n_rows, J_MAX + 1) standard Gumbel
 
 
 def draw_scan(n_rows: int, K: int, alpha: Tensor, N: float,
-              gen: torch.Generator) -> ScanDraws:
-    """Draw a scan's randomness on ``alpha``'s device from ``gen``."""
+              gen: torch.Generator, birth: str = "mh") -> ScanDraws:
+    """Draw a scan's randomness on ``alpha``'s device from ``gen``.
+
+    Gibbs births take standard Gumbel noise, -log(-log U) with U clamped
+    below at the float32 tiny, as ``jax.random.gumbel`` draws it."""
+    if birth not in BIRTHS:
+        raise ValueError(f"birth={birth!r} not in {BIRTHS}")
     dev, dt = alpha.device, alpha.dtype
     uu = torch.rand((n_rows, K), generator=gen, dtype=dt, device=dev)
     uu = torch.clamp(uu, 1e-7, 1.0 - 1e-7)
-    lam = (alpha / N) * torch.ones((n_rows,), dtype=dt, device=dev)
-    return ScanDraws(
-        u_logit=torch.log(uu) - torch.log1p(-uu),
-        j_prop=torch.poisson(lam, generator=gen),
-        log_u_acc=torch.log(torch.rand((n_rows,), generator=gen, dtype=dt,
-                                       device=dev)),
-    )
+    draws = ScanDraws(u_logit=torch.log(uu) - torch.log1p(-uu))
+    if birth == "gibbs":
+        ug = torch.rand((n_rows, J_MAX + 1), generator=gen, dtype=dt,
+                        device=dev)
+        ug = torch.clamp(ug, min=torch.finfo(dt).tiny)
+        draws.gumbel = -torch.log(-torch.log(ug))
+    else:
+        lam = (alpha / N) * torch.ones((n_rows,), dtype=dt, device=dev)
+        draws.j_prop = torch.poisson(lam, generator=gen)
+        draws.log_u_acc = torch.log(torch.rand((n_rows,), generator=gen,
+                                               dtype=dt, device=dev))
+    return draws
+
+
+def _row_step(carry: tuple, n: int, *, X: Tensor, draws: ScanDraws,
+              N: Tensor, birth: str) -> tuple:
+    """Resample row n's bits and new dishes, collapsed: the O(K^3) oracle.
+
+    A fresh padded-W factorization per row, the plain flip, then the
+    dish move; no carried factor. ``N`` is the GLOBAL observation count,
+    a 0-d tensor (the hybrid tail runs on one shard's rows with global-N
+    priors). No value is read back to the host, so on a CUDA tensor a row
+    queues its work without waiting on the device. The trailing carry
+    element accumulates the MH births' saturation flag.
+    """
+    Z, active, ZtZ, ZtX, m, alpha, sx, sa, n_sat = carry
+    D = X.shape[1]
+    x_n = X[n]
+    z = Z[n]
+    # ---- remove row n from the sufficient statistics
+    m_minus = m - z
+    ZtZ_m = ZtZ - torch.outer(z, z)
+    ZtX_m = ZtX - torch.outer(z, x_n)
+    # drop row-n singletons (m_minus == 0 while z == 1): they are
+    # re-proposed as part of the new-dish step (exact G&G scheme)
+    singleton = active * (m_minus <= 0.5) * z
+    z = z * (1.0 - singleton)
+    active_m = active * (1.0 - (active * (m_minus <= 0.5)))
+    # ---- per-row factorization (exact; no carried state)
+    ratio = (sx / sa) ** 2
+    M, _ = ibm.chol_inv_logdet(ibm.padded_W(ZtZ_m, active_m, ratio))
+    M = M * ibm.mask_outer(active_m)
+    H = M @ (ZtX_m * active_m[:, None])  # (K, D) posterior mean map
+    v = M @ z
+    q = torch.dot(z, v)
+    mean = z @ H
+    inv2s2 = 0.5 / (sx**2)
+    z, v, q, mean = collapsed_row_flip_ref(
+        M, H, x_n, z, v, q, mean, draws.u_logit[n], m_minus, active_m, N,
+        inv2s2)
+    # ---- new dishes, j = 0..J_MAX
+    if birth == "gibbs":
+        draw, lam = draws.gumbel[n], alpha / N
+    else:
+        draw, lam = (draws.j_prop[n], draws.log_u_acc[n]), None
+    z, active_new, _, sat = _sample_dishes(
+        birth, draw, q, mean, x_n, active_m, z, sx, sa, lam, D)
+    # ---- add row n back
+    m_new = m_minus * active_m + z  # dead/singleton cols contribute 0
+    ZtZ_n = ZtZ_m * ibm.mask_outer(active_m) + torch.outer(z, z)
+    ZtX_n = ZtX_m * active_m[:, None] + torch.outer(z, x_n)
+    Z[n] = z
+    return (Z, active_new, ZtZ_n, ZtX_n, m_new, alpha, sx, sa,
+            n_sat + sat.to(n_sat.dtype))
 
 
 def collapsed_row_scan(
@@ -68,20 +169,149 @@ def collapsed_row_scan(
     draws: ScanDraws,
     *,
     N: float,
+    alpha: Tensor | None = None,
+    birth: str = "mh",
+    backend: str = "pallas",
     refresh_every: int = DEFAULT_REFRESH,
     drift_tol: float = DEFAULT_DRIFT_TOL,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Scan the collapsed row step (MH births) over every row of ``X``.
+    """Scan the collapsed row step over every row of ``X``: the carried
+    scan (``backend="pallas"``, alias ``"fast"``) or the oracle (``"ref"``).
 
-    ``N`` is the GLOBAL observation count: the tail runs on one shard's
-    rows with global-N priors ((m_k - Z_nk)/N and Poisson(alpha/N)).
-    Returns (Z, active, ZtZ, ZtX, m, n_refresh, n_sat): ``n_refresh``
-    counts exact refactorizations and ``n_sat`` the capacity-vetoed
-    accepted births, both int32 device scalars.
+    The shared entry of the serial sweep (``birth="gibbs"``, which needs
+    ``alpha`` and ``draws.gumbel``) and the hybrid tail (``birth="mh"``).
+    ``N`` is the GLOBAL observation count. Returns (Z, active, ZtZ, ZtX,
+    m, n_refresh, n_sat), the last two int32 device scalars: exact
+    refactorizations (0 on the ``"ref"`` backend, which has no carry)
+    and capacity-vetoed accepted MH births (0 for Gibbs births). The
+    caller's tensors are not modified.
     """
+    backend = row_step_backend(backend)
+    if birth not in BIRTHS:
+        raise ValueError(f"birth={birth!r} not in {BIRTHS}")
+    if birth == "gibbs" and (alpha is None or draws.gumbel is None):
+        raise ValueError("Gibbs births need alpha and draws.gumbel")
     Z, active, ZtZ, ZtX, m = (t.clone(memory_format=torch.contiguous_format)
                               for t in (Z, active, ZtZ, ZtX, m))
-    counts = collapsed_scan(Z, active, ZtZ, ZtX, m, X, draws.u_logit,
-                            draws.j_prop, draws.log_u_acc, sx, sa, N=N,
-                            refresh_every=refresh_every, drift_tol=drift_tol)
+    gibbs = birth == "gibbs"
+    if backend == "ref":
+        n_sat = torch.zeros((), dtype=torch.int32, device=X.device)
+        N_t = torch.tensor(N, dtype=X.dtype, device=X.device)
+        carry = (Z, active, ZtZ, ZtX, m, alpha, sx, sa, n_sat)
+        for n in range(X.shape[0]):
+            carry = _row_step(carry, n, X=X, draws=draws, N=N_t, birth=birth)
+        return (*carry[:5], torch.zeros_like(n_sat), carry[8])
+    counts = collapsed_scan(
+        Z, active, ZtZ, ZtX, m, X, draws.u_logit, draws.j_prop,
+        draws.log_u_acc, sx, sa, N=N, refresh_every=refresh_every,
+        drift_tol=drift_tol, gumbel=draws.gumbel if gibbs else None,
+        alpha=alpha if gibbs else None)
     return Z, active, ZtZ, ZtX, m, counts[0], counts[1]
+
+
+def _sweep_stats(Z: Tensor, active: Tensor, X: Tensor
+                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Exact sweep-entry statistics (m, ZtZ, ZtX) masked to the live
+    columns, through ``feature_stats``, and tr XᵀX for the sigma moves."""
+    m, ZtZ, ZtX, trXtX = sufficient_stats(X, Z)
+    return (m * active, ZtZ * ibm.mask_outer(active), ZtX * active[:, None],
+            trXtX)
+
+
+def _finish_sweep(state: IBPState, X: Tensor, hyp: IBPHypers, Z: Tensor,
+                  active: Tensor, ZtZ: Tensor, ZtX: Tensor, m: Tensor,
+                  trXtX: Tensor, key: Tensor, kalpha: Tensor, ksx: Tensor,
+                  ksa: Tensor) -> IBPState:
+    """Post-scan pruning and hyper-parameter updates. No value is read
+    back to the host: the MH accepts are ``torch.where``s."""
+    N, D = X.shape
+    dev = X.device
+    alpha, sx, sa = state.alpha, state.sigma_x, state.sigma_a
+
+    # prune columns that died during the sweep
+    active = active * (m > 0.5)
+    mask2 = ibm.mask_outer(active)
+    ZtZ = ZtZ * mask2
+    ZtX = ZtX * active[:, None]
+    Z = Z * active[None, :]
+    k_plus = torch.sum(active)
+
+    # alpha | K+ ~ Gamma(a + K+, b + H_N)
+    if hyp.resample_alpha:
+        alpha = ibm.gamma_draw(prng.generator(kalpha, dev),
+                               hyp.a_alpha + k_plus,
+                               hyp.b_alpha + ibm.harmonic(N))
+
+    # sigma_x, sigma_a via random-walk MH on log-scale against the
+    # collapsed likelihood
+    if hyp.resample_sigmas:
+        def cll(sx_, sa_):
+            return ibm.collapsed_loglik(trXtX, ZtX, ZtZ, active, float(N), D,
+                                        sx_, sa_)
+
+        def mh(key_, cur, other, which):
+            g = prng.generator(key_, dev)
+            prop = cur * torch.exp(0.1 * torch.randn(
+                (), generator=g, dtype=cur.dtype, device=dev))
+            if which == "x":
+                d = cll(prop, other) - cll(cur, other)
+            else:
+                d = cll(other, prop) - cll(other, cur)
+            # log-normal RW: include the log-scale Jacobian
+            d = d + torch.log(prop) - torch.log(cur)
+            acc = torch.log(torch.rand((), generator=g, dtype=cur.dtype,
+                                       device=dev)) < d
+            return torch.where(acc, prop, cur)
+
+        sx = mh(ksx, sx, sa, "x")
+        sa = mh(ksa, sa, sx, "a")
+
+    return IBPState(
+        Z=Z, A=state.A, pi=state.pi, active=active, tail=state.tail,
+        alpha=alpha, sigma_x=sx, sigma_a=sa, key=key,
+        p_prime=state.p_prime, it=state.it + 1,
+    )
+
+
+def collapsed_sweep(
+    state: IBPState,
+    X: Tensor,
+    hyp: IBPHypers,
+    backend: str = "pallas",
+    refresh_every: int = DEFAULT_REFRESH,
+    k_live_buckets: str = "off",
+) -> IBPState:
+    """One full collapsed Gibbs sweep over all rows, with Gibbs births,
+    then pruning and the hyper-parameter updates.
+
+    The defaults differ from the reference's (``backend="ref"``,
+    ``k_live_buckets="on"``) on purpose, so that a default sweep runs the
+    carried scan, which on a CUDA state is the ``collapsed_scan`` kernel:
+    one ``feature_stats`` launch (the sweep-entry statistics), one
+    ``collapsed_scan`` launch, no host sync. ``k_live_buckets="off"`` is
+    the reference's top-bucket carry (B = K_max); ``"on"`` (the packed
+    live-K+ carry) is not ported yet and raises for the carried backends.
+    The ``"ref"`` backend has no carry and ignores the knob, as in the
+    reference.
+    """
+    if k_live_buckets not in K_LIVE_MODES:
+        raise ValueError(
+            f"k_live_buckets={k_live_buckets!r} not in {K_LIVE_MODES}")
+    backend = row_step_backend(backend)
+    if backend != "ref" and k_live_buckets == "on":
+        raise NotImplementedError(
+            f"collapsed_sweep: k_live_buckets='on' with backend={backend!r} "
+            f"is not ported yet; it comes with ROADMAP queue 1 item 7c (the "
+            f"packed collapsed carry at the live K+ bucket)")
+    N, D = X.shape
+    Z, active = state.Z, state.active
+    m, ZtZ, ZtX, trXtX = _sweep_stats(Z, active, X)
+    key, ksweep, kalpha, ksx, ksa = prng.split(state.key, 5)
+    draws = draw_scan(N, Z.shape[1], state.alpha, float(N),
+                      prng.generator(ksweep, X.device), birth="gibbs")
+    Z, active, ZtZ, ZtX, m, _, _ = collapsed_row_scan(
+        Z, active, ZtZ, ZtX, m, X, state.sigma_x, state.sigma_a, draws,
+        N=float(N), alpha=state.alpha, birth="gibbs", backend=backend,
+        refresh_every=refresh_every)
+    return _finish_sweep(state, X, hyp, Z, active, ZtZ, ZtX, m, trXtX, key,
+                         kalpha, ksx, ksa)

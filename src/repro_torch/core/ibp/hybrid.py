@@ -145,11 +145,15 @@ def _tail_sub_iteration(
     N_global: float,
     gen: torch.Generator,
     chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "pallas",
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Collapsed Gibbs + MH births on the tail of shard p'.
 
-    Returns (Z_tail, tail_active, n_sat): ``n_sat`` counts rows whose
-    accepted MH birth was vetoed purely by K_tail capacity.
+    ``collapsed_backend`` selects the row step: "pallas" (alias "fast")
+    the carried scan (one ``collapsed_scan`` launch on the card), "ref" the
+    O(K^3) oracle ``_row_step``. Returns (Z_tail, tail_active, n_sat):
+    ``n_sat`` counts rows whose accepted MH birth was vetoed purely by
+    K_tail capacity.
     """
     # residual given instantiated features = the tail model's data
     R = X_p - (Z * gs.active[None, :]) @ gs.A
@@ -159,7 +163,8 @@ def _tail_sub_iteration(
     draws = draw_scan(R.shape[0], Z_tail.shape[1], gs.alpha, N_global, gen)
     Z_tail, tail_active, _, _, m_t, _, n_sat = collapsed_row_scan(
         Z_tail, tail_active, ZtZ_t, ZtR, m_t, R, gs.sigma_x, gs.sigma_a,
-        draws, N=N_global, refresh_every=chol_refresh,
+        draws, N=N_global, birth="mh", backend=collapsed_backend,
+        refresh_every=chol_refresh,
     )
     # prune dead tail columns
     tail_active = tail_active * (m_t > 0.5)
@@ -176,6 +181,7 @@ def shard_sub_iterations(
     N_global: float,
     L: int,
     chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "pallas",
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """L sub-iterations of the paper's inner loop on all P shards.
 
@@ -199,7 +205,7 @@ def shard_sub_iterations(
         Zt, ta, sat = _tail_sub_iteration(
             X_shards[pp], Zf.view(P_, N_p, -1)[pp], Z_tail[pp],
             tail_active[pp], gs, N_global, prng.generator(kt, dev),
-            chol_refresh=chol_refresh,
+            chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
         )
         Z_tail[pp] = Zt
         tail_active[pp] = ta
@@ -319,12 +325,13 @@ def _hybrid_iteration_body(
     L: int,
     N_g: float,
     chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "pallas",
 ) -> tuple[HybridGlobal, HybridShard]:
     """One full hybrid iteration (sub-iterations + master sync)."""
     P_, N_p, D = X_shards.shape
     Z, Z_tail, tail_active, n_sat = shard_sub_iterations(
         X_shards, ss.Z, ss.Z_tail, ss.tail_active, gs, N_g, L,
-        chol_refresh=chol_refresh,
+        chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
     )
     # ---- master sync
     tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero

@@ -1,6 +1,7 @@
 """Linear-Gaussian IBP math: conjugate posteriors, likelihoods, draws.
 
-Port of ``repro/core/ibp/math.py`` (the parts the hybrid sampler runs).
+Port of ``repro/core/ibp/math.py`` (the parts the hybrid sampler and
+the serial baselines run).
 Model (paper Eq. 1):
 
     X = Z A + eps,   eps ~ N(0, sigma_x^2 I),   A_k ~ N(0, sigma_a^2 I)
@@ -26,7 +27,9 @@ from repro_torch.linalg import (  # noqa: F401  (the reference's names)
     _eye,
     chol_inv,
     chol_inv_logdet,
+    chol_rank1_downdate,
     chol_rank1_downdate_t,
+    chol_rank1_update,
     chol_rank1_update_t,
     mask_outer,
     padded_W,
@@ -59,6 +62,60 @@ def a_posterior_draw(gen: torch.Generator, ZtZ: Tensor, ZtX: Tensor,
     eps = torch.randn((K, D), generator=gen, dtype=ZtX.dtype,
                       device=ZtX.device)
     return mean + sigma_x * ((L @ eps) * active[:, None])
+
+
+def collapsed_loglik(
+    trXtX: Tensor,
+    ZtX: Tensor,
+    ZtZ: Tensor,
+    active: Tensor,
+    N: Tensor | float,
+    D: int,
+    sigma_x: Tensor,
+    sigma_a: Tensor,
+) -> Tensor:
+    """log P(X | Z) with A integrated out (paper Sec. 2 / G&G 2011 Eq. 26).
+
+    log P = -(N D / 2) log(2 pi) - (N - K) D log sigma_x - K D log sigma_a
+            - (D/2) log|W| - (1 / 2 sigma_x^2) ( tr(X^T X) - tr(X^T Z M Z^T X) )
+    with W = Z^T Z + (sigma_x^2/sigma_a^2) I,  M = W^{-1}; feature inputs
+    padded to K_max and masked by ``active``. Float32, with the
+    reference's terms in the reference's order: at N D ~ 10^7 the terms
+    are ~10^7 and a difference of two log-likelihoods carries rounding of
+    order 1, in the reference as here.
+    """
+    ratio = (sigma_x / sigma_a) ** 2
+    K = torch.sum(active)
+    W = padded_W(ZtZ, active, ratio)
+    M, logdetW = chol_inv_logdet(W)
+    ZtX_m = ZtX * active[:, None]
+    quad = torch.sum((M @ ZtX_m) * ZtX_m)  # tr( (ZtX)^T M (ZtX) )
+    Nf = torch.as_tensor(N, dtype=torch.float32, device=ZtX.device)
+    return (
+        -0.5 * Nf * D * LOG2PI
+        - (Nf - K) * D * torch.log(sigma_x)
+        - K * D * torch.log(sigma_a)
+        - 0.5 * D * logdetW
+        - 0.5 / (sigma_x**2) * (trXtX - quad)
+    )
+
+
+def sm_downdate(M: Tensor, z: Tensor) -> tuple[Tensor, Tensor]:
+    """Sherman-Morrison removal: M' = (W - z z^T)^{-1} given M = W^{-1}.
+
+    Returns (M', log det(W - z z^T) - log det W) = (M', log(1 - z^T M z)).
+    """
+    Mz = M @ z
+    denom = 1.0 - torch.dot(z, Mz)
+    return M + torch.outer(Mz, Mz) / denom, torch.log(denom)
+
+
+def sm_update(M: Tensor, z: Tensor) -> tuple[Tensor, Tensor]:
+    """Sherman-Morrison addition: M' = (W + z z^T)^{-1}; logdet delta =
+    log(1 + z^T M z)."""
+    Mz = M @ z
+    denom = 1.0 + torch.dot(z, Mz)
+    return M - torch.outer(Mz, Mz) / denom, torch.log(denom)
 
 
 def uncollapsed_loglik(X: Tensor, Z: Tensor, A: Tensor,

@@ -46,8 +46,11 @@ def collapsed_row_flip_ref(
              - torch.log(N - m_minus)).unbind(0)
     may = (active_m > 0) & (m_minus > 0.5)
     # a bit that may not flip and is 0 moves nothing (every move is
-    # 0 * column, added to the carry): skipping it is exact
-    skip = (~may & (z == 0)).tolist()
+    # 0 * column, added to the carry): skipping it is exact. The skip is
+    # read on the host, so on a CUDA tensor every bit runs instead and
+    # the pass never waits on the device
+    skip = ((~may & (z == 0)).tolist() if z.device.type == "cpu"
+            else [False] * z.shape[0])
     may = may.unbind(0)
     zs = list(z.unbind(0))
     for k in range(len(zs)):

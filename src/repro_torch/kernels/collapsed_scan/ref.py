@@ -1,13 +1,14 @@
-"""Plain PyTorch version of the collapsed_scan kernel: the hybrid tail's
-collapsed row scan over every row of one shard.
+"""Plain PyTorch version of the collapsed_scan kernel: the collapsed row
+scan over every row of a block of rows.
 
-Port of what ``repro/core/ibp/collapsed.py`` runs for the hybrid tail:
-``collapsed_row_scan(..., birth="mh", backend="pallas")``, which is
-``_packed_scan`` at the full-width block B = K_tail with ``carry_g=False``
-and the whole uniform hoist (``u_chunk_rows = n_rows``). At that point a
-birth cannot overflow the block, so the block gather, the overflow exit
-and resume, the chunked uniform refill and the G = HHᵀ carry are dead
-code in the reference and are not ported.
+Port of what ``repro/core/ibp/collapsed.py`` runs for the hybrid tail
+and for the serial collapsed sweep: ``collapsed_row_scan(..., backend=
+"pallas")`` with ``birth="mh"`` (the tail) or ``birth="gibbs"`` (the
+sweep), which is ``_packed_scan`` at the full-width block B = K with
+``carry_g=False``. At that point a birth cannot overflow the block, so
+the block gather, the overflow exit and resume and the G = HHᵀ carry are
+dead code in the reference and are not ported; the reference's hoisted
+(or, for the sweep, chunked) uniforms are drawn up front and passed in.
 
 Per row n, with A integrated out (Griffiths & Ghahramani):
 
@@ -21,8 +22,11 @@ exact refactorization runs every ``refresh_every`` rows, and earlier when
 the downdate loses positive definiteness or the drift probe (every
 ``PROBE_EVERY`` rows, ‖M W p − p‖∞ against the exact statistics) exceeds
 ``drift_tol``. The bit flips are the ``collapsed_row`` recurrence (its
-plain version here); new dishes are the paper's MH move: j ~
-Poisson(alpha/N), accepted with the marginal-likelihood ratio.
+plain version here). New dishes are either the paper's MH move (j ~
+Poisson(alpha/N), accepted with the marginal-likelihood ratio) or the
+exact truncated Gibbs draw over j = 0..J_MAX, taken as the argmax of the
+log posterior plus pre-drawn Gumbel noise, which is how
+``jax.random.categorical`` draws it.
 
 The reference's ``lax.cond``s are Python ``if``s on flags read from the
 tensors (``.tolist()``), so on a CUDA tensor each row waits on the device
@@ -30,6 +34,8 @@ twice; this version is the kernel's arithmetic spelled out, for the CPU
 and for checking the kernel, not a path the sampler takes on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,16 +52,34 @@ Tensor = torch.Tensor
 
 J_MAX = 4  # per-row new-dish truncation (P(j>4 | alpha/N) is negligible)
 PROBE_EVERY = 4  # drift-probe cadence within the refresh window
+BIRTHS = ("mh", "gibbs")
+# log j! for j = 0..J_MAX, rounded to float32 (the kernel's table)
+LOG_FACT = (0.0, 0.0, math.log(2.0), math.log(6.0), math.log(24.0))
 
 
-def _sample_dishes(j_prop, log_u_acc, q, mean, x_n, active_m, z, sx, sa, D):
-    """The MH new-dish move: returns (z', active', newbits, sat).
+def _log_poisson(j: Tensor, lam: Tensor) -> Tensor:
+    """log Poisson(j; lam) for j = 0..J_MAX, float32, in the reference's
+    order of terms; log j! from the table (the reference's float32
+    lgamma is off the rounded value by up to 1e-6)."""
+    log_fact = torch.tensor(LOG_FACT, dtype=j.dtype, device=j.device)
+    return j * torch.log(lam) - lam - log_fact
 
-    Propose j ~ Poisson(alpha/N) (pre-drawn) and accept with the
-    marginal-likelihood ratio lik(j)/lik(0) (prior ∝ proposal, so they
-    cancel); proposals beyond the free capacity are rejected. ``sat`` is
-    the tail-saturation flag: the likelihood accepted a proposal (j ≤
-    J_MAX) that only the lack of free columns vetoed.
+
+def _sample_dishes(birth, draw, q, mean, x_n, active_m, z, sx, sa, lam, D):
+    """The new-dish move: returns (z', active', newbits, sat).
+
+    ``birth="mh"``: ``draw`` is (j_prop, log_u_acc). Propose j ~
+    Poisson(alpha/N) (pre-drawn) and accept with the marginal-likelihood
+    ratio lik(j)/lik(0) (prior ∝ proposal, so they cancel); proposals
+    beyond the free capacity are rejected. ``sat`` is the tail-saturation
+    flag: the likelihood accepted a proposal (j ≤ J_MAX) that only the
+    lack of free columns vetoed.
+
+    ``birth="gibbs"``: ``draw`` is the row's J_MAX + 1 standard Gumbel
+    values g. j_new is the first argmax over j ≤ n_free of log
+    Poisson(j; lam) + lik(j) + g_j, an exact draw from the truncated
+    conditional; ``sat`` is always False (the sweep's capacity is K_max).
+    ``lam`` = alpha / N is read by this mode only.
     """
     inv2s2 = 0.5 / (sx**2)
     s = 1.0 + q
@@ -67,12 +91,19 @@ def _sample_dishes(j_prop, log_u_acc, q, mean, x_n, active_m, z, sx, sa, D):
     ll_j = -0.5 * D * torch.log(s_j) - inv2s2 * rss / s_j
     free = 1.0 - torch.maximum(active_m, z)
     n_free = torch.sum(free)
-    ok = j_prop <= torch.clamp(n_free, max=float(J_MAX))
-    j_idx = torch.clamp(j_prop, 0, J_MAX).long().reshape(1)
-    dll = ll_j.index_select(0, j_idx)[0] - ll_j[0]
-    acc = log_u_acc < dll
-    j_new = torch.where(ok & acc, j_prop, torch.zeros_like(j_prop))
-    sat = acc & (j_prop <= float(J_MAX)) & (j_prop > n_free)
+    if birth == "gibbs":
+        logits = _log_poisson(js, lam) + ll_j
+        logits = torch.where(js <= n_free, logits, -torch.inf)
+        j_new = torch.argmax(draw + logits).to(x_n.dtype)
+        sat = torch.zeros((), dtype=torch.bool, device=x_n.device)
+    else:
+        j_prop, log_u_acc = draw
+        ok = j_prop <= torch.clamp(n_free, max=float(J_MAX))
+        j_idx = torch.clamp(j_prop, 0, J_MAX).long().reshape(1)
+        dll = ll_j.index_select(0, j_idx)[0] - ll_j[0]
+        acc = log_u_acc < dll
+        j_new = torch.where(ok & acc, j_prop, torch.zeros_like(j_prop))
+        sat = acc & (j_prop <= float(J_MAX)) & (j_prop > n_free)
     # place new dishes in the first j_new free slots
     free_rank = torch.cumsum(free, 0) * free  # 1-indexed rank among free slots
     newbits = ((free_rank >= 1.0) & (free_rank <= j_new)).to(z.dtype)
@@ -93,27 +124,33 @@ def collapsed_scan_ref(
     ZtZ: Tensor,        # (K, K) statistics, updated in place
     ZtX: Tensor,        # (K, D)
     m: Tensor,          # (K,) column counts
-    X: Tensor,          # (n_rows, D) the rows (the tail's residual)
+    X: Tensor,          # (n_rows, D) the rows (data, or the tail's residual)
     u_logit: Tensor,    # (n_rows, K) logit-uniform bit-flip thresholds
-    j_prop: Tensor,     # (n_rows,) MH birth proposals, Poisson(alpha/N)
-    log_u_acc: Tensor,  # (n_rows,) log of the MH accept uniforms
+    j_prop: Tensor | None,     # (n_rows,) MH birth proposals, Poisson(alpha/N)
+    log_u_acc: Tensor | None,  # (n_rows,) log of the MH accept uniforms
     sx: Tensor,         # () sigma_x
     sa: Tensor,         # () sigma_a
     *,
     N: float,
     refresh_every: int,
     drift_tol: float,
+    gumbel: Tensor | None = None,  # (n_rows, J_MAX + 1) Gibbs-birth noise
+    alpha: Tensor | None = None,   # () IBP concentration (Gibbs births)
 ) -> Tensor:
-    """Scan the collapsed row step (MH births) over every row of ``X``.
+    """Scan the collapsed row step over every row of ``X``.
 
-    ``N`` is the GLOBAL observation count: the tail runs on one shard's
-    rows with global-N priors ((m_k - Z_nk)/N and Poisson(alpha/N)).
-    Updates Z, active, ZtZ, ZtX and m in place and returns the int32
-    counts (n_refresh, n_sat): exact refactorizations and capacity-vetoed
-    accepted births.
+    Births are MH moves from ``j_prop`` and ``log_u_acc``, or, when
+    ``gumbel`` is given, Gibbs draws from it and ``alpha`` (the MH draws
+    are then unused and may be None). ``N`` is the GLOBAL observation
+    count: the tail runs on one shard's rows with global-N priors
+    ((m_k - Z_nk)/N and Poisson(alpha/N)). Updates Z, active, ZtZ, ZtX
+    and m in place and returns the int32 counts (n_refresh, n_sat):
+    exact refactorizations and capacity-vetoed accepted MH births.
     """
     n_rows, D = X.shape
     dev, dt = X.device, X.dtype
+    birth = "mh" if gumbel is None else "gibbs"
+    lam = None if alpha is None else alpha / N
     ratio = (sx / sa) ** 2
     inv2s2 = 0.5 / (sx**2)
     N_t = torch.tensor(N, dtype=dt, device=dev)
@@ -180,8 +217,9 @@ def collapsed_scan_ref(
             inv2s2)
 
         # ---- new dishes
+        draw = gumbel[n] if birth == "gibbs" else (j_prop[n], log_u_acc[n])
         z2, active_new, newbits, sat = _sample_dishes(
-            j_prop[n], log_u_acc[n], q, mean, x_n, active_m, z, sx, sa, D)
+            birth, draw, q, mean, x_n, active_m, z, sx, sa, lam, D)
         flags = torch.stack([torch.any(z2 != z_old),
                              torch.any(active_new != active),
                              torch.any(newbits > 0.5),

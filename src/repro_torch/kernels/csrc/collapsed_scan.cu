@@ -1,11 +1,13 @@
-// collapsed_scan: the hybrid tail's whole collapsed row scan in one launch.
+// collapsed_scan: a whole collapsed row scan in one launch, the hybrid
+// tail's (MH births) or the serial collapsed sweep's (Gibbs births).
 //
 // Replaces the row loop around collapsed_row_flip_pallas
 // (src/repro/kernels/collapsed_row/kernel.py:97): the reference's
 // _packed_scan (src/repro/core/ibp/collapsed.py:259), one lax.scan over the
-// rows with lax.cond branches, at the full-width block B = K with MH
-// births and no G carry. Its plain version is
-// kernels/collapsed_scan/ref.py, whose docstring gives the row step.
+// rows with lax.cond branches, at the full-width block B = K with no G
+// carry, births by the MH move or by the exact truncated Gibbs draw
+// (collapsed.py:132). Its plain version is kernels/collapsed_scan/ref.py,
+// whose docstring gives the row step.
 //
 // What bounds it on the H100: neither bytes nor operations but the chain
 // of dependent rows. The scan reads X and the draws once (16 MB at
@@ -21,11 +23,13 @@
 //     a global scratch the wrapper allocates (L2-resident);
 //   * rows of X, their draws and their old bits stream through a ring of
 //     two shared-memory stages with cp.async, row n+1 loading while row n
-//     runs (shared-memory layout only);
+//     runs (shared-memory layout only; the global layout reads them where
+//     they lie);
 //   * every branch of the row step (the refresh, the downdate test, the
-//     drift probe, drop masking, the flip, the MH births, the add-back and
+//     drift probe, drop masking, the flip, the births, the add-back and
 //     its identity swaps) is block-uniform, decided by every thread from
-//     the same values, and the counters are registers written once;
+//     the same values, and the counters are registers written once; the
+//     birth move (MH or Gibbs) is a block-uniform flag of the launch;
 //   * K-length dot products are recomputed by every thread (no barrier),
 //     D-length ones are block reductions; the bit flips are
 //     collapsed_row_recurrence (collapsed_row.cuh), the same code as the
@@ -42,6 +46,7 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int NSTAGE = 2;       // row ring depth
 constexpr int J_MAX = 4;        // ref.J_MAX: per-row new-dish truncation
+constexpr int NG = J_MAX + 1;   // Gumbel values per row (Gibbs births)
 constexpr int PROBE_EVERY = 4;  // ref.PROBE_EVERY: drift-probe cadence
 
 // K-vectors of the row step, slots in the arena
@@ -78,8 +83,9 @@ __host__ __device__ inline Layout layout(int K, int D, bool ring) {
   L.kv = o, o += kNKVec * L.kstride;
   L.dstride = round4(D);
   L.dv = o, o += kNDVec * L.dstride;
-  // a stage: x (D), u (K), old bits (K), j_prop and log_u_acc
-  L.stage = L.dstride + 2 * L.kstride + 4;
+  // a stage: x (D), u (K), old bits (K), then j_prop and log_u_acc (MH)
+  // or NG Gumbel values from the third slot on (Gibbs), padded to 8
+  L.stage = L.dstride + 2 * L.kstride + 8;
   L.ring = o;
   if (ring) o += NSTAGE * L.stage;
   L.total = o;
@@ -185,11 +191,12 @@ __device__ void exact_factor(const float* ZtZ, const float* ZtX,
   __syncthreads();
 }
 
-// Copy row r's x, draws and old bits into ring stage st (cp.async).
+// Copy row r's x, draws and old bits into ring stage st (cp.async): the
+// MH draws, or the Gibbs births' Gumbel values when ``gibbs``.
 __device__ __forceinline__ void prefetch_row(
     float* st, const Layout& L, const float* X, const float* Z,
     const float* u_logit, const float* j_prop, const float* log_u_acc,
-    long r, int K, int D) {
+    const float* gumbel, bool gibbs, long r, int K, int D) {
   const int tid = threadIdx.x;
   for (int d = tid; d < D; d += THREADS)
     cp_async4(st + d, X + r * D + d);
@@ -199,9 +206,12 @@ __device__ __forceinline__ void prefetch_row(
     cp_async4(su + i, u_logit + r * K + i);
     cp_async4(sz + i, Z + r * K + i);
   }
-  if (tid == 0) {
-    cp_async4(sz + L.kstride, j_prop + r);
-    cp_async4(sz + L.kstride + 1, log_u_acc + r);
+  float* tail = sz + L.kstride;
+  if (gibbs) {
+    if (tid < NG) cp_async4(tail + 2 + tid, gumbel + r * NG + tid);
+  } else if (tid == 0) {
+    cp_async4(tail, j_prop + r);
+    cp_async4(tail + 1, log_u_acc + r);
   }
 }
 
@@ -216,10 +226,13 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       const float* __restrict__ u_logit,
                       const float* __restrict__ j_prop,
                       const float* __restrict__ log_u_acc,
+                      const float* __restrict__ gumbel,
                       const float* __restrict__ sx_p,
-                      const float* __restrict__ sa_p, int* __restrict__ counts,
-                      float* __restrict__ arena_g, int n_rows, int K, int D,
-                      float N, int refresh_every, float drift_tol) {
+                      const float* __restrict__ sa_p,
+                      const float* __restrict__ alpha_p,
+                      int* __restrict__ counts, float* __restrict__ arena_g,
+                      int n_rows, int K, int D, float N, int refresh_every,
+                      float drift_tol, bool gibbs) {
   extern __shared__ float4 sh4[];
   __shared__ float red[2 * NW];
   float* arena = RING ? reinterpret_cast<float*>(sh4) : arena_g;
@@ -252,6 +265,12 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   const float inv2s2 = 0.5f / (sx * sx);
   const float sqrt_ratio_m1 = sqrtf(ratio) - 1.f;
   const float halfD = -0.5f * (float)D;
+  // Gibbs births: lam = alpha / N and its log, as ref._log_poisson reads
+  // them; log j! is ref.LOG_FACT rounded to float32
+  const float lam = gibbs ? *alpha_p / N : 0.f;
+  const float log_lam = gibbs ? logf(lam) : 0.f;
+  constexpr float kLogFact[NG] = {0.f, 0.f, 0.693147182f, 1.79175949f,
+                                  3.17805386f};
 
   for (int e = tid; e < KK; e += THREADS) ZtZ[e] = ZtZ_io[e];
   for (int k = 0; k < K; ++k)
@@ -262,8 +281,8 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     m[i] = m_io[i];
   }
   if (RING && n_rows > 0) {
-    prefetch_row(arena + L.ring, L, X, Z, u_logit, j_prop, log_u_acc, 0, K,
-                 D);
+    prefetch_row(arena + L.ring, L, X, Z, u_logit, j_prop, log_u_acc, gumbel,
+                 gibbs, 0, K, D);
     cp_async_commit();
   }
   __syncthreads();
@@ -273,12 +292,12 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   int since = 0, n_refresh = 0, n_sat = 0;
   for (int n = 0; n < n_rows; ++n) {
     // ---- the row: x, draws and old bits (ring stage or where they lie)
-    const float *x, *u, *zsrc;
-    float jp, lua;
+    const float *x, *u, *zsrc, *g = nullptr;
+    float jp = 0.f, lua = 0.f;
     if (RING) {
       if (n + 1 < n_rows)
         prefetch_row(arena + L.ring + ((n + 1) % NSTAGE) * L.stage, L, X, Z,
-                     u_logit, j_prop, log_u_acc, n + 1, K, D);
+                     u_logit, j_prop, log_u_acc, gumbel, gibbs, n + 1, K, D);
       cp_async_commit();  // an empty group on the last row
       cp_async_wait<1>();
       __syncthreads();
@@ -286,14 +305,23 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       x = st;
       u = st + L.dstride;
       zsrc = u + L.kstride;
-      jp = zsrc[L.kstride];
-      lua = zsrc[L.kstride + 1];
+      const float* tail = zsrc + L.kstride;
+      if (gibbs) {
+        g = tail + 2;
+      } else {
+        jp = tail[0];
+        lua = tail[1];
+      }
     } else {
       x = X + (long)n * D;
       u = u_logit + (long)n * K;
       zsrc = Z + (long)n * K;
-      jp = j_prop[n];
-      lua = log_u_acc[n];
+      if (gibbs) {
+        g = gumbel + (long)n * NG;
+      } else {
+        jp = j_prop[n];
+        lua = log_u_acc[n];
+      }
     }
 
     // ---- remove row n: masks and counts
@@ -436,13 +464,33 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       }
       float n_free = 0.f;
       for (int k = 0; k < K; ++k) n_free += 1.f - fmaxf(actm[k], z[k]);
-      const float cap = n_free < (float)J_MAX ? n_free : (float)J_MAX;
-      const bool ok = jp <= cap;
-      const float jc = jp < 0.f ? 0.f : (jp > (float)J_MAX ? J_MAX : jp);
-      const float dll = ll[(int)jc] - ll[0];
-      const bool acc = lua < dll;
-      const float j_new = (ok && acc) ? jp : 0.f;
-      n_sat += (acc && jp <= (float)J_MAX && jp > n_free) ? 1 : 0;
+      float j_new;
+      if (gibbs) {
+        // exact truncated Gibbs: the first argmax over j <= n_free of
+        // log Poisson(j; lam) + ll_j + g_j (a categorical draw); the
+        // other j are -inf in the plain version and never taken
+        int jb = 0;
+        float best = 0.f;
+#pragma unroll
+        for (int j = 0; j <= J_MAX; ++j) {
+          const float lp = __fsub_rn(
+              __fsub_rn(__fmul_rn((float)j, log_lam), lam), kLogFact[j]);
+          const float val = __fadd_rn(g[j], __fadd_rn(lp, ll[j]));
+          if ((float)j <= n_free && (j == 0 || val > best)) {
+            best = val;
+            jb = j;
+          }
+        }
+        j_new = (float)jb;
+      } else {
+        const float cap = n_free < (float)J_MAX ? n_free : (float)J_MAX;
+        const bool ok = jp <= cap;
+        const float jc = jp < 0.f ? 0.f : (jp > (float)J_MAX ? J_MAX : jp);
+        const float dll = ll[(int)jc] - ll[0];
+        const bool acc = lua < dll;
+        j_new = (ok && acc) ? jp : 0.f;
+        n_sat += (acc && jp <= (float)J_MAX && jp > n_free) ? 1 : 0;
+      }
       float rank = 0.f;  // running count of free slots
       for (int k = 0; k < K; ++k) {
         const float fr = 1.f - fmaxf(actm[k], z[k]);
@@ -610,16 +658,19 @@ extern "C" long collapsed_scan_scratch_floats(int device, int K, int D) {
 }
 
 // Z (n_rows,K), active (K), ZtZ (K,K), ZtX (K,D), m (K): updated in place;
-// X (n_rows,D), u_logit (n_rows,K), j_prop, log_u_acc (n_rows), sx, sa
-// (device scalars): read; counts (2 int32): n_refresh, n_sat; scratch:
+// X (n_rows,D), u_logit (n_rows,K), sx, sa (device scalars): read; births
+// by MH from j_prop, log_u_acc (n_rows) when gibbs is 0, else by Gibbs
+// from gumbel (n_rows, J_MAX+1) and alpha (a device scalar), the other
+// pair unread (may be null); counts (2 int32): n_refresh, n_sat; scratch:
 // collapsed_scan_scratch_floats(device, K, D) floats. Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int collapsed_scan_launch(
     int device, float* Z, float* active, float* ZtZ, float* ZtX, float* m,
     const float* X, const float* u_logit, const float* j_prop,
-    const float* log_u_acc, const float* sx, const float* sa, int* counts,
-    float* scratch, int n_rows, int K, int D, float N, int refresh_every,
-    float drift_tol, void* stream_) {
+    const float* log_u_acc, const float* gumbel, const float* sx,
+    const float* sa, const float* alpha, int* counts, float* scratch,
+    int n_rows, int K, int D, float N, int refresh_every, float drift_tol,
+    int gibbs, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -628,13 +679,15 @@ extern "C" int collapsed_scan_launch(
     e = allow_smem(device);
     if (e != cudaSuccess) return (int)e;
     collapsed_scan_kernel<true><<<1, THREADS, bytes, stream>>>(
-        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa,
-        counts, nullptr, n_rows, K, D, N, refresh_every, drift_tol);
+        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
+        alpha, counts, nullptr, n_rows, K, D, N, refresh_every, drift_tol,
+        gibbs != 0);
   } else {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     collapsed_scan_kernel<false><<<1, THREADS, 0, stream>>>(
-        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa,
-        counts, scratch, n_rows, K, D, N, refresh_every, drift_tol);
+        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
+        alpha, counts, scratch, n_rows, K, D, N, refresh_every, drift_tol,
+        gibbs != 0);
   }
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,13 @@ def main(argv=None):
     ap.add_argument("--sigma-n", type=float, default=0.5)
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt/mcmc")
     ap.add_argument("--eval-every", type=int, default=20)
+    ap.add_argument("--collapsed-backend", default="fast",
+                    choices=["ref", "fast", "pallas"],
+                    help="tail collapsed row step (default: fast — the "
+                         "rank-one Cholesky carry; fast is an alias of "
+                         "pallas, one collapsed_scan launch per tail "
+                         "sub-iteration on the card). ref keeps the "
+                         "fresh O(K^3) factorization per row")
     ap.add_argument("--chol-refresh", type=int, default=DEFAULT_REFRESH,
                     help="exact-refactorization cadence of the tail's "
                          "collapsed carry (rows between refreshes)")
@@ -57,6 +64,7 @@ def main(argv=None):
         P=args.P, K_max=args.K_max, K_tail=args.K_tail, L=args.L,
         n_iters=args.iters, eval_every=args.eval_every,
         ckpt_dir=args.ckpt_dir, seed=args.seed,
+        collapsed_backend=args.collapsed_backend,
         chol_refresh=args.chol_refresh, k_tail_grow=args.k_tail_grow,
     )
     drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval,

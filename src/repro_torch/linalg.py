@@ -1,5 +1,5 @@
 """Dense linear algebra of the collapsed factor: the padded W, its
-Cholesky inverse and the transposed rank-one Cholesky moves.
+Cholesky inverse and the rank-one Cholesky moves.
 
 Port of those helpers of ``repro/core/ibp/math.py``; ``core/ibp/math.py``
 re-exports them under the reference's names. They sit outside
@@ -109,3 +109,26 @@ def chol_rank1_downdate_t(Lt: Tensor, p: Tensor,
     """Transposed-layout rank-one downdate with precomputed p = L^{-1} x.
     Returns (Lt', ok)."""
     return _chol_rank1_t(Lt, p, -1.0, eps)
+
+
+def chol_rank1_update(L: Tensor, x: Tensor) -> Tensor:
+    """Rank-one Cholesky update: chol(L L^T + x x^T) for a lower L.
+
+    The standalone form: solves for p = L^{-1} x itself. See
+    ``_chol_rank1_t`` for the algebra and the padding contract.
+    """
+    p = torch.linalg.solve_triangular(L, x[:, None], upper=False)[:, 0]
+    return chol_rank1_update_t(L.T, p).T
+
+
+def chol_rank1_downdate(L: Tensor, x: Tensor,
+                        eps: float = 1e-12) -> tuple[Tensor, Tensor]:
+    """Rank-one Cholesky downdate: chol(L L^T - x x^T) for a lower L.
+
+    Returns (L', ok); ``ok`` is False when the downdated matrix lost
+    positive definiteness (a float-drift canary: removing a row from W
+    keeps it SPD in exact arithmetic).
+    """
+    p = torch.linalg.solve_triangular(L, x[:, None], upper=False)[:, 0]
+    Lt, ok = chol_rank1_downdate_t(L.T, p, eps)
+    return Lt.T, ok

@@ -32,7 +32,11 @@ from repro_torch import prng
 from repro_torch.checkpoint import restore, save_pytree
 from repro_torch.core.ibp import convergence
 from repro_torch.core.ibp.api import SamplerSpec, _not_yet, build_sampler
-from repro_torch.core.ibp.collapsed import DEFAULT_REFRESH
+from repro_torch.core.ibp.collapsed import (
+    COLLAPSED_BACKENDS,
+    DEFAULT_REFRESH,
+    K_LIVE_MODES,
+)
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
 from repro_torch.core.ibp.predict import (
     heldout_joint_loglik,
@@ -43,12 +47,10 @@ from repro_torch.core.ibp.state import IBPHypers
 
 DRIVERS = ("vmap", "multichain", "shardmap", "mesh")
 SWEEP_BACKENDS = ("jnp", "pallas")
-COLLAPSED_BACKENDS = ("ref", "fast", "pallas")
-K_LIVE_MODES = ("on", "off")
 SYNC_MODES = ("staged", "fused")
 # the DriverConfig values the port runs; other valid values are refused
 _PORTED = {"driver": ("vmap",), "n_chains": (1,), "sync": ("staged",),
-           "collapsed_backend": ("fast", "pallas"), "k_live_buckets": ("on",)}
+           "k_live_buckets": ("on",)}
 
 
 @dataclasses.dataclass
@@ -58,9 +60,8 @@ class DriverConfig:
     defaults, so ``DriverConfig()`` builds.
 
     Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
-    device chooses the kernels), ``collapsed_backend`` "fast" or
-    "pallas" (the tail runs the mean-form recurrence either way),
-    ``k_live_buckets="on"``, ``sync="staged"``, ``n_chains=1`` with
+    device chooses the kernels), ``k_live_buckets="on"``,
+    ``sync="staged"``, ``n_chains=1`` with
     ``driver="vmap"``, ``harvest_burn`` and ``bank_path`` (read only
     when harvesting). A value that selects work the port has not ported
     raises ``NotImplementedError`` naming its ROADMAP item; a value the
@@ -114,7 +115,9 @@ class DriverConfig:
         return SamplerSpec(
             P=self.P, K_max=self.K_max, K_tail=self.K_tail,
             K_init=self.K_init, alpha=self.alpha, sigma_x=self.sigma_x,
-            sigma_a=self.sigma_a, L=self.L, chol_refresh=self.chol_refresh,
+            sigma_a=self.sigma_a, L=self.L,
+            collapsed_backend=self.collapsed_backend,
+            chol_refresh=self.chol_refresh,
             stale_sync=self.stale_sync, n_iters=self.n_iters,
             eval_every=self.eval_every, ckpt_every=self.ckpt_every,
             ckpt_dir=self.ckpt_dir, overflow_every=self.overflow_every,

@@ -3,6 +3,8 @@
 No JAX here: tests/test_torch_cuda.py runs on the GPU machine, which
 has no JAX.
 """
+import math
+
 import numpy as np
 import torch
 
@@ -107,13 +109,16 @@ def collapsed_row_margin(args, z_out, k):
     return abs(lo - u[k]), u[k]
 
 
-def scan_case(n_rows, K, D, seed=0, lam=0.1):
-    """Inputs of one tail scan, made with numpy, float32.
+def scan_case(n_rows, K, D, seed=0, lam=0.1, alpha=None):
+    """Inputs of one scan, made with numpy, float32.
 
     The rows are a planted linear-Gaussian matrix: a third of the K slots
     hold live features, two more features are in X but not in Z, so MH
     births are accepted where those rows propose one (j ~ Poisson(lam)),
-    and one slot holds a singleton, dropped when its row is scanned."""
+    and one slot holds a singleton, dropped when its row is scanned. With
+    ``alpha`` the case is the serial sweep's, with Gibbs births: it adds
+    ``alpha`` and standard Gumbel noise ``gumbel`` (n_rows, 5), and those
+    rows take their new dishes by the Gibbs draw instead."""
     rng = np.random.default_rng(seed)
     k_live = max(1, K // 3)
     A = rng.standard_normal((k_live + 2, D))
@@ -126,18 +131,28 @@ def scan_case(n_rows, K, D, seed=0, lam=0.1):
     act = (Z.sum(0) > 0).astype(np.float32)
     uu = np.clip(rng.random((n_rows, K)), 1e-7, 1.0 - 1e-7)
     f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
-    return dict(Z=Z, active=act, ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ X),
+    case = dict(Z=Z, active=act, ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ X),
                 m=f32(Z.sum(0)), X=X, u_logit=f32(np.log(uu) - np.log1p(-uu)),
                 j_prop=f32(rng.poisson(lam, n_rows)),
                 log_u_acc=f32(np.log(rng.random(n_rows))))
+    if alpha is not None:
+        case.update(gumbel=f32(rng.gumbel(size=(n_rows, 5))),
+                    alpha=np.float32(alpha))
+    return case
 
 
-def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N):
+def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N,
+                    rest=None):
     """Where two scans of ``case`` first decide differently: (row, what,
     margin, u). ``what`` is the bit k whose flip differs (margin |logodds -
-    u|) or "birth" (margin |dll - log u_acc| of the MH move). The margin
-    is computed in float64 from the statistics entering the row;
-    ``state_at(n)`` gives (active, m) there, from the plain scan."""
+    u|) or "birth": for the MH move the margin is |dll - log u_acc|, for
+    the Gibbs draw the gap between the two largest of log Poisson(j) +
+    ll_j + g_j, with u a hundredth of the largest |ll_j| (float32 carries
+    the log-likelihoods' rounding into that gap). The margin is computed
+    in float64 from the statistics entering the row; ``state_at(n)``
+    gives (active, m) there, from the plain scan. ``rest`` = (ZᵀZ, ZᵀX)
+    of rows outside the case, when the case is a prefix of a larger
+    scan whose statistics count every row."""
     diff = np.argwhere(np.any(Z_plain != Z_kernel, axis=1))
     if len(diff) == 0:
         return None
@@ -153,9 +168,13 @@ def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N):
     keep = np.arange(len(Zs)) != n
     Zm, Xm = Zs[keep] * act_m, X[keep]
     ratio = (sx / sa) ** 2
-    W = Zm.T @ Zm + ratio * np.diag(act_m) + np.diag(1.0 - act_m)
+    ZtZ, ZtX = Zm.T @ Zm, Zm.T @ Xm
+    if rest is not None:
+        ZtZ = ZtZ + rest[0] * np.outer(act_m, act_m)
+        ZtX = ZtX + rest[1] * act_m[:, None]
+    W = ZtZ + ratio * np.diag(act_m) + np.diag(1.0 - act_m)
     M = np.linalg.inv(W) * np.outer(act_m, act_m)
-    H = M @ (Zm.T @ Xm)
+    H = M @ ZtX
     x, inv2s2 = X[n], 0.5 / sx**2
 
     def ll(zz, extra=0.0):
@@ -175,6 +194,15 @@ def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N):
         if Z_plain[n, k] != Z_kernel[n, k]:
             return n, k, abs(lo - u[k]), u[k]
         zz[k] = Z_plain[n, k]
+    if "gumbel" in case:
+        n_free = np.sum(1.0 - np.maximum(act_m, zz))
+        lam = float(case["alpha"]) / N
+        lls = [ll(zz, j * (sa / sx) ** 2) for j in range(5)]
+        vals = sorted((j * np.log(lam) - lam - math.lgamma(j + 1.0)
+                       + lls[j] + float(case["gumbel"][n, j]))
+                      for j in range(5) if j <= n_free)
+        gap = vals[-1] - vals[-2] if len(vals) > 1 else math.inf
+        return n, "birth", gap, max(abs(v) for v in lls) / 100.0
     j = min(float(case["j_prop"][n]), 4.0)
     dll = ll(zz, j * (sa / sx) ** 2) - ll(zz)
     lu = case["log_u_acc"][n]

@@ -6,9 +6,10 @@ body (tests/test_kernels.py) and faster in interpret mode. Both scans get
 the same inputs and the port is fed the draws the reference's key chain
 makes (collapsed.py: per row split(key, 4) -> (key, kbits, kdish, _),
 logit-uniforms from kbits, split(kdish) -> Poisson proposal + accept
-uniform). Decisions may differ only at float-boundary events: at most
-MISMATCH_BUDGET Z bits per run (the budget of tests/test_collapsed_fast.py),
-with equal saturation counts.
+uniform; Gibbs births take kdish's Gumbel noise). Decisions may differ
+only at float-boundary events: at most MISMATCH_BUDGET Z bits per run
+(the budget of tests/test_collapsed_fast.py), with equal saturation
+counts.
 """
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.ibp.collapsed import _packed_scan
+from repro.core.ibp.collapsed import J_MAX, _packed_scan
 from repro.data import cambridge_data
 from repro_torch.core.ibp.collapsed import ScanDraws, collapsed_row_scan
 
@@ -25,7 +26,11 @@ torch.set_num_threads(1)
 MISMATCH_BUDGET = 2  # bits per run; boundary events, not drift
 
 
-def jax_draws(key, n_rows, K, alpha, N):
+def jax_draws(key, n_rows, K, alpha, N, birth="mh"):
+    """The draws the reference's key chain makes for ``n_rows`` rows: the
+    flip uniforms from kbits and, from kdish, the MH proposal and accept
+    uniform (``birth="mh"``) or the Gumbel noise ``jax.random.categorical``
+    adds to the Gibbs logits (``birth="gibbs"``)."""
     def key_step(k, _):
         k2, kbits, kdish, _ = jax.random.split(k, 4)
         return k2, (kbits, kdish)
@@ -33,6 +38,12 @@ def jax_draws(key, n_rows, K, alpha, N):
     _, (kbits, kdish) = jax.lax.scan(key_step, key, None, length=n_rows)
     uu = jax.vmap(lambda k: jax.random.uniform(k, (K,), jnp.float32))(kbits)
     uu = jnp.clip(uu, 1e-7, 1.0 - 1e-7)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    u_logit = t(jnp.log(uu) - jnp.log1p(-uu))
+    if birth == "gibbs":
+        g = jax.vmap(lambda k: jax.random.gumbel(k, (J_MAX + 1,),
+                                                 jnp.float32))(kdish)
+        return ScanDraws(u_logit=u_logit, gumbel=t(g))
     lam = jnp.float32(alpha) / N
 
     def dish(k):
@@ -41,8 +52,7 @@ def jax_draws(key, n_rows, K, alpha, N):
                 jnp.log(jax.random.uniform(kacc, (), jnp.float32)))
 
     j_prop, log_u = jax.vmap(dish)(kdish)
-    return ScanDraws(*(torch.from_numpy(np.array(a)) for a in
-                       (jnp.log(uu) - jnp.log1p(-uu), j_prop, log_u)))
+    return ScanDraws(u_logit=u_logit, j_prop=t(j_prop), log_u_acc=t(log_u))
 
 
 def _case(seed, n_rows=60, K=8, k_live=3):

@@ -12,7 +12,9 @@ reductions). The tail scan kernel is held against its plain version (the
 Python row loop, flips through collapsed_row_flip_ref) on the same inputs
 and draws: Z, the mask, m, ZtZ and the saturation count equal, ZtX at
 feature_stats' tolerance; the two may first differ only at a
-float-boundary event, whose row and margin the test names. No JAX is
+float-boundary event, whose row and margin the test names. The same holds
+for the serial sweep's scan with Gibbs births, whose launches are also
+bitwise repeatable. No JAX is
 imported: the GPU machine has none.
 """
 import numpy as np
@@ -181,16 +183,19 @@ SCAN_SX, SCAN_SA = 0.5, 1.0
 
 
 def _scan(fn, case, dev, n_rows=None, refresh=16):
+    """One scan of ``case`` by ``fn`` (the kernel or the plain version),
+    with Gibbs births where the case has Gumbel noise."""
     rows = slice(None, n_rows)
     t = {k: torch.tensor(v[rows] if k in ("Z", "X", "u_logit", "j_prop",
-                                           "log_u_acc") else v, device=dev)
+                                           "log_u_acc", "gumbel") else v,
+                         device=dev)
          for k, v in case.items()}  # copies: the scan works in place
     N = 4.0 * case["X"].shape[0]
     counts = fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
                 t["u_logit"], t["j_prop"], t["log_u_acc"],
                 torch.tensor(SCAN_SX, device=dev),
                 torch.tensor(SCAN_SA, device=dev), N=N, refresh_every=refresh,
-                drift_tol=1e-2)
+                drift_tol=1e-2, gumbel=t.get("gumbel"), alpha=t.get("alpha"))
     out = {k: t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX", "m")}
     return out, counts.cpu().numpy()
 
@@ -224,3 +229,41 @@ def test_collapsed_scan_kernel_matches_plain(cuda, n_rows, K, D):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
     assert cg[1] == cw[1]  # capacity-vetoed births
+
+
+# the serial sweep's scan, Gibbs births: K=8 and 16 keep the carry in
+# shared memory (the Gumbel values through the ring), 32 and 64 in global
+# memory; alpha = N/4 (N = 4 n_rows) makes births common, so the free
+# capacity binds; D=36 is Cambridge data's width
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,K,D,alpha", [
+    (512, 8, 1024, 3.0), (1024, 16, 1024, 3.0), (1024, 32, 1024, 1024.0),
+    (600, 12, 36, 3.0), (256, 64, 1024, 3.0)])
+def test_collapsed_scan_gibbs_kernel_matches_plain(cuda, n_rows, K, D, alpha):
+    case = scan_case(n_rows, K, D, seed=K + D + 1, alpha=alpha)
+    got, cg = _scan(collapsed_scan, case, cuda)
+    again, ca = _scan(collapsed_scan, case, cuda)
+    for k in got:  # two launches bitwise equal
+        np.testing.assert_array_equal(got[k], again[k], err_msg=k)
+    np.testing.assert_array_equal(cg, ca)
+    want, cw = _scan(collapsed_scan_ref, case, cuda)
+    born = want["Z"][:, case["active"] < 0.5].sum(0)
+    assert cw[0] > 0 and np.count_nonzero(born) >= 2  # refreshes, births
+    assert cg[1] == cw[1] == 0  # no saturation count in Gibbs mode
+    ev = scan_divergence(
+        case, want["Z"], got["Z"],
+        lambda n: (_scan(collapsed_scan_ref, case, cuda, n)[0][k]
+                   for k in ("active", "m")),
+        SCAN_SX, SCAN_SA, 4.0 * n_rows)
+    if ev is not None:
+        n, what, margin, u = ev
+        assert margin < 1e-3 * (1.0 + abs(u)), (
+            f"scans diverge at row {n} ({what}) away from a float boundary: "
+            f"margin {margin}")
+        print(f"float-boundary event at row {n} ({what}), margin {margin}")
+        np.testing.assert_array_equal(got["Z"][:n], want["Z"][:n])
+        return  # the scans follow different chains from there
+    for k in ("Z", "active", "m", "ZtZ"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
+    assert cg[0] == cw[0]  # refreshes

@@ -296,8 +296,7 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     (dict(driver="multichain", n_chains=4), "item 8"),
     (dict(driver="shardmap"), "item 8"), (dict(driver="mesh"), "item 8"),
     (dict(n_chains=2), "item 8"), (dict(sync="fused"), "item 8"),
-    (dict(stale_sync=1), "item 8"), (dict(collapsed_backend="ref"),
-                                     "item 7b"),
+    (dict(stale_sync=1), "item 8"),
     (dict(k_live_buckets="off"), "item 7c"), (dict(harvest_every=5),
                                               "item 9")])
 def test_driver_config_refuses_what_is_not_ported(kw, item):

@@ -3,8 +3,11 @@
 Cases follow tests/test_ibp_math.py. Both packages get the same numpy
 inputs. The rank-one Cholesky moves and the posterior are float32 paths
 of identical operations, compared at rtol 1e-5 (and against a fresh
-float64 factorization at the reference tests' 2e-4); promote_tail is
-integer bookkeeping and must agree exactly.
+float64 factorization at the reference tests' 2e-4); the untransposed
+moves and the Sherman-Morrison moves at atol 1e-5 (LAPACK and XLA solve
+in their own order); ``collapsed_loglik`` at rtol 1e-5 (a float32 sum of
+terms of either sign); promote_tail is integer bookkeeping and must
+agree exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -228,3 +231,85 @@ def test_prng_derivations_are_fixed_and_distinct():
     a = torch.rand(5, generator=prng.generator(k, "cpu"))
     b = torch.rand(5, generator=prng.generator(k, "cpu"))
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,k_max,seed", [(8, 2, 0), (30, 12, 1),
+                                          (45, 16, 4)])
+def test_untransposed_chol_rank1_moves_match_reference(n, k_max, seed):
+    rng = np.random.default_rng(seed)
+    W, x, act = _padded_chol_case(n, k_max, int(rng.integers(1, k_max + 1)),
+                                  seed)
+    L = np.linalg.cholesky(W).astype(np.float32)
+    x32 = x.astype(np.float32)
+    up_t = tibm.chol_rank1_update(_t(L), _t(x32)).numpy()
+    up_j = np.asarray(jibm.chol_rank1_update(jnp.asarray(L), jnp.asarray(x32)))
+    np.testing.assert_allclose(up_t, up_j, atol=1e-5)
+    np.testing.assert_allclose(up_t, np.linalg.cholesky(W + np.outer(x, x)),
+                               atol=2e-4)
+    Lu = np.linalg.cholesky(W + np.outer(x, x)).astype(np.float32)
+    dn_t, ok_t = tibm.chol_rank1_downdate(_t(Lu), _t(x32))
+    dn_j, ok_j = jibm.chol_rank1_downdate(jnp.asarray(Lu), jnp.asarray(x32))
+    assert bool(ok_t) and bool(ok_j)
+    np.testing.assert_allclose(dn_t.numpy(), np.asarray(dn_j), atol=1e-5)
+    np.testing.assert_allclose(dn_t.numpy(), np.linalg.cholesky(W),
+                               atol=2e-4)
+    # the canary fires in both on a downdate that loses definiteness
+    _, bad_t = tibm.chol_rank1_downdate(_t(L), _t(3.0 * x32 + act))
+    _, bad_j = jibm.chol_rank1_downdate(jnp.asarray(L),
+                                        jnp.asarray(3.0 * x32 + act))
+    assert not bool(bad_t) and not bool(bad_j)
+
+
+@pytest.mark.parametrize("k,seed", [(3, 0), (8, 1), (16, 2)])
+def test_sherman_morrison_moves_match_reference(k, seed):
+    rng = np.random.default_rng(seed)
+    Zb = (rng.random((4 * k, k)) < 0.4).astype(np.float64)
+    W = Zb.T @ Zb + 0.5 * np.eye(k)
+    M = np.linalg.inv(W).astype(np.float32)
+    z = Zb[0].astype(np.float32)
+    for t_fn, j_fn, sign in ((tibm.sm_update, jibm.sm_update, 1.0),
+                             (tibm.sm_downdate, jibm.sm_downdate, -1.0)):
+        Mt, ldt = t_fn(_t(M), _t(z))
+        Mj, ldj = j_fn(jnp.asarray(M), jnp.asarray(z))
+        np.testing.assert_allclose(Mt.numpy(), np.asarray(Mj), atol=1e-5)
+        np.testing.assert_allclose(float(ldt), float(ldj), atol=1e-5)
+        W2 = W + sign * np.outer(z, z)
+        np.testing.assert_allclose(Mt.numpy(), np.linalg.inv(W2), atol=1e-4)
+        np.testing.assert_allclose(
+            float(ldt), np.linalg.slogdet(W2)[1] - np.linalg.slogdet(W)[1],
+            atol=1e-4)
+
+
+# K+ = 0 (W is the identity), a partly active and a fully active model
+@pytest.mark.parametrize("n,k_max,k_act,seed", [
+    (40, 8, 3, 0), (60, 12, 12, 1), (30, 6, 0, 2), (200, 16, 9, 3)])
+def test_collapsed_loglik_matches_reference(n, k_max, k_act, seed):
+    rng = np.random.default_rng(seed)
+    D = 20
+    act = np.zeros(k_max, np.float32)
+    act[np.sort(rng.choice(k_max, size=k_act, replace=False))] = 1.0
+    Z = ((rng.random((n, k_max)) < 0.4) * act).astype(np.float32)
+    A = rng.standard_normal((k_max, D))
+    X = (Z @ A + 0.5 * rng.standard_normal((n, D))).astype(np.float32)
+    ZtZ, ZtX = Z.T @ Z, Z.T @ X
+    trXtX = np.float32(np.sum(X * X))
+    for sx, sa in ((0.5, 1.0), (1.3, 0.7)):
+        got = float(tibm.collapsed_loglik(
+            torch.tensor(trXtX), _t(ZtX), _t(ZtZ), _t(act), float(n), D,
+            torch.tensor(sx), torch.tensor(sa)))
+        want = float(jibm.collapsed_loglik(
+            jnp.float32(trXtX), jnp.asarray(ZtX), jnp.asarray(ZtZ),
+            jnp.asarray(act), jnp.float32(n), D, jnp.float32(sx),
+            jnp.float32(sa)))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        # the closed form in float64 (G&G 2011 Eq. 26)
+        K = act.sum()
+        a = act > 0.5
+        W = ZtZ[np.ix_(a, a)].astype(np.float64) + (sx / sa) ** 2 * np.eye(
+            int(K))
+        Za = ZtX[a].astype(np.float64)
+        quad = np.sum(np.linalg.solve(W, Za) * Za)
+        ll64 = (-0.5 * n * D * np.log(2 * np.pi) - (n - K) * D * np.log(sx)
+                - K * D * np.log(sa) - 0.5 * D * np.linalg.slogdet(W)[1]
+                - 0.5 / sx**2 * (float(trXtX) - quad))
+        np.testing.assert_allclose(got, ll64, rtol=1e-4)
