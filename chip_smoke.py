@@ -21,11 +21,12 @@ Phases, each of which raises on failure (exit code non-zero):
    (bound).
 4. The CLI (repro_torch.launch.mcmc) on Cambridge data, 40 iterations.
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
-   N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations.
-6. (Checked last, after phase 9.) The kernel that carries each TPU
+   N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
+   tail (collapsed_backend "fast": the rss flip with the carried G).
+6. (Checked last, after phase 10.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
    inside collapsed_scan) had its launch counter rise in phases 4 and 5,
-   and collapsed_scan and feature_stats theirs in phase 9.
+   and collapsed_scan and feature_stats theirs in phases 9 and 10.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
    checkpoint every iteration, run to iteration 6 with tail saturation
@@ -39,7 +40,9 @@ Phases, each of which raises on failure (exit code non-zero):
    feature_stats and gaussian_sse once; the sweep kernel at this shape
    (all 64 columns active) against its plain version.
 9. The serial collapsed sampler (collapsed_sweep, Gibbs births) at full
-   width: phase 5's data, K_max=32 from K_init=4, one warm and 3 timed
+   width, in its full-width mode (backend "pallas", the mean-form flip,
+   k_live_buckets "off": one scan launch a sweep): phase 5's data,
+   K_max=32 from K_init=4, one warm and 3 timed
    sweeps, each launching feature_stats and collapsed_scan once and no
    other kernel; the scan's carried ZᵀZ and m exact against its Z; each
    sweep's sigma moves replayed from its keys (proposal, difference,
@@ -49,6 +52,17 @@ Phases, each of which raises on failure (exit code non-zero):
    own inputs, against their plain versions (the prefix's Z equal to the
    sweep's own rows); then one sweep at K_max=64, feature_stats held on
    its entry and returned Z.
+10. The packed collapsed carry: collapsed_scan held against its plain
+   version on 1024 rows of phase 5's data in the rss flavor with the
+   carried G at the tail's K=8 (MH births), with Gibbs births at buckets
+   16 and 32 of K_can=64 in both flavors, and on a forced overflow
+   (ovf_row equal to the plain scan's); collapsed_sweep with
+   k_live_buckets "on" (the default) under backends "fast" and "pallas"
+   at phase 9's K_max=64 from the same start: one warm sweep (its
+   seg_log), 3 timed, one profiled, and "off" against "on" from the same
+   final state; "off" against "on" from a state whose K+ stays below
+   K_max (20 planted columns, sigma_x at the data's noise); phase 5's
+   iteration and tail re-timed under each collapsed backend.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON. Run from the root of a checkout: python3 chip_smoke.py
@@ -107,6 +121,15 @@ BASELINE = dict(K=64, steps=5)
 # at benchmarks/collapsed.py's top K
 COLLAPSED = dict(K_max=32, K_init=4, alpha=3.0, warm=1, sweeps=3,
                  K_max_wide=64, prefix_rows=1024)
+# phase 9 measures the full-width carry with the mean-form flip, one
+# launch a sweep; phase 10 the packed carry, the defaults
+OFF = dict(backend="pallas", k_live_buckets="off")
+# phase 10: the packed collapsed carry on phase 5's data: the scan held on
+# 1024 rows (the tail's K=8, buckets 16 and 32 of K_can=64, an overflow),
+# then the packed sweeps at phase 9's K_max=64 from K_init=4, and phase
+# 5's iteration and tail under each collapsed backend
+PACKED = dict(rows=1024, K_can=64, tail_K=8, buckets=(16, 32), K_max=64,
+              K_init=4, alpha=3.0, warm=1, sweeps=3, iters=3)
 
 
 def log(msg: str) -> None:
@@ -435,15 +458,24 @@ def check_collapsed_row(dev) -> dict:
 
 
 def scan_bound_ms(n_rows: int, K: int, D: int, k_live: float,
-                  gibbs: bool) -> tuple[float, str]:
-    """The scan's bound. Bytes: X, the draws (u, and 2 MH or 5 Gumbel
-    values a row) and Z read once, Z and the statistics written once.
-    Operations this run's data needs per row, about: the removal and the
-    factor moves (5 K D), the mean, and the flip of each live column (8 D
-    each); far below what the chain of dependent rows allows."""
+                  gibbs: bool, fast: bool = False) -> tuple[float, str]:
+    """The scan's bound on a block of K columns. Bytes: X, the draws (u,
+    and 2 MH or 5 Gumbel values a row) and Z read once at the block's
+    columns, Z and the statistics written once. Operations this run's
+    data needs per row, about, counted from the kernel: the removal and
+    the factor moves (5 K D), the mean, and, in mean form, the flip of
+    each live column (8 D each); in rss form (``fast``) the flip of each
+    live column is 6 K + 20, and the row adds G's two rank-two moves
+    (2 K D + 2 D each), rss and rH = H r at the entry (2 K D + 3 D), the
+    mean at the exit (2 K D) and the births' rss (3 D). Far below what
+    the chain of dependent rows allows."""
     nbytes = 4.0 * (n_rows * (D + 2 * K + (5 if gibbs else 2)) + n_rows * K
                     + 2 * (K * K + K * D + 2 * K))
-    flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
+    if fast:
+        flops = n_rows * (13.0 * K * D + 16.0 * D
+                          + k_live * (6.0 * K + 20.0))
+    else:
+        flops = n_rows * (5.0 * K * D + 8.0 * D * k_live + 6.0 * D)
     return bound_ms(nbytes, flops)
 
 
@@ -463,7 +495,7 @@ def once_ms(fn) -> float:
 
 
 def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
-              rest=None):
+              rest=None, **scan_kw):
     """The scan kernel against its plain version (the Python row loop) on
     the same inputs and draws. ``case`` holds numpy arrays: the scan's
     state (Z, active, ZtZ, ZtX, m), its rows X and its draws (u_logit, and
@@ -473,8 +505,11 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
     equal, ZᵀX within rtol 1e-5, atol 1e-4, the counts equal) unless the
     two first part at one float-boundary event (margin < 1e-3 (1 + |u|)),
     after which the chains part. The plain scan runs once, timed.
-    Returns (report, run, tensors): ``run(fn, t)`` scans ``t`` with
-    ``fn``, ``tensors()`` makes a fresh copy of the case on the card."""
+    ``scan_kw`` (the flip ``flavor``, the block ``B``) goes to both
+    scans; the counts compared include ``ovf_row``, the row where a
+    birth overflowed the block. Returns (report, run, tensors): ``run(fn,
+    t)`` scans ``t`` with ``fn``, ``tensors()`` makes a fresh copy of the
+    case on the card."""
     import numpy as np
     import torch
     from _torch_cases import scan_divergence
@@ -497,7 +532,7 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
         return fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
                   t["u_logit"], t.get("j_prop"), t.get("log_u_acc"), sx_t,
                   sa_t, N=N, refresh_every=refresh, drift_tol=1e-2,
-                  gumbel=t.get("gumbel"), alpha=t.get("alpha"))
+                  gumbel=t.get("gumbel"), alpha=t.get("alpha"), **scan_kw)
 
     got_t, again_t, want_t = tensors(), tensors(), tensors()
     cg, ca = run(collapsed_scan, got_t), run(collapsed_scan, again_t)
@@ -536,7 +571,7 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
     err = float(np.abs(got["ZtX"] - want["ZtX"]).max()) if ev is None else None
     report = dict(
         max_abs_err=err, boundary_event=event, n_refresh=int(cg[0]),
-        n_sat=int(cg[1]),
+        n_sat=int(cg[1]), ovf_row=int(cg[2]), plain_ovf_row=int(cw[2]),
         decisions_differing=int((got["Z"] != want["Z"]).sum()),
         counts_equal=bool((cg.cpu() == cw.cpu()).all()),
         born=int((want["Z"][:, case["active"] < 0.5].sum(0) > 0).sum()),
@@ -739,18 +774,19 @@ def run_cli(tmp: Path) -> list[dict]:
 
 
 def full_data() -> tuple:
-    """Phase 5's planted matrix: (X_train, X_eval, seconds to make it)."""
+    """Phase 5's planted matrix: (X_train, X_eval, seconds to make it,
+    the planted Z of the training rows, the planted feature rows A)."""
     f = FULL
     t0 = time.perf_counter()
-    X, _, _ = planted_data(f["N"] + f["N_eval"], f["D"], f["K_true"], f["p"],
+    X, Z, A = planted_data(f["N"] + f["N_eval"], f["D"], f["K_true"], f["p"],
                            f["sigma_n"], seed=0)
-    return X[:f["N"]], X[f["N"]:], time.perf_counter() - t0
+    return X[:f["N"]], X[f["N"]:], time.perf_counter() - t0, Z[:f["N"]], A
 
 
-def time_tail(Xs, Z, gs, K_tail: int) -> dict:
+def time_tail(Xs, Z, gs, K_tail: int, backend: str = "fast") -> dict:
     """One tail sub-iteration on p' (N_p rows, one collapsed_scan launch)
-    from empty K_tail-wide buffers: host time around it, ended by a
-    device sync, and its profile."""
+    from empty K_tail-wide buffers, with the row step ``backend``: host
+    time around it, ended by a device sync, and its profile."""
     import torch
 
     from repro_torch import prng
@@ -763,17 +799,20 @@ def time_tail(Xs, Z, gs, K_tail: int) -> dict:
     ta = torch.zeros((K_tail,), device=Xs.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _tail_sub_iteration(Xs[pp], Z[pp], zt, ta, gs, float(P * N_p), g)
+    _tail_sub_iteration(Xs[pp], Z[pp], zt, ta, gs, float(P * N_p), g,
+                        collapsed_backend=backend)
     torch.cuda.synchronize()
     t_tail = time.perf_counter() - t0
     return dict(tail_rows_per_s=N_p / t_tail,
                 tail_ms_per_row=t_tail / N_p * 1e3,
                 tail_profile=profile_tail(Xs[pp], Z[pp], gs, float(P * N_p),
-                                          g, K_tail))
+                                          g, K_tail, backend))
 
 
-def run_full_width(tmp: Path, gpu: str, data: tuple) -> tuple[dict, dict]:
-    """Phase 5; returns (results, kernel launches of the driver's run)."""
+def run_full_width(tmp: Path, gpu: str, data: tuple
+                   ) -> tuple[dict, dict, tuple]:
+    """Phase 5; returns (results, kernel launches of the driver's run, the
+    driver's sampler and final state)."""
     import torch
 
     from repro_torch import prng
@@ -783,7 +822,7 @@ def run_full_width(tmp: Path, gpu: str, data: tuple) -> tuple[dict, dict]:
     from repro_torch.runtime import MCMCDriver
 
     f = FULL
-    X_train, X_eval, t_data = data
+    X_train, X_eval, t_data = data[:3]
     spec = SamplerSpec(P=f["P"], K_max=f["K_max"], K_tail=f["K_tail"],
                        L=f["L"], n_iters=f["iters"], eval_every=f["iters"],
                        ckpt_every=f["iters"], ckpt_dir=str(tmp / "full_ckpt"))
@@ -822,7 +861,8 @@ def run_full_width(tmp: Path, gpu: str, data: tuple) -> tuple[dict, dict]:
         sweep_rows_per_s=P * N_p / t_sweep,
         **time_tail(Xs, ss.Z, gs, f["K_tail"]),
         max_memory_allocated=peak, K=rec["K"], sigma_x=rec["sigma_x"],
-        joint_ll_eval=rec["joint_ll_eval"], tail_sat=rec["tail_sat"]), counts
+        joint_ll_eval=rec["joint_ll_eval"], tail_sat=rec["tail_sat"]), \
+        counts, (drv.sampler, gs, ss)
 
 
 def run_growth(tmp: Path, data: tuple, dev) -> tuple[dict, dict, dict]:
@@ -843,7 +883,7 @@ def run_growth(tmp: Path, data: tuple, dev) -> tuple[dict, dict, dict]:
     from repro_torch.runtime import MCMCDriver
 
     f, gr = FULL, GROWTH
-    X_train, X_eval, _ = data
+    X_train, X_eval = data[:2]
     ckpt = str(tmp / "full_ckpt")
     spec = SamplerSpec(P=f["P"], K_max=gr["K_max"], K_tail=f["K_tail"],
                        L=f["L"], n_iters=gr["iters"], eval_every=gr["iters"],
@@ -1087,14 +1127,14 @@ def run_collapsed(dev, data: tuple) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(c["warm"]):
-            entry, state = state, collapsed_sweep(state, X, hyp)
+            entry, state = state, collapsed_sweep(state, X, hyp, **OFF)
             replay.append(sigma_replay(entry, state, scans[0][2], X))
         torch.cuda.synchronize()
         reset_launch_counts()
         times, k_plus = [], []
         for _ in range(c["sweeps"]):
             t0 = time.perf_counter()
-            entry, state = state, collapsed_sweep(state, X, hyp)
+            entry, state = state, collapsed_sweep(state, X, hyp, **OFF)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             k_plus.append(int(state.active.sum()))
@@ -1104,14 +1144,15 @@ def run_collapsed(dev, data: tuple) -> tuple[dict, dict]:
         scan_in, scan_kw, scan_out = scans[0]
         # one more sweep under the profiler: the device's busy share and
         # time by kernel
-        sweep_profile = profile_call(lambda: collapsed_sweep(state, X, hyp))
+        sweep_profile = profile_call(
+            lambda: collapsed_sweep(state, X, hyp, **OFF))
 
         wide0 = init_state(prng.key(10), N, D, K_max=c["K_max_wide"],
                            K_init=c["K_init"], alpha=c["alpha"], device=dev)
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        wide = collapsed_sweep(wide0, X, hyp)
+        wide = collapsed_sweep(wide0, X, hyp, **OFF)
         torch.cuda.synchronize()
         t_wide = time.perf_counter() - t0
         wide_counts = launch_counts()
@@ -1224,6 +1265,230 @@ def run_collapsed(dev, data: tuple) -> tuple[dict, dict]:
         scan_kernel=kernel, scan_prefix=prefix, stats=stats), counts
 
 
+def packed_case(data: tuple, K_can: int, modeled: int, unexplained: int,
+                seed: int, gibbs: bool) -> dict:
+    """A scan input on the first PACKED["rows"] rows of phase 5's data:
+    the planted rows less the features beyond ``modeled + unexplained``
+    (as the tail's residual leaves out the instantiated features), the
+    first ``modeled`` planted columns of Z at sorted random canonical
+    indices of ``K_can``, plus a singleton column, so the ``unexplained``
+    features are left to births; canonical uniforms, and Gibbs (alpha =
+    PACKED["alpha"], Gumbel noise) or MH (proposals at 1% of rows)
+    draws."""
+    import numpy as np
+
+    R = PACKED["rows"]
+    X, Zt, A = data[0][:R], data[3][:R], data[4]
+    keep = modeled + unexplained
+    X = (X - Zt[:, keep:] @ A[keep:]).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    at = np.sort(rng.choice(K_can, size=modeled + 1, replace=False))
+    Z = np.zeros((R, K_can), np.float32)
+    Z[:, at[:modeled]] = Zt[:, :modeled]
+    Z[R // 3, at[modeled]] = 1.0  # a singleton: dropped at its row
+    uu = np.clip(rng.random((R, K_can)), 1e-7, 1.0 - 1e-7)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    case = dict(Z=Z, active=(Z.sum(0) > 0).astype(np.float32),
+                ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ X), m=f32(Z.sum(0)), X=X,
+                u_logit=f32(np.log(uu) - np.log1p(-uu)))
+    if gibbs:
+        case.update(gumbel=f32(rng.gumbel(size=(R, 5))),
+                    alpha=np.float32(PACKED["alpha"]))
+    else:
+        case.update(j_prop=f32(rng.poisson(0.01, R)),
+                    log_u_acc=f32(np.log(rng.random(R))))
+    return case
+
+
+def packed_variant(dev, data: tuple, K_can: int, modeled: int,
+                   unexplained: int, seed: int, gibbs: bool, flavor: str,
+                   B: int, timed_too: bool = True) -> dict:
+    """``hold_scan`` on a ``packed_case`` at block ``B`` with ``flavor``,
+    then (``timed_too``) the kernel's times beside its bound."""
+    from repro_torch.kernels.collapsed_scan import collapsed_scan
+
+    sx, sa, N = 0.5, 1.0, float(FULL["N"])
+    case = packed_case(data, K_can, modeled, unexplained, seed, gibbs)
+    tag = (f"collapsed_scan {flavor} B={B} of {K_can}"
+           f"{' gibbs' if gibbs else ''}")
+    rep, run, tensors = hold_scan(dev, case, sx, sa, N, tag, flavor=flavor,
+                                  B=B)
+    del rep["Z"]
+    R, D = case["X"].shape
+    out = dict(shape=f"rows={R} B={B} of K_can={K_can} D={D} {flavor}"
+               f"{' gibbs' if gibbs else ' mh'}", flavor=flavor, B=B,
+               live_in=float(case["active"].sum()), **rep)
+    if timed_too:
+        b, by = scan_bound_ms(R, B, D, rep["k_live"], gibbs,
+                              fast=flavor == "fast")
+        t = tensors()  # timed scanning on from its own output
+        out.update(**timed(lambda: run(collapsed_scan, t),
+                           ("collapsed_scan_kernel",)), bound_ms=b,
+                   bound_by=by)
+        out["ms_per_row"] = out["ms"] / R
+    return out
+
+
+def check_packed_scan(dev, data: tuple) -> list[dict]:
+    """Phase 10's holds of the scan against its plain version, each on
+    1024 rows of phase 5's data: the rss flip with the carried G at the
+    tail's K=8 with MH births (2 of 3 modeled features unexplained);
+    Gibbs births at buckets 16 (8 modeled features, 9 live) and 32 (20
+    modeled, 21 live) of K_can=64, in both flavors; and a forced overflow
+    at bucket 16 (13 modeled, 14 live, 2 free slots, 3 features left to
+    births), where ovf_row must equal the plain scan's."""
+    c = PACKED
+    out = [packed_variant(dev, data, c["tail_K"], 3, 2, 41, False, "fast",
+                          c["tail_K"])]
+    for B, modeled in zip(c["buckets"], (8, 20)):
+        for flavor in ("fast", "pallas"):
+            out.append(packed_variant(dev, data, c["K_can"], modeled, 2,
+                                      42 + B, True, flavor, B))
+    ovf = packed_variant(dev, data, c["K_can"], 13, 3, 43, True, "fast", 16,
+                         timed_too=False)
+    if ovf["plain_ovf_row"] < 0 or ovf["ovf_row"] != ovf["plain_ovf_row"]:
+        raise AssertionError(f"packed: the forced overflow reported ovf_row "
+                             f"{ovf['ovf_row']}, the plain scan "
+                             f"{ovf['plain_ovf_row']}")
+    out.append(ovf)
+    return out
+
+
+def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
+    """Phase 10: the packed collapsed carry. The scan held against its
+    plain version (``check_packed_scan``); then ``collapsed_sweep`` with
+    ``k_live_buckets="on"`` under backends "fast" and "pallas" on phase
+    5's data at K_max=64 from phase 9's wide start (K_init=4, the same
+    key): one warm sweep (its seg_log: the repacks from bucket 8 up),
+    PACKED["sweeps"] timed, one profiled, then one ``"off"`` sweep and
+    one ``"on"`` sweep timed from that same final state and draws; each
+    sweep's buckets are checked against ``pick_bucket`` of its entry K+.
+    Then one "off" and one "on" sweep from a state whose K+ stays below
+    K_max (20 planted columns, sigma_x at the data's noise).
+    Last, phase 5's final state stepped and its tail timed under each
+    collapsed backend. Returns (results, launches of the timed sweeps)."""
+    import statistics as st_
+
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import IBPHypers, collapsed_sweep, init_state
+    from repro_torch.core.ibp import collapsed as coll
+    from repro_torch.core.ibp import math as ibm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    c = PACKED
+    holds = check_packed_scan(dev, data)
+    X = torch.from_numpy(data[0]).to(dev)
+    N, D = X.shape
+    hyp = IBPHypers()
+    buckets = ibm.live_buckets(c["K_max"])
+    counts: dict[str, int] = {}
+    sweeps = {}
+
+    def one(state, backend, k_live="on"):
+        seg = []
+        k_in = int(state.active.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collapsed_sweep(state, X, hyp, backend=backend,
+                              k_live_buckets=k_live, seg_log=seg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if k_live == "on" and seg[0] != (
+                ibm.pick_bucket(buckets, k_in, coll.PACK_HEADROOM), 0):
+            raise AssertionError(f"packed {backend}: seg_log {seg} from "
+                                 f"K+={k_in}")
+        Zb = out.Z
+        if not (torch.all((Zb == 0) | (Zb == 1))
+                and not Zb[:, out.active < 0.5].any()
+                and math.isfinite(float(out.sigma_x))
+                and math.isfinite(float(out.alpha))):
+            raise AssertionError(f"packed {backend}: bad state after a "
+                                 f"sweep (sigma_x {float(out.sigma_x)})")
+        return out, dict(seconds=dt, seg_log=seg, K_plus_in=k_in,
+                         K_plus=int(out.active.sum()))
+
+    for backend in ("fast", "pallas"):
+        state = init_state(prng.key(10), N, D, K_max=c["K_max"],
+                           K_init=c["K_init"], alpha=c["alpha"], device=dev)
+        warm = []
+        for _ in range(c["warm"]):
+            state, rec = one(state, backend)
+            warm.append(rec)
+        reset_launch_counts()
+        timed_ = []
+        for _ in range(c["sweeps"]):
+            state, rec = one(state, backend)
+            timed_.append(rec)
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        if counts.get("collapsed_scan", 0) < c["sweeps"]:
+            raise AssertionError(f"packed: collapsed_scan launched "
+                                 f"{counts} in {c['sweeps']} sweeps")
+        profile = profile_call(lambda: collapsed_sweep(
+            state, X, hyp, backend=backend))
+        _, off = one(state, backend, "off")
+        _, on = one(state, backend, "on")
+        sec = [r["seconds"] for r in timed_]
+        med = st_.median(sec)
+        sweeps[backend] = dict(
+            warm=warm, timed=timed_, median_seconds_per_sweep=med,
+            ms_per_row=med / N * 1e3, profile=profile,
+            same_state_off_seconds=off["seconds"],
+            same_state_on_seconds=on["seconds"],
+            same_state_bucket=on["seg_log"][0][0])
+    others = {k: v for k, v in counts.items()
+              if k not in ("collapsed_scan", "feature_stats") and v}
+    if others or counts.get("feature_stats", 0) != 2 * c["sweeps"]:
+        raise AssertionError(f"packed: launches {counts}")
+
+    # the packing's gain where K+ stays below K_max: 20 of the 24 planted
+    # columns of Z at sorted random indices of K_max=64 and sigma_x at the
+    # data's noise (K+ 20-24: bucket 32), one "off" and one "on" sweep
+    # from that state (the same draws) under each backend
+    rng = np.random.default_rng(12)
+    at = np.sort(rng.choice(c["K_max"], size=20, replace=False))
+    Zs = torch.zeros((N, c["K_max"]), device=dev)
+    Zs[:, torch.from_numpy(at).to(dev)] = torch.from_numpy(
+        data[3][:, :20]).to(dev)
+    settled0 = dataclasses.replace(
+        init_state(prng.key(12), N, D, K_max=c["K_max"], K_init=0,
+                   alpha=c["alpha"], sigma_x=FULL["sigma_n"], device=dev),
+        Z=Zs, active=(Zs.sum(0) > 0).float())
+    settled = {}
+    for backend in ("fast", "pallas"):
+        off_s, off = one(settled0, backend, "off")
+        on_s, on = one(settled0, backend, "on")
+        settled[backend] = dict(
+            off_seconds=off["seconds"], on_seconds=on["seconds"],
+            on_seg_log=on["seg_log"], K_plus_in=on["K_plus_in"],
+            K_plus_off=off["K_plus"], K_plus_on=on["K_plus"],
+            decisions_differing=int((off_s.Z != on_s.Z).sum()))
+
+    # phase 5's iteration and tail under each collapsed backend, from its
+    # final state (the defaults: "fast" and k_live_buckets "on")
+    sampler, gs, ss = phase5
+    Xs = sampler.Xs
+    hybrid = {}
+    for backend in ("fast", "pallas"):
+        s = sampler.with_spec(sampler.spec.replace(collapsed_backend=backend))
+        t_it = []
+        for _ in range(c["iters"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.step(gs, ss)
+            torch.cuda.synchronize()
+            t_it.append(time.perf_counter() - t0)
+        tail = time_tail(Xs, ss.Z, gs, FULL["K_tail"], backend)
+        hybrid[backend] = dict(seconds_per_iteration=st_.median(t_it),
+                               iterations=t_it, **tail)
+    return dict(N=N, D=D, K_max=c["K_max"], K_init=c["K_init"],
+                holds=holds, sweeps=sweeps, settled=settled,
+                hybrid=hybrid), counts
+
+
 def profile_call(fn) -> dict:
     """torch.profiler over one call of ``fn``: its wall time (ended by a
     device sync), the device's busy share of it, and the device time of
@@ -1247,7 +1512,8 @@ def profile_call(fn) -> dict:
                 top_kernels_us=[(n, round(us, 1)) for n, us in top])
 
 
-def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int) -> dict | None:
+def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int,
+                 backend: str = "fast") -> dict | None:
     """torch.profiler over one tail sub-iteration of all N_p rows of p':
     wall and device time per row, kernels per row, host syncs per row
     (the CUDA runtime's synchronising calls the profiler records, less
@@ -1263,7 +1529,8 @@ def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int) -> dict | None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        _tail_sub_iteration(X_p, Z_p, zt, ta, gs, N_g, g)
+        _tail_sub_iteration(X_p, Z_p, zt, ta, gs, N_g, g,
+                            collapsed_backend=backend)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = kernel_events(p)
@@ -1354,7 +1621,7 @@ def main() -> int:
             log(f"[4] {json.dumps(r)}")
         # phase 5: full width through the driver
         data = full_data()
-        full, full_counts = run_full_width(tmp, smi, data)
+        full, full_counts, phase5 = run_full_width(tmp, smi, data)
         log(f"[5] full width: {json.dumps(full)}")
         log(f"[5] launches {full_counts}")
 
@@ -1426,6 +1693,47 @@ def main() -> int:
         f"{coll['max_memory_allocated']} bytes; phase took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # phase 10: the packed collapsed carry
+    t0 = time.perf_counter()
+    packed, packed_counts = run_packed(dev, data, phase5)
+    log(f"[10] packed: {json.dumps(packed)}")
+    log(f"[10] launches {packed_counts}")
+    for v in packed["holds"]:
+        log(f"[10] collapsed_scan {v['shape']} against the plain scan: "
+            f"{v['decisions_differing']} decisions differ, boundary event "
+            f"{v['boundary_event']}, counts equal {v['counts_equal']}, "
+            f"ovf_row {v['ovf_row']} (plain {v['plain_ovf_row']}), "
+            f"{v['k_live']:.0f} live after; ms={v.get('ms', float('nan')):.3f}"
+            f" ms/row={v.get('ms_per_row', float('nan')):.5f} "
+            f"bound_ms={v.get('bound_ms', float('nan')):.5f} "
+            f"plain_ms={v['plain_ms']:.1f}")
+    for backend, v in packed["sweeps"].items():
+        log(f"[10] {backend}, k_live_buckets=on, K_max={packed['K_max']}: "
+            f"warm sweep {v['warm'][0]['seconds']:.4f} s, seg_log "
+            f"{v['warm'][0]['seg_log']}, K+ {v['warm'][0]['K_plus']}; timed "
+            f"{[round(r['seconds'], 4) for r in v['timed']]} s, median "
+            f"{v['median_seconds_per_sweep']:.4f} s/sweep, "
+            f"{v['ms_per_row']:.5f} ms/row, buckets "
+            f"{[r['seg_log'] for r in v['timed']]}, K+ "
+            f"{[r['K_plus'] for r in v['timed']]}, device busy "
+            f"{v['profile']['busy_share']:.4f}")
+        log(f"[10] {backend} on the same final state and draws: off "
+            f"{v['same_state_off_seconds']:.4f} s, on "
+            f"{v['same_state_on_seconds']:.4f} s (bucket "
+            f"{v['same_state_bucket']})")
+    for backend, v in packed["settled"].items():
+        log(f"[10] {backend} from a state with K+ {v['K_plus_in']} of "
+            f"{packed['K_max']} (sigma_x 0.5): off {v['off_seconds']:.4f} s "
+            f"(K+ {v['K_plus_off']}), on {v['on_seconds']:.4f} s (seg_log "
+            f"{v['on_seg_log']}, K+ {v['K_plus_on']}), "
+            f"{v['decisions_differing']} bits differ between the two")
+    for backend, v in packed["hybrid"].items():
+        log(f"[10] phase 5 under collapsed_backend={backend}: "
+            f"{v['seconds_per_iteration']:.4f} s/iteration "
+            f"({[round(t, 4) for t in v['iterations']]}), tail "
+            f"{v['tail_ms_per_row']:.5f} ms/row")
+    log(f"[10] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -1436,14 +1744,16 @@ def main() -> int:
                 f"{cli_counts.get(name)}, full width "
                 f"{full_counts.get(name)})")
     for name in COLLAPSED_PATH:
-        if coll_counts.get(name, 0) < 1:
-            raise AssertionError(f"{name} was not launched by the serial "
-                                 f"collapsed sampler ({coll_counts})")
+        if coll_counts.get(name, 0) < 1 or packed_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by the serial collapsed sampler "
+                f"(phase 9 {coll_counts}, phase 10 {packed_counts})")
     log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5; "
-        f"{', '.join(COLLAPSED_PATH)} in phase 9")
+        f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10")
 
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep],
-             "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"]],
+             "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
+                                *packed["holds"]],
              "feature_stats": [grown["feature_stats"], *coll["stats"]],
              "gaussian_sse": [grown["gaussian_sse"]]}
     kernels = []
@@ -1466,6 +1776,7 @@ def main() -> int:
             launches_growth=growth_counts.get(name, 0),
             launches_baseline=base_counts.get(name, 0),
             launches_collapsed=coll_counts.get(name, 0),
+            launches_packed=packed_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     print(smi, flush=True)

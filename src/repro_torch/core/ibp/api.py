@@ -14,11 +14,16 @@ port supports. Values that select work not yet ported raise
 ``NotImplementedError`` naming the ROADMAP item that brings them. The
 kernel choice follows the device (CUDA kernels on a GPU, their plain
 versions on the CPU), so the reference's ``backend`` is not a knob here.
-``collapsed_backend`` selects the tail's row step: ``"pallas"`` runs the
-carried scan with the mean-form recurrence (on the card one
-``collapsed_scan`` launch), ``"ref"`` the O(K^3) oracle. The default is
-the reference's ``"fast"``, kept in the spec as the reference keeps it
-and read as ``"pallas"`` by ``collapsed.row_step_backend``.
+``collapsed_backend`` selects the tail's row step: ``"fast"`` (the
+default, as in the reference) runs the carried scan with the rss flip
+and the carried G = HHᵀ, ``"pallas"`` the carried scan with the
+mean-form flip (on the card each is one ``collapsed_scan`` launch),
+``"ref"`` the O(K^3) oracle. ``k_live_buckets`` ("on" by default, as in
+the reference) is validated and kept for parity with the reference's
+spec, and read by nothing: in the reference it switches the tail's
+carried G on, which the port's ``"fast"`` tail carries at either value
+(``collapsed`` module docstring). The serial ``collapsed_sweep`` takes
+its own ``k_live_buckets``, where it selects the packed path.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from repro_torch import device as _device
 from repro_torch import prng
 from repro_torch.kernels.gibbs_flip import gibbs_flip_max_k
 
-from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH
+from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH, K_LIVE_MODES
 from .hybrid import (
     HybridGlobal,
     HybridShard,
@@ -53,8 +58,6 @@ _LATER = {
     "driver": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "n_chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "sync": "ROADMAP queue 1 item 8 (the fused master sync)",
-    "k_live_buckets": "ROADMAP queue 1 item 7c (the unpacked collapsed "
-                      "carry)",
 }
 
 
@@ -79,8 +82,9 @@ class SamplerSpec:
     sigma_a: float = 1.0
     # ---- kernel dispatch
     L: int = 5                 # sub-iterations per master sync
-    collapsed_backend: str = "fast"  # tail row step: "ref"|"pallas" ("fast")
+    collapsed_backend: str = "fast"  # tail row step: "ref"|"fast"|"pallas"
     chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
+    k_live_buckets: str = "on"  # validated; inert here (module docstring)
     # ---- parallelism layout
     chains: str = "none"       # only "none" is ported
     data: str = "vmap"         # only "vmap" is ported
@@ -109,6 +113,9 @@ class SamplerSpec:
         if self.collapsed_backend not in COLLAPSED_BACKENDS:
             bad(f"collapsed_backend={self.collapsed_backend!r} not in "
                 f"{COLLAPSED_BACKENDS}")
+        if self.k_live_buckets not in K_LIVE_MODES:
+            bad(f"k_live_buckets={self.k_live_buckets!r} not in "
+                f"{K_LIVE_MODES}")
         if self.chol_refresh < 1:
             bad(f"chol_refresh={self.chol_refresh} must be >= 1")
         if self.P < 1:

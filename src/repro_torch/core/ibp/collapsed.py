@@ -14,23 +14,44 @@ K_max with an ``active`` mask.
 
 Row-step backends, selected by ``backend=``:
 
-* ``"pallas"``: the factor is CARRIED across the scan and moved between
-  rows by rank-one Cholesky moves and Sherman–Morrison (documented
-  beside the plain version, ``kernels/collapsed_scan/ref.py``). On a
-  CUDA tensor the whole scan is one launch of the ``collapsed_scan``
-  kernel, with every branch of the row step decided on the device, so a
-  scan costs no host sync; on a CPU tensor it is the plain version.
-  ``"fast"`` is accepted as an alias (``row_step_backend``): the
-  reference's ``"fast"`` differs from its ``"pallas"`` in the flip's
-  flavor only, and on the card the flip runs inside the scan kernel.
+* ``"fast"`` and ``"pallas"``: the factor is CARRIED across the scan and
+  moved between rows by rank-one Cholesky moves and Sherman–Morrison
+  (documented beside the plain version, ``kernels/collapsed_scan/ref.py``).
+  On a CUDA tensor a scan is one launch of the ``collapsed_scan`` kernel,
+  with every branch of the row step decided on the device, so a scan
+  costs no host sync; on a CPU tensor it is the plain version. The two
+  differ in the bit flip, as in the reference: ``"fast"`` runs the rss
+  form, O(K) a bit, reading G = HHᵀ, which the scan carries across rows;
+  ``"pallas"`` runs the mean form, O(K + D) a bit, with no G.
 * ``"ref"``: ``_row_step``, the O(K^3) oracle, a fresh factorization per
   row in plain PyTorch on any device (the reference runs it in plain jnp
   too). It runs only when asked for.
 
+Packing (``k_live_buckets="on"``, the default, as in the reference): the
+serial sweep runs the carried scan on a block of B columns, the smallest
+bucket (8, 16, ..., K_max) holding K⁺ + PACK_HEADROOM, so a row costs
+O(B² + BD) instead of O(K_max² + K_max·D). A birth the block cannot
+place stops the scan before its row; the host repacks at the bucket the
+new K⁺ needs and resumes from that row (``_packed_segments``). ``"off"``
+runs the full width, B = K_max, in one segment. The hybrid tail always
+runs its full K_tail width.
+
+One departure from the reference, by rounding only: the reference's
+``"fast"`` carries G only when packing (``pack=True`` in the tail,
+``k_live_buckets="on"`` in the sweep) and otherwise recomputes G = HHᵀ
+every row. That recompute is O(K²D) a row; the port carries G wherever
+``"fast"`` runs, so ``"off"`` selects the block width only, and the
+hybrid tail, which the reference switches by ``pack``, takes no such
+switch: its float path is the same at either value of the spec's
+``k_live_buckets``.
+
 Draws: a scan's randomness is drawn up front (``draw_scan``), as the
 reference hoists it, and passed in, so a test can feed the port the
-reference's own draws. Keys are host-side (``prng``) and the streams are
-not JAX's.
+reference's own draws. A resumed segment reads the draws of its rows,
+as the reference's positional key chain does. The reference's chunked
+uniforms (``U_CHUNK_ROWS``) have no counterpart: the sweep's uniforms are
+held whole, (N, K_max) float32, 8 MB at N=32768, K_max=64. Keys are
+host-side (``prng``) and the streams are not JAX's.
 """
 from __future__ import annotations
 
@@ -41,10 +62,11 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels.collapsed_row import collapsed_row_flip_ref
 from repro_torch.kernels.collapsed_scan import collapsed_scan
-from repro_torch.kernels.collapsed_scan.ref import (
+from repro_torch.kernels.collapsed_scan.ref import (  # noqa: F401
     BIRTHS,
     J_MAX,
-    _log_poisson,  # noqa: F401  (the reference's name)
+    PROBE_EVERY,
+    _log_poisson,  # the reference's name
     _sample_dishes,
 )
 
@@ -54,18 +76,17 @@ from .sweeps import sufficient_stats
 
 Tensor = torch.Tensor
 
-COLLAPSED_BACKENDS = ("ref", "fast", "pallas")  # "fast": alias of "pallas"
+COLLAPSED_BACKENDS = ("ref", "fast", "pallas")
 K_LIVE_MODES = ("on", "off")  # occupancy-adaptive packing knob values
 DEFAULT_REFRESH = 64      # exact refactorization cadence
 DEFAULT_DRIFT_TOL = 1e-2  # probe-residual threshold forcing an early refresh
+PACK_HEADROOM = J_MAX     # free in-block slots guaranteed at (re)pack time
 
 
-def row_step_backend(name: str) -> str:
-    """``name`` checked against ``COLLAPSED_BACKENDS``, with the
-    reference's ``"fast"`` read as ``"pallas"``: "ref" or "pallas"."""
+def _check_backend(name: str) -> str:
     if name not in COLLAPSED_BACKENDS:
         raise ValueError(f"backend={name!r} not in {COLLAPSED_BACKENDS}")
-    return "pallas" if name == "fast" else name
+    return name
 
 
 @dataclasses.dataclass
@@ -146,7 +167,7 @@ def _row_step(carry: tuple, n: int, *, X: Tensor, draws: ScanDraws,
         draw, lam = draws.gumbel[n], alpha / N
     else:
         draw, lam = (draws.j_prop[n], draws.log_u_acc[n]), None
-    z, active_new, _, sat = _sample_dishes(
+    z, active_new, _, _, sat = _sample_dishes(
         birth, draw, q, mean, x_n, active_m, z, sx, sa, lam, D)
     # ---- add row n back
     m_new = m_minus * active_m + z  # dead/singleton cols contribute 0
@@ -155,6 +176,27 @@ def _row_step(carry: tuple, n: int, *, X: Tensor, draws: ScanDraws,
     Z[n] = z
     return (Z, active_new, ZtZ_n, ZtX_n, m_new, alpha, sx, sa,
             n_sat + sat.to(n_sat.dtype))
+
+
+def _segment_scan(Z: Tensor, active: Tensor, ZtZ: Tensor, ZtX: Tensor,
+                  m: Tensor, X: Tensor, sx: Tensor, sa: Tensor,
+                  draws: ScanDraws, *, N: float, alpha: Tensor | None,
+                  birth: str, backend: str, refresh_every: int,
+                  drift_tol: float, B: int, start_row: int = 0) -> Tensor:
+    """One segment of the carried scan, the counterpart of the
+    reference's ``_packed_scan``: rows ``start_row``.. on the packed
+    block of ``B`` columns, flip flavor ``backend`` ("fast" or "pallas").
+    Moves the canonical Z, active, ZtZ, ZtX and m in place and returns
+    the int32 device counts (n_refresh, n_sat, ovf_row); ``ovf_row`` is
+    the first row not committed, or -1 when the segment reached the last
+    row."""
+    gibbs = birth == "gibbs"
+    return collapsed_scan(
+        Z, active, ZtZ, ZtX, m, X, draws.u_logit, draws.j_prop,
+        draws.log_u_acc, sx, sa, N=N, refresh_every=refresh_every,
+        drift_tol=drift_tol, gumbel=draws.gumbel if gibbs else None,
+        alpha=alpha if gibbs else None, flavor=backend, B=B,
+        start_row=start_row)
 
 
 def collapsed_row_scan(
@@ -175,25 +217,27 @@ def collapsed_row_scan(
     refresh_every: int = DEFAULT_REFRESH,
     drift_tol: float = DEFAULT_DRIFT_TOL,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """Scan the collapsed row step over every row of ``X``: the carried
-    scan (``backend="pallas"``, alias ``"fast"``) or the oracle (``"ref"``).
+    """Scan the collapsed row step over every row of ``X`` at the full
+    width: the carried scan (``backend`` "fast" or "pallas") or the
+    oracle (``"ref"``).
 
-    The shared entry of the serial sweep (``birth="gibbs"``, which needs
-    ``alpha`` and ``draws.gumbel``) and the hybrid tail (``birth="mh"``).
-    ``N`` is the GLOBAL observation count. Returns (Z, active, ZtZ, ZtX,
-    m, n_refresh, n_sat), the last two int32 device scalars: exact
+    The shared entry of the serial sweep at ``k_live_buckets="off"``
+    (``birth="gibbs"``, which needs ``alpha`` and ``draws.gumbel``) and
+    the hybrid tail (``birth="mh"``). ``N`` is the GLOBAL observation
+    count. The reference's ``pack`` switch has no counterpart: the port
+    carries G for ``"fast"`` at every width (module docstring). Returns
+    (Z, active, ZtZ, ZtX, m, n_refresh, n_sat), the last two int32 device scalars: exact
     refactorizations (0 on the ``"ref"`` backend, which has no carry)
     and capacity-vetoed accepted MH births (0 for Gibbs births). The
     caller's tensors are not modified.
     """
-    backend = row_step_backend(backend)
+    backend = _check_backend(backend)
     if birth not in BIRTHS:
         raise ValueError(f"birth={birth!r} not in {BIRTHS}")
     if birth == "gibbs" and (alpha is None or draws.gumbel is None):
         raise ValueError("Gibbs births need alpha and draws.gumbel")
     Z, active, ZtZ, ZtX, m = (t.clone(memory_format=torch.contiguous_format)
                               for t in (Z, active, ZtZ, ZtX, m))
-    gibbs = birth == "gibbs"
     if backend == "ref":
         n_sat = torch.zeros((), dtype=torch.int32, device=X.device)
         N_t = torch.tensor(N, dtype=X.dtype, device=X.device)
@@ -201,11 +245,10 @@ def collapsed_row_scan(
         for n in range(X.shape[0]):
             carry = _row_step(carry, n, X=X, draws=draws, N=N_t, birth=birth)
         return (*carry[:5], torch.zeros_like(n_sat), carry[8])
-    counts = collapsed_scan(
-        Z, active, ZtZ, ZtX, m, X, draws.u_logit, draws.j_prop,
-        draws.log_u_acc, sx, sa, N=N, refresh_every=refresh_every,
-        drift_tol=drift_tol, gumbel=draws.gumbel if gibbs else None,
-        alpha=alpha if gibbs else None)
+    counts = _segment_scan(
+        Z, active, ZtZ, ZtX, m, X, sx, sa, draws, N=N, alpha=alpha,
+        birth=birth, backend=backend, refresh_every=refresh_every,
+        drift_tol=drift_tol, B=Z.shape[1])
     return Z, active, ZtZ, ZtX, m, counts[0], counts[1]
 
 
@@ -273,45 +316,88 @@ def _finish_sweep(state: IBPState, X: Tensor, hyp: IBPHypers, Z: Tensor,
     )
 
 
+def _packed_segments(Z: Tensor, active: Tensor, ZtZ: Tensor, ZtX: Tensor,
+                     m: Tensor, X: Tensor, sx: Tensor, sa: Tensor,
+                     alpha: Tensor, draws: ScanDraws, k_plus: int, *,
+                     backend: str, refresh_every: int,
+                     seg_log: list | None = None) -> None:
+    """The packed sweep's scan, segment by segment (the host loop of the
+    reference's ``_collapsed_sweep_packed``): each segment runs at the
+    smallest bucket holding ``k_plus`` live columns plus PACK_HEADROOM
+    free ones (``ibm.pick_bucket``); a birth that overflows its block
+    ends the segment before its row, and the next one resumes from that
+    row at the bucket of the new K⁺. A resume always makes progress: the
+    larger block has room for the pending birth. Moves the canonical
+    Z, active, ZtZ, ZtX and m in place, with Gibbs births. One host read
+    per segment, of ``ovf_row`` and K⁺ together. ``seg_log`` receives one
+    ``(bucket, start_row)`` per segment."""
+    N = X.shape[0]
+    buckets = ibm.live_buckets(Z.shape[1])
+    row = 0
+    while True:
+        B = ibm.pick_bucket(buckets, k_plus, PACK_HEADROOM)
+        # a live column left out of the block would lose its statistics
+        assert B >= k_plus, (B, k_plus)
+        if seg_log is not None:
+            seg_log.append((B, row))
+        counts = _segment_scan(
+            Z, active, ZtZ, ZtX, m, X, sx, sa, draws, N=float(N),
+            alpha=alpha, birth="gibbs", backend=backend,
+            refresh_every=refresh_every, drift_tol=DEFAULT_DRIFT_TOL, B=B,
+            start_row=row)
+        row, k_plus = torch.stack(
+            [counts[2], torch.sum(active).to(torch.int32)]).tolist()
+        if row < 0:
+            return
+
+
 def collapsed_sweep(
     state: IBPState,
     X: Tensor,
     hyp: IBPHypers,
     backend: str = "pallas",
     refresh_every: int = DEFAULT_REFRESH,
-    k_live_buckets: str = "off",
+    k_live_buckets: str = "on",
+    seg_log: list | None = None,
 ) -> IBPState:
     """One full collapsed Gibbs sweep over all rows, with Gibbs births,
     then pruning and the hyper-parameter updates.
 
-    The defaults differ from the reference's (``backend="ref"``,
-    ``k_live_buckets="on"``) on purpose, so that a default sweep runs the
-    carried scan, which on a CUDA state is the ``collapsed_scan`` kernel:
-    one ``feature_stats`` launch (the sweep-entry statistics), one
-    ``collapsed_scan`` launch, no host sync. ``k_live_buckets="off"`` is
-    the reference's top-bucket carry (B = K_max); ``"on"`` (the packed
-    live-K+ carry) is not ported yet and raises for the carried backends.
-    The ``"ref"`` backend has no carry and ignores the knob, as in the
-    reference.
+    ``k_live_buckets="on"`` (the reference's default) runs the carried
+    scan on the live-K⁺ bucket, segment by segment
+    (``_packed_segments``): on a CUDA state one ``feature_stats`` launch
+    and one ``collapsed_scan`` launch per segment, with one host read of
+    K⁺ before the first and one of (``ovf_row``, K⁺) after each.
+    ``"off"`` runs the full width in one launch with no host read. The
+    ``"ref"`` backend has no carry and ignores the knob, as in the
+    reference. The default backend is ``"pallas"`` where the reference's
+    is ``"ref"``, so that a default sweep runs the carried scan, which
+    on a CUDA state is the kernel. ``seg_log`` receives the packed
+    sweep's ``(bucket, start_row)`` per segment.
     """
     if k_live_buckets not in K_LIVE_MODES:
         raise ValueError(
             f"k_live_buckets={k_live_buckets!r} not in {K_LIVE_MODES}")
-    backend = row_step_backend(backend)
-    if backend != "ref" and k_live_buckets == "on":
-        raise NotImplementedError(
-            f"collapsed_sweep: k_live_buckets='on' with backend={backend!r} "
-            f"is not ported yet; it comes with ROADMAP queue 1 item 7c (the "
-            f"packed collapsed carry at the live K+ bucket)")
+    backend = _check_backend(backend)
     N, D = X.shape
     Z, active = state.Z, state.active
+    packed = backend != "ref" and k_live_buckets == "on"
+    k_plus = int(torch.sum(active)) if packed else 0
     m, ZtZ, ZtX, trXtX = _sweep_stats(Z, active, X)
     key, ksweep, kalpha, ksx, ksa = prng.split(state.key, 5)
     draws = draw_scan(N, Z.shape[1], state.alpha, float(N),
                       prng.generator(ksweep, X.device), birth="gibbs")
-    Z, active, ZtZ, ZtX, m, _, _ = collapsed_row_scan(
-        Z, active, ZtZ, ZtX, m, X, state.sigma_x, state.sigma_a, draws,
-        N=float(N), alpha=state.alpha, birth="gibbs", backend=backend,
-        refresh_every=refresh_every)
+    if packed:
+        Z = Z.clone(memory_format=torch.contiguous_format)
+        active = active.clone()
+        _packed_segments(Z, active, ZtZ, ZtX, m, X, state.sigma_x,
+                         state.sigma_a, state.alpha, draws, k_plus,
+                         backend=backend, refresh_every=refresh_every,
+                         seg_log=seg_log)
+    else:
+        Z, active, ZtZ, ZtX, m, _, _ = collapsed_row_scan(
+            Z, active, ZtZ, ZtX, m, X, state.sigma_x, state.sigma_a, draws,
+            N=float(N), alpha=state.alpha, birth="gibbs", backend=backend,
+            refresh_every=refresh_every)
     return _finish_sweep(state, X, hyp, Z, active, ZtZ, ZtX, m, trXtX, key,
                          kalpha, ksx, ksa)

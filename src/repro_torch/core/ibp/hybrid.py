@@ -145,15 +145,18 @@ def _tail_sub_iteration(
     N_global: float,
     gen: torch.Generator,
     chol_refresh: int = DEFAULT_REFRESH,
-    collapsed_backend: str = "pallas",
+    collapsed_backend: str = "fast",
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Collapsed Gibbs + MH births on the tail of shard p'.
 
-    ``collapsed_backend`` selects the row step: "pallas" (alias "fast")
-    the carried scan (one ``collapsed_scan`` launch on the card), "ref" the
-    O(K^3) oracle ``_row_step``. Returns (Z_tail, tail_active, n_sat):
-    ``n_sat`` counts rows whose accepted MH birth was vetoed purely by
-    K_tail capacity.
+    ``collapsed_backend`` selects the row step: "fast" (the rss flip with
+    the carried G) or "pallas" (the mean-form flip), each the carried
+    scan, one ``collapsed_scan`` launch on the card; "ref" the O(K^3)
+    oracle ``_row_step``. The tail runs its full K_tail width; the
+    reference's ``k_live_pack`` switch has no counterpart, because the
+    port carries G for "fast" either way (``collapsed`` module
+    docstring). Returns (Z_tail, tail_active, n_sat): ``n_sat`` counts
+    rows whose accepted MH birth was vetoed purely by K_tail capacity.
     """
     # residual given instantiated features = the tail model's data
     R = X_p - (Z * gs.active[None, :]) @ gs.A
@@ -181,7 +184,7 @@ def shard_sub_iterations(
     N_global: float,
     L: int,
     chol_refresh: int = DEFAULT_REFRESH,
-    collapsed_backend: str = "pallas",
+    collapsed_backend: str = "fast",
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """L sub-iterations of the paper's inner loop on all P shards.
 
@@ -325,7 +328,7 @@ def _hybrid_iteration_body(
     L: int,
     N_g: float,
     chol_refresh: int = DEFAULT_REFRESH,
-    collapsed_backend: str = "pallas",
+    collapsed_backend: str = "fast",
 ) -> tuple[HybridGlobal, HybridShard]:
     """One full hybrid iteration (sub-iterations + master sync)."""
     P_, N_p, D = X_shards.shape

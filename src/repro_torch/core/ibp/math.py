@@ -8,8 +8,10 @@ Model (paper Eq. 1):
 
 Feature-indexed buffers are padded to a static ``K_max``; an ``active``
 mask (float {0,1}) selects live columns. The padded W, its Cholesky
-inverse and the rank-one Cholesky moves live in ``repro_torch.linalg``
-and are re-exported here under the reference's names.
+inverse, the rank-one Cholesky moves, the G = HHᵀ move ``g_rank1`` and the
+packed block's column choice ``block_select`` live in
+``repro_torch.linalg`` and are re-exported here under the reference's
+names.
 
 Draws take an explicit ``torch.Generator`` on the tensors' device.
 Gamma draws use ``torch._standard_gamma`` (``torch.distributions``
@@ -25,12 +27,14 @@ import torch
 from repro_torch.linalg import (  # noqa: F401  (the reference's names)
     _cholesky,
     _eye,
+    block_select,
     chol_inv,
     chol_inv_logdet,
     chol_rank1_downdate,
     chol_rank1_downdate_t,
     chol_rank1_update,
     chol_rank1_update_t,
+    g_rank1,
     mask_outer,
     padded_W,
 )
@@ -98,6 +102,31 @@ def collapsed_loglik(
         - 0.5 * D * logdetW
         - 0.5 / (sigma_x**2) * (trXtX - quad)
     )
+
+
+def live_buckets(K_max: int, base: int = 8) -> tuple[int, ...]:
+    """Power-of-two packed block sizes (8, 16, 32, ...) below K_max, then
+    K_max itself, so a chain at full occupancy runs the full width."""
+    if K_max < 1:
+        raise ValueError(f"K_max={K_max} must be >= 1")
+    bs = []
+    b = base
+    while b < K_max:
+        bs.append(b)
+        b *= 2
+    bs.append(K_max)
+    return tuple(bs)
+
+
+def pick_bucket(buckets: tuple[int, ...], k_plus: int, headroom: int) -> int:
+    """Smallest bucket with room for ``k_plus`` live features plus
+    ``headroom`` free slots (so a row's births, j <= J_MAX, fit without a
+    repack); the largest bucket (K_max) when none has, where a birth can
+    never overflow the block."""
+    for b in buckets:
+        if b >= k_plus + headroom:
+            return b
+    return buckets[-1]
 
 
 def sm_downdate(M: Tensor, z: Tensor) -> tuple[Tensor, Tensor]:

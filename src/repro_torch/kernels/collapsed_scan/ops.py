@@ -1,10 +1,11 @@
 """Wrapper of the collapsed_scan kernel (``csrc/collapsed_scan.cu``).
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel on the current stream or raise. One launch scans every row; sx,
-sa and (for Gibbs births) alpha are 0-d device tensors read by the
-kernel, and the counts come back in a device tensor, so a scan needs no
-host sync.
+kernel on the current stream or raise. One launch scans a segment of
+rows; sx, sa and (for Gibbs births) alpha are 0-d device tensors read by
+the kernel, the packed block is gathered and scattered back by index ops
+on the device, and the counts come back in a device tensor, so a scan
+needs no host sync.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_cpu, stream
 
-from .ref import J_MAX, collapsed_scan_ref
+from .ref import FLAVORS, J_MAX, collapsed_scan_ref, gather_block, scatter_block
 
 Tensor = torch.Tensor
 counter = _build.counter("collapsed_scan")
@@ -27,7 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _fns():
     launch = _build.function(
         "collapsed_scan", "collapsed_scan_launch",
-        [_I] + [_P] * 15 + [_I] * 3 + [_F, _I, _F, _I, _P])
+        [_I] + [_P] * 16 + [_I] * 5 + [_F, _I, _F, _I, _I, _P])
     scratch = _build.function("collapsed_scan",
                               "collapsed_scan_scratch_floats", [_I] * 3,
                               ctypes.c_long)
@@ -37,25 +38,39 @@ def _fns():
 def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
                    sx, sa, *, N: float, refresh_every: int, drift_tol: float,
                    gumbel: Tensor | None = None,
-                   alpha: Tensor | None = None) -> Tensor:
-    """Scan every row of ``X``; updates Z, active, ZtZ, ZtX and m in place
-    and returns the int32 counts (n_refresh, n_sat). Births are MH moves
-    from ``j_prop`` and ``log_u_acc``, or Gibbs draws from ``gumbel`` and
-    ``alpha`` when ``gumbel`` is given. Arguments as in
-    ``ref.collapsed_scan_ref``."""
+                   alpha: Tensor | None = None, flavor: str = "pallas",
+                   B: int | None = None, start_row: int = 0) -> Tensor:
+    """Scan rows ``start_row``.. of ``X`` on the packed block of ``B``
+    columns (default all) with the flip ``flavor``; updates Z, active,
+    ZtZ, ZtX and m in place and returns the int32 counts (n_refresh,
+    n_sat, ovf_row). Births are MH moves from ``j_prop`` and
+    ``log_u_acc``, or Gibbs draws from ``gumbel`` and ``alpha`` when
+    ``gumbel`` is given. Arguments as in ``ref.collapsed_scan_ref``.
+
+    Precondition, not checked here (it would be a host read): the block
+    holds every live column, ``B >= sum(active)``. A smaller block would
+    leave live columns out, and writing the block back zeroes their
+    statistics."""
     name = "collapsed_scan"
     gibbs = gumbel is not None
     births = (gumbel, alpha) if gibbs else (j_prop, log_u_acc)
     if any(t is None for t in births):
         need = "gumbel and alpha" if gibbs else "j_prop and log_u_acc"
         raise ValueError(f"{name}: {need} are needed for its births")
-    args = (Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa)
-    kw = dict(N=N, refresh_every=refresh_every, drift_tol=drift_tol,
-              gumbel=gumbel, alpha=alpha)
-    if on_cpu(name, *(t for t in (*args, *births) if t is not None)):
-        return collapsed_scan_ref(*args, **kw)
+    if flavor not in FLAVORS:
+        raise ValueError(f"{name}: flavor={flavor!r} not in {FLAVORS}")
     n_rows, D = X.shape
     K = Z.shape[1]
+    B = K if B is None else B
+    if not (1 <= B <= K and 0 <= start_row <= n_rows):
+        raise ValueError(f"{name}: B={B} must be in [1, {K}] and "
+                         f"start_row={start_row} in [0, {n_rows}]")
+    args = (Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa)
+    kw = dict(N=N, refresh_every=refresh_every, drift_tol=drift_tol,
+              gumbel=gumbel, alpha=alpha, flavor=flavor, B=B,
+              start_row=start_row)
+    if on_cpu(name, *(t for t in (*args, *births) if t is not None)):
+        return collapsed_scan_ref(*args, **kw)
     draws = (dict(gumbel=(gumbel, (n_rows, J_MAX + 1)), alpha=(alpha, ()))
              if gibbs else dict(j_prop=(j_prop, (n_rows,)),
                                 log_u_acc=(log_u_acc, (n_rows,))))
@@ -64,16 +79,22 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
            X=(X, (n_rows, D)), u_logit=(u_logit, (n_rows, K)),
            sx=(sx, ()), sa=(sa, ()), **draws)
     launch, scratch = _fns()
-    counts = torch.empty((2,), dtype=torch.int32, device=X.device)
-    arena = torch.empty((scratch(X.device.index, K, D),), dtype=torch.float32,
+    canon = (active, ZtZ, ZtX, m)
+    cols, _, block = gather_block(*canon, B)
+    block = tuple(t.contiguous() for t in block)
+    counts = torch.empty((3,), dtype=torch.int32, device=X.device)
+    arena = torch.empty((scratch(X.device.index, B, D),), dtype=torch.float32,
                         device=X.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = launch(X.device.index,
-                *(ptr(t) for t in (Z, active, ZtZ, ZtX, m, X, u_logit,
-                                   j_prop, log_u_acc, gumbel, sx, sa, alpha,
-                                   counts, arena)),
-                n_rows, K, D, float(N), int(refresh_every), float(drift_tol),
-                int(gibbs), stream(X))
+                *(ptr(t) for t in (Z, *block, X, u_logit, j_prop, log_u_acc,
+                                   gumbel, sx, sa, alpha, cols, counts,
+                                   arena)),
+                n_rows, K, B, D, start_row, float(N), int(refresh_every),
+                float(drift_tol), int(gibbs), int(flavor == "fast"),
+                stream(X))
     _build.check(rc, name)
     counter.launches += 1
+    if B < K:
+        scatter_block(cols, block, canon)
     return counts

@@ -1,5 +1,6 @@
-// The collapsed bit-flip recurrence of one row, mean form: the body of the
-// collapsed_row kernel and of the collapsed_scan kernel's row step.
+// The collapsed bit-flip recurrence of one row, in mean form (the body of the
+// collapsed_row kernel and of the collapsed_scan kernel's row step) and in
+// rss form (the collapsed_scan kernel's "fast" flavor, at the end).
 //
 // For each bit k in order, both states of z_k are scored by
 // -D/2 log(1+q) - |x - mean|^2 / (2 sigma^2 (1+q)) with prior odds
@@ -75,4 +76,76 @@ __device__ void collapsed_row_recurrence(
     q = pick1 ? q1 : q0;
     __syncthreads();  // v, z moved; red free for the next step
   }
+}
+
+// The same recurrence in rss form (kernels/collapsed_row/fast.py): the
+// likelihood reads the residual only through its norm, so the carry is
+// (z, v = Mz, q = z'Mz, rss = |x - zH|^2, rH = H(x - zH)) and flipping bit
+// k moves rss and rH by (+-2 rH_k + G_kk, -+G[k]) with G = HH' (symmetric,
+// row k read as column k). O(K) work a bit and no reduction over D: warp
+// 0 runs the whole pass, each lane holding v and rH at i = lane (mod 32)
+// and every lane computing the bit's scalars from the same values; the
+// other warps wait at the closing barrier. Only active columns are
+// visited, in ascending order.
+//
+// Called by every thread of the block. M, G (K,K) row-major; u, mm, act
+// read only; v, rH, z (K, shared memory) moved in place; q and rss are
+// read from every thread on entry and are the moved values in every
+// thread on exit, broadcast through bc (2 floats of shared memory). On
+// entry v, rH, z must be visible (after a __syncthreads()); on exit the
+// moved v, rH, z are visible to every thread.
+__device__ void collapsed_row_recurrence_rss(
+    const float* __restrict__ M, const float* __restrict__ G, float* v,
+    float* rH, float* z, float& q, float& rss, const float* __restrict__ u,
+    const float* __restrict__ mm, const float* __restrict__ act, float N,
+    float inv2s2, int K, int D, float* bc) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float halfD = -0.5f * (float)D;
+    for (int k = 0; k < K; ++k) {
+      if (!(act[k] > 0.5f)) continue;
+      const float zk = z[k];
+      const float mk = mm[k];
+      const bool may = mk > 0.5f;
+      if (!may && zk == 0.f) continue;  // warp-uniform: moves nothing
+      const float* Mk = M + (long)k * K;
+      const float* Gk = G + (long)k * K;
+      const float Mkk = Mk[k], Gkk = Gk[k];
+      const float vk = v[k], rHk = rH[k];
+      // state with bit k = 0, then with bit k = 1
+      const float q0 = q - zk * (2.f * vk - Mkk);
+      const float rss0 = rss + zk * (2.f * rHk + Gkk);
+      const float v0k = vk - zk * Mkk;
+      const float rH0k = rHk + zk * Gkk;
+      const float q1 = q0 + 2.f * v0k + Mkk;
+      const float rss1 = rss0 - 2.f * rH0k + Gkk;
+      const float s0 = 1.f + q0;
+      const float s1 = 1.f + q1;
+      const float ll0 = halfD * logf(s0) - inv2s2 * rss0 / s0;
+      const float ll1 = halfD * logf(s1) - inv2s2 * rss1 / s1;
+      const float logodds =
+          logf(fmaxf(mk, 1e-20f)) - logf(N - mk) + ll1 - ll0;
+      const float znk = may ? (logodds > u[k] ? 1.f : 0.f) : zk;
+      const bool pick1 = znk > 0.5f;
+      __syncwarp();  // every lane has read v[k], rH[k] and z[k]
+      for (int i = lane; i < K; i += 32) {
+        const float v0 = v[i] - zk * Mk[i];
+        v[i] = pick1 ? v0 + Mk[i] : v0;
+        const float r0 = rH[i] + zk * Gk[i];
+        rH[i] = pick1 ? r0 - Gk[i] : r0;
+      }
+      if (lane == 0) z[k] = znk;
+      q = pick1 ? q1 : q0;
+      rss = pick1 ? rss1 : rss0;
+      __syncwarp();  // v, rH, z moved
+    }
+    if (lane == 0) {
+      bc[0] = q;
+      bc[1] = rss;
+    }
+  }
+  __syncthreads();
+  q = bc[0];
+  rss = bc[1];
+  __syncthreads();  // bc free again
 }

@@ -1,39 +1,64 @@
-// collapsed_scan: a whole collapsed row scan in one launch, the hybrid
-// tail's (MH births) or the serial collapsed sweep's (Gibbs births).
+// collapsed_scan: a segment of the collapsed row scan in one launch, the
+// hybrid tail's (MH births) or the serial collapsed sweep's (Gibbs births),
+// on a packed block of B of the K_can canonical columns.
 //
 // Replaces the row loop around collapsed_row_flip_pallas
 // (src/repro/kernels/collapsed_row/kernel.py:97): the reference's
-// _packed_scan (src/repro/core/ibp/collapsed.py:259), one lax.scan over the
-// rows with lax.cond branches, at the full-width block B = K with no G
-// carry, births by the MH move or by the exact truncated Gibbs draw
-// (collapsed.py:132). Its plain version is kernels/collapsed_scan/ref.py,
-// whose docstring gives the row step.
+// _packed_scan (src/repro/core/ibp/collapsed.py:259), one lax.while_loop
+// over the rows with lax.cond branches, births by the MH move or by the
+// exact truncated Gibbs draw (collapsed.py:132). Its plain version is
+// kernels/collapsed_scan/ref.py, whose docstring gives the row step, the
+// block and the two flip flavors:
+//   * mean form (launch flag fast = 0, instances FAST = false):
+//     collapsed_row_recurrence, a block reduction over D per bit (the
+//     reference's "pallas");
+//   * rss form (fast = 1): collapsed_row_recurrence_rss, O(K) a bit in one
+//     warp, reading G = HH' that the scan carries across rows (the
+//     reference's "fast" with carry_g): built by a Gram product at every
+//     exact factorization, moved by the symmetric rank-two correction of
+//     linalg.g_rank1 at the removal and the add-back, each from the
+//     pre-move H, masked at drops and at the identity swaps of new slots.
+//     The D-length work of the flip moves to the row's entry (rss and
+//     rH = H(x - mean)) and exit (mean = zH). After a plain removal the
+//     entry is closed-form, x - mean = -(1 + q) b with b = zH - x, from
+//     the b.b and Hb that G's removal move computes; the add-back's
+//     b_add = x - mean and its b.b is the birth move's rss: two
+//     reductions over D a row, and a K.D product at a changed row.
+//
+// The block: the carry and the statistics live on B columns, cols
+// (ascending, the live ones and the lowest free slots); Z and the draws
+// stay canonical (K_can wide) and a row's bits and uniforms are gathered
+// through cols, its new bits scattered back the same way. A birth draw
+// sees the canonical free capacity (the K_can - B out-of-block slots are
+// free); a birth the block cannot place where the canonical rule would
+// (fewer free slots than j_new, or one at or above min_out, the smallest
+// out-of-block index) ends the segment before its row is committed, and
+// counts[2] reports that row (-1 when the segment reached the last row).
 //
 // What bounds it on the H100: neither bytes nor operations but the chain
-// of dependent rows. The scan reads X and the draws once (16 MB at
-// N_p=4096, D=1024: about 5 us of device memory time) and does a few
+// of dependent rows. The scan reads X and the draws once and does a few
 // hundred kFLOP per row, yet row n+1's carry is row n's result, so the
 // rows run one after another, each a chain of block barriers and
 // reductions over D. The design therefore spends nothing between rows:
 //   * one block of 256 threads walks every row, so there is no launch and
 //     no host sync per row;
-//   * the carry (Lt, M, H, their row-removed copies Lt1, M1, H1, ZtZ, ZtX,
-//     m, active and the row's vectors) stays in shared memory when it fits
-//     (about 3 K D + 7 K^2 + 4 D floats: 117 KB at K=8, D=1024), else in
-//     a global scratch the wrapper allocates (L2-resident);
-//   * rows of X, their draws and their old bits stream through a ring of
-//     two shared-memory stages with cp.async, row n+1 loading while row n
-//     runs (shared-memory layout only; the global layout reads them where
-//     they lie);
+//   * the carry (Lt, M, H, G, their row-removed copies, ZtZ, ZtX, m,
+//     active and the row's vectors) stays in shared memory when it fits
+//     (about 3 B D + 9 B^2 + 2 D floats and two row stages: 224 KB at
+//     B=16, D=1024), else in a global scratch the wrapper allocates
+//     (L2-resident);
+//   * rows of X, their gathered draws and old bits stream through a ring
+//     of two shared-memory stages with cp.async, row n+1 loading while row
+//     n runs (shared-memory layout only; the global layout reads them
+//     where they lie);
 //   * every branch of the row step (the refresh, the downdate test, the
-//     drift probe, drop masking, the flip, the births, the add-back and
-//     its identity swaps) is block-uniform, decided by every thread from
-//     the same values, and the counters are registers written once; the
-//     birth move (MH or Gibbs) is a block-uniform flag of the launch;
+//     drift probe, drop masking, the flip, the births, the overflow exit,
+//     the add-back and its identity swaps) is block-uniform, decided by
+//     every thread from the same values, and the counters are registers
+//     written once; the birth move and the flip flavor are block-uniform
+//     flags of the launch;
 //   * K-length dot products are recomputed by every thread (no barrier),
-//     D-length ones are block reductions; the bit flips are
-//     collapsed_row_recurrence (collapsed_row.cuh), the same code as the
-//     collapsed_row kernel.
+//     D-length ones are warp or block reductions.
 // Sums are taken in another order than the plain version's, so decisions
 // may differ from it only at float-boundary events.
 #include <cuda_runtime.h>
@@ -49,20 +74,21 @@ constexpr int J_MAX = 4;        // ref.J_MAX: per-row new-dish truncation
 constexpr int NG = J_MAX + 1;   // Gumbel values per row (Gibbs births)
 constexpr int PROBE_EVERY = 4;  // ref.PROBE_EVERY: drift-probe cadence
 
-// K-vectors of the row step, slots in the arena
+// K-vectors of the row step, slots in the arena (K = the block width B)
 enum KVec {
   kAct, kM, kZold, kMminus, kZu, kW, kP, kDrop, kZ, kActm, kV, kProbe,
-  kZ2, kNew, kW2, kPup, kTmp, kRq, kNKVec = kRq + 2  // kRq is 2K long
+  kZ2, kNew, kW2, kPup, kTmp, kU, kRH, kHv, kCols, kBc,
+  kRq, kNKVec = kRq + 2  // kRq is 2K long
 };
-// D-vectors: zH (then b_add) and mean
+// D-vectors: zH (then b_add) and mean (also the probe's active_m H1)
 enum DVec { kZH, kMean, kNDVec };
 
 __host__ __device__ inline long round4(long n) { return (n + 3) / 4 * 4; }
 
 // Offsets (floats) of the carry and, with a ring, of the row stages.
 struct Layout {
-  long Lt, Lt1, M, M1, ZtZ, W, Y, H, H1, ZtX, kv, kstride, dv, dstride,
-      ring, stage, total;
+  long Lt, Lt1, M, M1, G, G1, ZtZ, W, Y, H, H1, ZtX, kv, kstride, dv,
+      dstride, ring, stage, total;
 };
 
 __host__ __device__ inline Layout layout(int K, int D, bool ring) {
@@ -73,6 +99,8 @@ __host__ __device__ inline Layout layout(int K, int D, bool ring) {
   L.Lt1 = o, o += kk;
   L.M = o, o += kk;
   L.M1 = o, o += kk;
+  L.G = o, o += kk;
+  L.G1 = o, o += kk;
   L.ZtZ = o, o += kk;
   L.W = o, o += kk;
   L.Y = o, o += kk;
@@ -191,20 +219,82 @@ __device__ void exact_factor(const float* ZtZ, const float* ZtX,
   __syncthreads();
 }
 
-// Copy row r's x, draws and old bits into ring stage st (cp.async): the
-// MH draws, or the Gibbs births' Gumbel values when ``gibbs``.
+// A lane's share of sum_d a[d] b(d), d = lane (mod 32), in four
+// independent partial sums so that the loads and FMAs of a long D
+// overlap instead of forming one chain.
+template <typename F>
+__device__ __forceinline__ float lane_dot(const float* a, F b, int D) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int d = threadIdx.x & 31;
+  for (; d + 96 < D; d += 128) {
+    s0 += a[d] * b(d);
+    s1 += a[d + 32] * b(d + 32);
+    s2 += a[d + 64] * b(d + 64);
+    s3 += a[d + 96] * b(d + 96);
+  }
+  for (; d < D; d += 32) s0 += a[d] * b(d);
+  return (s0 + s1) + (s2 + s3);
+}
+
+// out[k] = sum_d A[k, d] b(d) for k < K: one warp a row, a butterfly warp
+// sum. The caller puts a barrier before out is read.
+template <typename F>
+__device__ __forceinline__ void rows_dot(const float* A, F b, float* out,
+                                         int K, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = warp; k < K; k += NW) {
+    const float s = warp_sum(lane_dot(A + (long)k * D, b, D));
+    if (lane == 0) out[k] = s;
+  }
+}
+
+// G = H H' (K,K), both triangles from one warp sum per pair, so G is
+// exactly symmetric. Ends with a barrier.
+__device__ void gram(const float* H, float* G, int K, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = warp; e < K * K; e += NW) {
+    const int i = e / K, j = e % K;
+    if (j < i) continue;  // warp-uniform
+    const float* hj = H + (long)j * D;
+    const float s =
+        warp_sum(lane_dot(H + (long)i * D, [&](int d) { return hj[d]; }, D));
+    if (lane == 0) {
+      G[(long)i * K + j] = s;
+      G[(long)j * K + i] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// One entry of linalg.g_rank1's correction a c' + c a': the same rounded
+// products added in either order, so entries (i, j) and (j, i) are equal.
+__device__ __forceinline__ float sym2(float ai, float cj, float ci,
+                                      float aj) {
+  return __fadd_rn(__fmul_rn(ai, cj), __fmul_rn(ci, aj));
+}
+
+// c_k = (H b)_k + (b.b)/2 a_k of linalg.g_rank1, one explicitly rounded
+// expression, so every thread gets the same bits for the same k.
+__device__ __forceinline__ float g_c(float hb, float half_bb, float a) {
+  return __fmaf_rn(half_bb, a, hb);
+}
+
+// Copy row r's x, gathered draws and old bits into ring stage st
+// (cp.async): the MH draws, or the Gibbs births' Gumbel values when
+// ``gibbs``. u and Z are canonical, K_can wide; cols picks the block.
 __device__ __forceinline__ void prefetch_row(
     float* st, const Layout& L, const float* X, const float* Z,
     const float* u_logit, const float* j_prop, const float* log_u_acc,
-    const float* gumbel, bool gibbs, long r, int K, int D) {
+    const float* gumbel, const int* cols, bool gibbs, long r, int K,
+    int K_can, int D) {
   const int tid = threadIdx.x;
   for (int d = tid; d < D; d += THREADS)
     cp_async4(st + d, X + r * D + d);
   float* su = st + L.dstride;
   float* sz = su + L.kstride;
   for (int i = tid; i < K; i += THREADS) {
-    cp_async4(su + i, u_logit + r * K + i);
-    cp_async4(sz + i, Z + r * K + i);
+    cp_async4(su + i, u_logit + r * K_can + cols[i]);
+    cp_async4(sz + i, Z + r * K_can + cols[i]);
   }
   float* tail = sz + L.kstride;
   if (gibbs) {
@@ -215,10 +305,14 @@ __device__ __forceinline__ void prefetch_row(
   }
 }
 
-// One block scans every row. RING: the carry is in dynamic shared memory
-// and rows stream through the ring; otherwise the carry is the global
-// scratch ``arena`` and rows are read where they lie.
-template <bool RING>
+// One block scans rows start_row.. of the segment. RING: the carry is in
+// dynamic shared memory and rows stream through the ring; otherwise the
+// carry is the global scratch ``arena`` and rows are read where they lie,
+// and (``stage_rec``) the rss pass reads M1, G1, v, rH and z from a copy
+// in dynamic shared memory. FAST: the rss flip with the carried G, else
+// the mean form (each flavor its own instance, so the mean form carries
+// no code of the other).
+template <bool RING, bool FAST>
 __global__ void __launch_bounds__(THREADS)
 collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       float* __restrict__ ZtZ_io, float* __restrict__ ZtX_io,
@@ -230,9 +324,12 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       const float* __restrict__ sx_p,
                       const float* __restrict__ sa_p,
                       const float* __restrict__ alpha_p,
+                      const long long* __restrict__ cols_g,
                       int* __restrict__ counts, float* __restrict__ arena_g,
-                      int n_rows, int K, int D, float N, int refresh_every,
-                      float drift_tol, bool gibbs) {
+                      int n_rows, int K_can, int K, int D, int start_row,
+                      float N, int refresh_every, float drift_tol, bool gibbs,
+                      bool stage_rec) {
+  constexpr bool fast = FAST;
   extern __shared__ float4 sh4[];
   __shared__ float red[2 * NW];
   float* arena = RING ? reinterpret_cast<float*>(sh4) : arena_g;
@@ -241,6 +338,8 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   float* Lt1 = arena + L.Lt1;
   float* M = arena + L.M;
   float* M1 = arena + L.M1;
+  float* G = arena + L.G;
+  float* G1 = arena + L.G1;
   float* ZtZ = arena + L.ZtZ;
   float* W = arena + L.W;
   float* Y = arena + L.Y;
@@ -252,7 +351,9 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
         *mminus = kv(kMminus), *zu = kv(kZu), *w = kv(kW), *p = kv(kP),
         *drop = kv(kDrop), *z = kv(kZ), *actm = kv(kActm), *v = kv(kV),
         *probe = kv(kProbe), *z2 = kv(kZ2), *nb = kv(kNew), *w2 = kv(kW2),
-        *pup = kv(kPup), *tmp = kv(kTmp), *rq = kv(kRq);
+        *pup = kv(kPup), *tmp = kv(kTmp), *ug = kv(kU), *rH = kv(kRH),
+        *hv = kv(kHv), *bc = kv(kBc), *rq = kv(kRq);
+  int* cols = reinterpret_cast<int*>(kv(kCols));
   float* zH = arena + L.dv + kZH * L.dstride;  // then b_add
   float* mean = arena + L.dv + kMean * L.dstride;
   const int tid = threadIdx.x;
@@ -265,6 +366,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   const float inv2s2 = 0.5f / (sx * sx);
   const float sqrt_ratio_m1 = sqrtf(ratio) - 1.f;
   const float halfD = -0.5f * (float)D;
+  const float n_out_free = (float)(K_can - K);  // out-of-block: free
   // Gibbs births: lam = alpha / N and its log, as ref._log_poisson reads
   // them; log j! is ref.LOG_FACT rounded to float32
   const float lam = gibbs ? *alpha_p / N : 0.f;
@@ -279,29 +381,40 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   for (int i = tid; i < K; i += THREADS) {
     act[i] = active_io[i];
     m[i] = m_io[i];
+    cols[i] = (int)cols_g[i];
   }
-  if (RING && n_rows > 0) {
+  __syncthreads();  // cols visible to the prefetch
+  if (RING && start_row < n_rows) {
     prefetch_row(arena + L.ring, L, X, Z, u_logit, j_prop, log_u_acc, gumbel,
-                 gibbs, 0, K, D);
+                 cols, gibbs, start_row, K, K_can, D);
     cp_async_commit();
   }
-  __syncthreads();
+  // min_out: the first block index whose column is not its own index
+  // (cols ascends), else K (the block is the first K columns)
+  int min_out = K;
+  for (int i = 0; i < K; ++i)
+    if (cols[i] != i) {
+      min_out = i;
+      break;
+    }
   exact_factor(ZtZ, ZtX, act, nullptr, nullptr, false, ratio, W, Y, tmp, Lt,
                M, H, K, D);
+  if (fast) gram(H, G, K, D);
 
-  int since = 0, n_refresh = 0, n_sat = 0;
-  for (int n = 0; n < n_rows; ++n) {
+  int since = 0, n_refresh = 0, n_sat = 0, ovf_row = -1;
+  for (int n = start_row; n < n_rows; ++n) {
     // ---- the row: x, draws and old bits (ring stage or where they lie)
     const float *x, *u, *zsrc, *g = nullptr;
     float jp = 0.f, lua = 0.f;
     if (RING) {
       if (n + 1 < n_rows)
-        prefetch_row(arena + L.ring + ((n + 1) % NSTAGE) * L.stage, L, X, Z,
-                     u_logit, j_prop, log_u_acc, gumbel, gibbs, n + 1, K, D);
+        prefetch_row(arena + L.ring + ((n + 1 - start_row) % NSTAGE) * L.stage,
+                     L, X, Z, u_logit, j_prop, log_u_acc, gumbel, cols, gibbs,
+                     n + 1, K, K_can, D);
       cp_async_commit();  // an empty group on the last row
       cp_async_wait<1>();
       __syncthreads();
-      const float* st = arena + L.ring + (n % NSTAGE) * L.stage;
+      const float* st = arena + L.ring + ((n - start_row) % NSTAGE) * L.stage;
       x = st;
       u = st + L.dstride;
       zsrc = u + L.kstride;
@@ -314,8 +427,10 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       }
     } else {
       x = X + (long)n * D;
-      u = u_logit + (long)n * K;
-      zsrc = Z + (long)n * K;
+      for (int i = tid; i < K; i += THREADS)
+        ug[i] = u_logit[(long)n * K_can + cols[i]];
+      u = ug;  // visible after the barrier below
+      zsrc = nullptr;
       if (gibbs) {
         g = gumbel + (long)n * NG;
       } else {
@@ -326,7 +441,8 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
 
     // ---- remove row n: masks and counts
     for (int i = tid; i < K; i += THREADS) {
-      const float zo = zsrc[i];
+      const float zo =
+          RING ? zsrc[i] : Z[(long)n * K_can + cols[i]];
       const float mm = m[i] - zo;
       const float dr = act[i] * (mm <= 0.5f ? 1.f : 0.f);
       zold[i] = zo;
@@ -359,14 +475,33 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     const float delta_s = omg < 1e-6f ? 1e-6f : omg;
     const float sq_delta = sqrtf(delta_s);
     const bool probe_row = since % PROBE_EVERY == 0;
+    float half_bb = 0.f;
+    if (fast) {
+      // G's removal move from the pre-move H: c = H b + (b.b)/2 wd with
+      // b = zH - x (linalg.g_rank1)
+      float bp = 0.f;
+      for (int d = tid; d < D; d += THREADS) {
+        const float b = zH[d] - x[d];
+        bp += b * b;
+      }
+      rows_dot(H, [&](int d) { return zH[d] - x[d]; }, hv, K, D);
+      half_bb = 0.5f * block_sum<float, NW>(bp, red);  // hv visible too
+    }
     float dz_act = 0.f;  // z_old . active_m
     if (probe_row)
       for (int k = 0; k < K; ++k) dz_act += zold[k] * actm[k];
-    // p = Lt w; M1, H1: the row-removed factor, masked to active_m
+    // p = Lt w; M1, H1 (and G1): the row-removed factor, masked to active_m
+    const float q_closed = gamma / delta_s;
     for (int i = tid; i < K; i += THREADS) {
       float s = 0.f;
       for (int j = 0; j < K; ++j) s += Lt[(long)i * K + j] * w[j];
       p[i] = s;
+      if (fast) {  // the rss flip's entry rH after a plain removal:
+        // H1 b = actm (hv + (b.b) wd), rH = -(1 + q) H1 b; the entry
+        // recomputes it after a drop or a refresh
+        const float s1 = 1.f + q_closed;
+        rH[i] = -s1 * (actm[i] * (hv[i] + 2.f * half_bb * (w[i] / delta_s)));
+      }
       if (probe_row) {
         float t = 0.f;
         for (int j = 0; j < K; ++j) t += ZtZ[(long)i * K + j] * actm[j];
@@ -377,7 +512,14 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     for (int e = tid; e < KK; e += THREADS) {
       const int i = e / K, j = e % K;
       const float wri = w[i] / sq_delta, wrj = w[j] / sq_delta;
-      M1[e] = (M[e] + wri * wrj) * (actm[i] * actm[j]);
+      const float keep = actm[i] * actm[j];
+      M1[e] = (M[e] + wri * wrj) * keep;
+      if (fast) {
+        const float ai = w[i] / delta_s, aj = w[j] / delta_s;
+        G1[e] = (G[e] + sym2(ai, g_c(hv[j], half_bb, aj),
+                             g_c(hv[i], half_bb, ai), aj)) *
+                keep;
+      }
     }
     for (int k = 0; k < K; ++k) {
       const float wdk = w[k] / delta_s, ak = actm[k];
@@ -402,21 +544,53 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
         for (int j = 0; j < K; ++j) s += M1[(long)i * K + j] * probe[j];
         tmp[i] = fabsf(s - actm[i]);
       }
+      if (fast)  // active_m H1, into the mean buffer (free until the flip)
+        for (int d = tid; d < D; d += THREADS) {
+          float s = 0.f;
+          for (int k = 0; k < K; ++k) s += actm[k] * H1[(long)k * D + d];
+          mean[d] = s;
+        }
       __syncthreads();
       float dm = tmp[0];
       for (int k = 1; k < K; ++k)
         dm = (tmp[k] > dm || tmp[k] != tmp[k]) ? tmp[k] : dm;
       drift_ok = dm <= drift_tol;
-      __syncthreads();  // tmp is free again
+      if (fast) {
+        // ‖G1 a − H1 (a H1)‖∞ / (1 + max|G1|), a = active_m
+        rows_dot(H1, [&](int d) { return mean[d]; }, hv, K, D);
+        float gm = 0.f;
+        for (int e = tid; e < KK; e += THREADS) {
+          const float a = fabsf(G1[e]);
+          gm = (a > gm || a != a) ? a : gm;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float b = __shfl_xor_sync(0xffffffffu, gm, o);
+          gm = (b > gm || b != b) ? b : gm;
+        }
+        __syncthreads();  // tmp read by every thread; hv written
+        if ((tid & 31) == 0) red[tid >> 5] = gm;
+        for (int i = tid; i < K; i += THREADS) {
+          float s = 0.f;
+          for (int j = 0; j < K; ++j) s += G1[(long)i * K + j] * actm[j];
+          tmp[i] = fabsf(s - hv[i]);
+        }
+        __syncthreads();
+        gm = red[0];
+        for (int k = 1; k < NW; ++k)
+          gm = (red[k] > gm || red[k] != red[k]) ? red[k] : gm;
+        float dg = tmp[0];
+        for (int k = 1; k < K; ++k)
+          dg = (tmp[k] > dg || tmp[k] != tmp[k]) ? tmp[k] : dg;
+        drift_ok = drift_ok && (dg / (1.f + gm) <= drift_tol);
+      }
+      __syncthreads();  // tmp, red free again
     }
     const bool need = since >= refresh_every - 1 || !down_ok || !drift_ok;
     if (need) {  // exact refresh from the row-removed statistics
       exact_factor(ZtZ, ZtX, actm, zold, x, true, ratio, W, Y, tmp, Lt1, M1,
                    H1, K, D);
-      since = 0;
-      ++n_refresh;
-    } else {
-      ++since;
+      if (fast) gram(H1, G1, K, D);
     }
 
     // ---- bit flips: (v, q, mean) by mat-vec after a drop or a refresh,
@@ -437,23 +611,77 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       q = 0.f;
       for (int k = 0; k < K; ++k) q += z[k] * v[k];
     } else {
-      q = gamma / delta_s;
+      q = q_closed;
       for (int i = tid; i < K; i += THREADS) v[i] = w[i] / delta_s;
-      for (int d = tid; d < D; d += THREADS)
-        mean[d] = zH[d] + q * (zH[d] - x[d]);
+      if (!fast)  // the rss flip's entry is closed-form here
+        for (int d = tid; d < D; d += THREADS)
+          mean[d] = zH[d] + q * (zH[d] - x[d]);
       __syncthreads();
     }
-    collapsed_row_recurrence<THREADS>(M1, H1, x, mean, v, z, q, u, mminus,
-                                      actm, N, inv2s2, K, D, red);
+    if (fast) {
+      // entry: rss = |x - mean|^2, rH = H1 (x - mean), closed-form after
+      // a plain removal (rH written with p); the pass; exit: mean = z H1
+      float rss0;
+      if (has_drop || need) {
+        float rp = 0.f;
+        for (int d = tid; d < D; d += THREADS) {
+          const float r = x[d] - mean[d];
+          rp += r * r;
+        }
+        rows_dot(H1, [&](int d) { return x[d] - mean[d]; }, rH, K, D);
+        rss0 = block_sum<float, NW>(rp, red);  // rH visible too
+      } else {
+        const float s1 = 1.f + q;
+        rss0 = s1 * s1 * (2.f * half_bb);
+      }
+      if (!RING && stage_rec) {
+        // the pass reads a row of M1 and of G1 a bit: from shared memory
+        float* sM = reinterpret_cast<float*>(sh4);
+        float* sG = sM + KK;
+        float* sv = sG + KK;
+        float* sr = sv + K;
+        float* sz = sr + K;
+        for (int e = tid; e < KK; e += THREADS) {
+          sM[e] = M1[e];
+          sG[e] = G1[e];
+        }
+        for (int i = tid; i < K; i += THREADS) {
+          sv[i] = v[i];
+          sr[i] = rH[i];
+          sz[i] = z[i];
+        }
+        __syncthreads();
+        collapsed_row_recurrence_rss(sM, sG, sv, sr, sz, q, rss0, u, mminus,
+                                     actm, N, inv2s2, K, D, bc);
+        for (int i = tid; i < K; i += THREADS) z[i] = sz[i];
+        __syncthreads();
+      } else {
+        collapsed_row_recurrence_rss(M1, G1, v, rH, z, q, rss0, u, mminus,
+                                     actm, N, inv2s2, K, D, bc);
+      }
+      for (int d = tid; d < D; d += THREADS) {
+        float s = 0.f;
+        for (int k = 0; k < K; ++k) s += z[k] * H1[(long)k * D + d];
+        mean[d] = s;
+      }
+    } else {
+      collapsed_row_recurrence<THREADS>(M1, H1, x, mean, v, z, q, u, mminus,
+                                        actm, N, inv2s2, K, D, red);
+    }
 
-    // ---- new dishes (ref._sample_dishes)
+    // ---- new dishes (ref._sample_dishes): the canonical free capacity.
+    // The rss flip's add-back reads b_add = x - mean (= x - z2 H1: the rows
+    // of H1 at new bits are 0), kept in zH.
     float rp = 0.f;
     for (int d = tid; d < D; d += THREADS) {
       const float r = x[d] - mean[d];
       rp += r * r;
+      if (fast) zH[d] = r;
     }
     const float rss = block_sum<float, NW>(rp, red);
-    bool moved = false, mask_moved = false, any_new = false;
+    bool moved = false, mask_moved = false, any_new = false, sat = false;
+    float n_new = 0.f, j_new;
+    int top_col = -1;
     {
       const float s = 1.f + q;
       float ll[J_MAX + 1];
@@ -464,7 +692,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       }
       float n_free = 0.f;
       for (int k = 0; k < K; ++k) n_free += 1.f - fmaxf(actm[k], z[k]);
-      float j_new;
+      n_free = n_free + n_out_free;
       if (gibbs) {
         // exact truncated Gibbs: the first argmax over j <= n_free of
         // log Poisson(j; lam) + ll_j + g_j (a categorical draw); the
@@ -489,7 +717,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
         const float dll = ll[(int)jc] - ll[0];
         const bool acc = lua < dll;
         j_new = (ok && acc) ? jp : 0.f;
-        n_sat += (acc && jp <= (float)J_MAX && jp > n_free) ? 1 : 0;
+        sat = acc && jp <= (float)J_MAX && jp > n_free;
       }
       float rank = 0.f;  // running count of free slots
       for (int k = 0; k < K; ++k) {
@@ -502,13 +730,24 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
         moved |= zk2 != zold[k];
         mask_moved |= ak2 != act[k];
         any_new |= b > 0.5f;
+        n_new += b;
+        if (b > 0.5f) top_col = cols[k];
         if (k % THREADS == tid) {
           z2[k] = zk2;
           nb[k] = b;
         }
       }
     }
+    // a birth the block cannot place where the canonical rule would: stop
+    // before committing the row (block-uniform)
+    if (n_new < j_new || top_col >= min_out) {
+      ovf_row = n;
+      break;
+    }
     const bool changed = need || moved || mask_moved;
+    since = need ? 0 : since + 1;
+    n_refresh += need ? 1 : 0;
+    n_sat += sat ? 1 : 0;
     __syncthreads();  // z2, nb visible; act, m may move from here
 
     // ---- add row n back: statistics, then the factor
@@ -547,6 +786,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
             M1[e] = M1[e] + nb[i] / ratio;
           }
           Lt1[e] = l;
+          if (fast) G1[e] = G1[e] * ((1.f - nb[i]) * (1.f - nb[j]));
         }
         for (int k = 0; k < K; ++k) {
           if (nb[k] == 0.f) continue;  // a factor of exactly 1
@@ -555,22 +795,29 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
         }
         __syncthreads();
       }
-      // w2 = M1 z2, b_add = x - z2 H1
+      // w2 = M1 z2, b_add = x - z2 H1 (the rss flip's is in zH already)
       for (int i = tid; i < K; i += THREADS) {
         float s = 0.f;
         for (int j = 0; j < K; ++j) s += M1[(long)i * K + j] * z2[j];
         w2[i] = s;
       }
-      for (int d = tid; d < D; d += THREADS) {
-        float s = 0.f;
-        for (int k = 0; k < K; ++k) s += z2[k] * H1[(long)k * D + d];
-        zH[d] = x[d] - s;
-      }
+      if (!fast)
+        for (int d = tid; d < D; d += THREADS) {
+          float s = 0.f;
+          for (int k = 0; k < K; ++k) s += z2[k] * H1[(long)k * D + d];
+          zH[d] = x[d] - s;
+        }
       __syncthreads();
       for (int i = tid; i < K; i += THREADS) {
         float s = 0.f;
         for (int j = 0; j < K; ++j) s += Lt1[(long)i * K + j] * w2[j];
         pup[i] = s;
+      }
+      // G's add-back move from the pre-move H1: c = H1 b_add + (b_add .
+      // b_add)/2 a, the latter the birth move's rss
+      if (fast) {
+        rows_dot(H1, [&](int d) { return zH[d]; }, hv, K, D);
+        half_bb = 0.5f * rss;
       }
       __syncthreads();
       chol_rank1_t(Lt1, pup, 1.f, Lt, rq, K);
@@ -581,6 +828,11 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       for (int e = tid; e < KK; e += THREADS) {
         const int i = e / K, j = e % K;
         M[e] = M1[e] - (w2[i] / sq_d2) * (w2[j] / sq_d2);
+        if (fast) {
+          const float ai = w2[i] / d2, aj = w2[j] / d2;
+          G[e] = G1[e] + sym2(ai, g_c(hv[j], half_bb, aj),
+                              g_c(hv[i], half_bb, ai), aj);
+        }
       }
       for (int k = 0; k < K; ++k) {
         const float ck = w2[k] / d2;
@@ -590,11 +842,15 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       }
     }
     for (int i = tid; i < K; i += THREADS) {
-      Z[(long)n * K + i] = z2[i];
+      Z[(long)n * K_can + cols[i]] = z2[i];
       act[i] = fmaxf(actm[i], nb[i]);
       m[i] = mminus[i] * actm[i] + z2[i];
     }
     __syncthreads();  // end of the row: the carry and the stage are settled
+  }
+  if (RING) {
+    cp_async_wait<0>();  // an overflow exit leaves the next row in flight
+    __syncthreads();
   }
 
   for (int e = tid; e < KK; e += THREADS) ZtZ_io[e] = ZtZ[e];
@@ -608,6 +864,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   if (tid == 0) {
     counts[0] = n_refresh;
     counts[1] = n_sat;
+    counts[2] = ovf_row;
   }
 }
 
@@ -634,60 +891,80 @@ bool ring_fits(int device, int K, int D, size_t* bytes) {
   return *bytes + 2 * NW * sizeof(float) <= (size_t)smem_optin(device);
 }
 
-// Raise the ring kernel's dynamic shared memory limit to the device's
+// Raise the ring kernels' dynamic shared memory limit to the device's
 // opt-in, once per device, so any layout that fits may launch.
 cudaError_t allow_smem(int device) {
   static bool done[MAX_DEVICES] = {};
   const bool cached = device >= 0 && device < MAX_DEVICES;
   if (cached && done[device]) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      collapsed_scan_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_optin(device) - (int)(2 * NW * sizeof(float)));
+  const int bytes = smem_optin(device) - (int)(2 * NW * sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      collapsed_scan_kernel<true, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(collapsed_scan_kernel<true, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
   if (e == cudaSuccess && cached) done[device] = true;
   return e;
 }
 
+// The global layout's copy of M1, G1, v, rH and z for the rss pass, in
+// bytes: 0 where it would need more than the 48 KB a block gets without
+// opting in (K > 76).
+size_t rec_stage_bytes(int K) {
+  const size_t bytes = (2 * (size_t)K * K + 3 * (size_t)K) * sizeof(float);
+  return bytes + 2 * NW * sizeof(float) <= 48 * 1024 ? bytes : 0;
+}
+
 }  // namespace
 
-// Floats of global scratch the kernel needs for (K, D) on `device`: 0 when
-// the carry fits in shared memory.
+// Floats of global scratch the kernel needs for a block of K columns, D
+// wide, on `device`: 0 when the carry fits in shared memory.
 extern "C" long collapsed_scan_scratch_floats(int device, int K, int D) {
   size_t bytes;
   if (ring_fits(device, K, D, &bytes)) return 0;
   return layout(K, D, false).total;
 }
 
-// Z (n_rows,K), active (K), ZtZ (K,K), ZtX (K,D), m (K): updated in place;
-// X (n_rows,D), u_logit (n_rows,K), sx, sa (device scalars): read; births
-// by MH from j_prop, log_u_acc (n_rows) when gibbs is 0, else by Gibbs
-// from gumbel (n_rows, J_MAX+1) and alpha (a device scalar), the other
-// pair unread (may be null); counts (2 int32): n_refresh, n_sat; scratch:
+// Z (n_rows,K_can): updated in place at the block's columns; active (K),
+// ZtZ (K,K), ZtX (K,D), m (K): the block's statistics, updated in place;
+// X (n_rows,D), u_logit (n_rows,K_can), sx, sa (device scalars): read;
+// cols (K int64, ascending): the block's canonical columns; rows
+// start_row..n_rows-1 are scanned; births by MH from j_prop, log_u_acc
+// (n_rows) when gibbs is 0, else by Gibbs from gumbel (n_rows, J_MAX+1)
+// and alpha (a device scalar), the other pair unread (may be null); the
+// flip in mean form (fast 0) or in rss form with the carried G (fast 1);
+// counts (3 int32): n_refresh, n_sat, ovf_row; scratch:
 // collapsed_scan_scratch_floats(device, K, D) floats. Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int collapsed_scan_launch(
     int device, float* Z, float* active, float* ZtZ, float* ZtX, float* m,
     const float* X, const float* u_logit, const float* j_prop,
     const float* log_u_acc, const float* gumbel, const float* sx,
-    const float* sa, const float* alpha, int* counts, float* scratch,
-    int n_rows, int K, int D, float N, int refresh_every, float drift_tol,
-    int gibbs, void* stream_) {
+    const float* sa, const float* alpha, const long long* cols, int* counts,
+    float* scratch, int n_rows, int K_can, int K, int D, int start_row,
+    float N, int refresh_every, float drift_tol, int gibbs, int fast,
+    void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   size_t bytes;
-  if (ring_fits(device, K, D, &bytes)) {
+  const bool ring = ring_fits(device, K, D, &bytes);
+  if (ring) {
     e = allow_smem(device);
     if (e != cudaSuccess) return (int)e;
-    collapsed_scan_kernel<true><<<1, THREADS, bytes, stream>>>(
-        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
-        alpha, counts, nullptr, n_rows, K, D, N, refresh_every, drift_tol,
-        gibbs != 0);
   } else {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    collapsed_scan_kernel<false><<<1, THREADS, 0, stream>>>(
-        Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
-        alpha, counts, scratch, n_rows, K, D, N, refresh_every, drift_tol,
-        gibbs != 0);
+    bytes = fast ? rec_stage_bytes(K) : 0;
   }
+  auto kernel = ring ? (fast ? collapsed_scan_kernel<true, true>
+                             : collapsed_scan_kernel<true, false>)
+                     : (fast ? collapsed_scan_kernel<false, true>
+                             : collapsed_scan_kernel<false, false>);
+  kernel<<<1, THREADS, bytes, stream>>>(
+      Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
+      alpha, cols, counts, ring ? nullptr : scratch, n_rows, K_can, K, D,
+      start_row, N, refresh_every, drift_tol, gibbs != 0, bytes > 0);
   return (int)cudaGetLastError();
 }

@@ -45,10 +45,18 @@ def main(argv=None):
     ap.add_argument("--collapsed-backend", default="fast",
                     choices=["ref", "fast", "pallas"],
                     help="tail collapsed row step (default: fast — the "
-                         "rank-one Cholesky carry; fast is an alias of "
-                         "pallas, one collapsed_scan launch per tail "
-                         "sub-iteration on the card). ref keeps the "
-                         "fresh O(K^3) factorization per row")
+                         "rank-one Cholesky carry with the rss bit flip "
+                         "and the carried G = HH^T; pallas: the same "
+                         "carry with the mean-form flip; each is one "
+                         "collapsed_scan launch per tail sub-iteration on "
+                         "the card). ref keeps the fresh O(K^3) "
+                         "factorization per row")
+    ap.add_argument("--k-live-buckets", default="on", choices=["on", "off"],
+                    help="occupancy-adaptive packing of the collapsed "
+                         "carry (DESIGN.md §14); kept in the spec for "
+                         "parity with the reference and inert here: the "
+                         "hybrid tail runs the same float path at the "
+                         "full K_tail width either way")
     ap.add_argument("--chol-refresh", type=int, default=DEFAULT_REFRESH,
                     help="exact-refactorization cadence of the tail's "
                          "collapsed carry (rows between refreshes)")
@@ -66,6 +74,7 @@ def main(argv=None):
         ckpt_dir=args.ckpt_dir, seed=args.seed,
         collapsed_backend=args.collapsed_backend,
         chol_refresh=args.chol_refresh, k_tail_grow=args.k_tail_grow,
+        k_live_buckets=args.k_live_buckets,
     )
     drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval,
                      device=args.device)

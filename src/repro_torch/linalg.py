@@ -132,3 +132,45 @@ def chol_rank1_downdate(L: Tensor, x: Tensor,
     p = torch.linalg.solve_triangular(L, x[:, None], upper=False)[:, 0]
     Lt, ok = chol_rank1_downdate_t(L.T, p, eps)
     return Lt.T, ok
+
+
+def g_rank1(G: Tensor, H: Tensor, a: Tensor, b: Tensor,
+            hb: Tensor | None = None, bb: Tensor | None = None) -> Tensor:
+    """Move G = H Hᵀ through the rank-one map move H' = H + a bᵀ.
+
+    G' = G + a(Hb)ᵀ + (Hb)aᵀ + (b·b) a aᵀ, a symmetric rank-two
+    correction costing O(K² + KD) instead of the O(K²D) recompute.
+    ``H`` is the PRE-move map. Evaluated as a cᵀ + c aᵀ with c = Hb +
+    (b·b)/2 · a, so the result is exactly symmetric whenever G is
+    (a_i c_j + c_i a_j is commutative in float): the rss flip reads rows
+    of G as columns. A padded slot j has H[j] = 0 and a_j = 0, so row and
+    column j of every correction term are exactly 0. ``hb`` = H b and
+    ``bb`` = b·b, where the caller has them, are used as given.
+    """
+    hb = H @ b if hb is None else hb
+    bb = torch.dot(b, b) if bb is None else bb
+    c = hb + (0.5 * bb) * a
+    return G + (torch.outer(a, c) + torch.outer(c, a))
+
+
+def block_select(active: Tensor, B: int) -> tuple[Tensor, Tensor]:
+    """Canonical columns of the packed block of ``B`` columns, ascending:
+    every live column plus the lowest-index free slots, so that visiting
+    the block in order visits live columns in canonical order, and a
+    birth placed in the block's first free slots lands where the
+    canonical first-free-slot rule puts it as long as it stays below
+    ``min_out``, the smallest out-of-block index (every out-of-block slot
+    is free). Needs sum(active) <= B. Returns (cols (B,) int64, min_out
+    () int64, K when the block covers every column), both on
+    ``active``'s device and with no host sync.
+    """
+    K = active.shape[0]
+    free = 1.0 - active
+    free_rank = torch.cumsum(free, 0) * free
+    n_live = torch.sum(active)
+    sel = (active > 0.5) | ((free_rank >= 1.0) & (free_rank <= B - n_live))
+    # the selected indices first, each group in ascending order
+    cols = torch.argsort((~sel).to(torch.int8), stable=True)[:B]
+    idx = torch.arange(K, device=active.device)
+    min_out = torch.min(torch.where(sel, K, idx))
+    return cols, min_out

@@ -49,8 +49,7 @@ DRIVERS = ("vmap", "multichain", "shardmap", "mesh")
 SWEEP_BACKENDS = ("jnp", "pallas")
 SYNC_MODES = ("staged", "fused")
 # the DriverConfig values the port runs; other valid values are refused
-_PORTED = {"driver": ("vmap",), "n_chains": (1,), "sync": ("staged",),
-           "k_live_buckets": ("on",)}
+_PORTED = {"driver": ("vmap",), "n_chains": (1,), "sync": ("staged",)}
 
 
 @dataclasses.dataclass
@@ -60,8 +59,7 @@ class DriverConfig:
     defaults, so ``DriverConfig()`` builds.
 
     Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
-    device chooses the kernels), ``k_live_buckets="on"``,
-    ``sync="staged"``, ``n_chains=1`` with
+    device chooses the kernels), ``sync="staged"``, ``n_chains=1`` with
     ``driver="vmap"``, ``harvest_burn`` and ``bank_path`` (read only
     when harvesting). A value that selects work the port has not ported
     raises ``NotImplementedError`` naming its ROADMAP item; a value the
@@ -118,6 +116,7 @@ class DriverConfig:
             sigma_a=self.sigma_a, L=self.L,
             collapsed_backend=self.collapsed_backend,
             chol_refresh=self.chol_refresh,
+            k_live_buckets=self.k_live_buckets,
             stale_sync=self.stale_sync, n_iters=self.n_iters,
             eval_every=self.eval_every, ckpt_every=self.ckpt_every,
             ckpt_dir=self.ckpt_dir, overflow_every=self.overflow_every,

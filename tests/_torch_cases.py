@@ -207,3 +207,20 @@ def scan_divergence(case, Z_plain, Z_kernel, state_at, sx, sa, N,
     dll = ll(zz, j * (sa / sx) ** 2) - ll(zz)
     lu = case["log_u_acc"][n]
     return n, "birth", abs(dll - lu), lu
+
+
+def packed_scan_case(n_rows, K_can, D, width, seed=0, lam=0.1, alpha=None):
+    """``scan_case`` at ``width`` columns spread over ``K_can`` canonical
+    ones (at sorted random indices), with canonical uniforms: the input
+    of a scan on a packed block of those columns and the rest free."""
+    case = scan_case(n_rows, width, D, seed=seed, lam=lam, alpha=alpha)
+    rng = np.random.default_rng(seed + 1)
+    at = np.sort(rng.choice(K_can, size=width, replace=False))
+    Z = np.zeros((n_rows, K_can), np.float32)
+    Z[:, at] = case["Z"]
+    uu = np.clip(rng.random((n_rows, K_can)), 1e-7, 1.0 - 1e-7)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    case.update(Z=Z, active=(Z.sum(0) > 0).astype(np.float32),
+                ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ case["X"]), m=f32(Z.sum(0)),
+                u_logit=f32(np.log(uu) - np.log1p(-uu)))
+    return case

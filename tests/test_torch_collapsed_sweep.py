@@ -19,9 +19,9 @@
   burned; the stationary means of K+, sigma_x and alpha agree within
   |z| < 4 of ``convergence.mean_diff_z`` (MCSE across chains), for the
   port's ``"pallas"`` and ``"ref"`` backends.
-* The knobs: what is not ported raises naming its ROADMAP item, what the
-  reference rejects raises ``ValueError``, and the hybrid sampler steps
-  with ``collapsed_backend="ref"``.
+* The knobs: ``k_live_buckets="on"`` runs for both carried backends,
+  what the reference rejects raises ``ValueError``, and the hybrid
+  sampler steps with ``collapsed_backend="ref"``.
 """
 import dataclasses
 
@@ -199,11 +199,9 @@ def test_knobs_not_ported_or_rejected():
     st = state_from_reference(_np_fields(jax_init_state(
         jax.random.key(0), 20, 36, K_max=4, K_init=1)), device="cpu")
     Xt = torch.from_numpy(X)
-    for backend in ("pallas", "fast"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 7c"):
-            collapsed_sweep(st, Xt, IBPHypers(), backend=backend,
-                            k_live_buckets="on")
+    for backend in ("pallas", "fast"):  # the packed carry is ported
+        assert int(collapsed_sweep(st, Xt, IBPHypers(), backend=backend,
+                                   k_live_buckets="on").it) == 1
     for kw in (dict(backend="bogus"), dict(k_live_buckets="maybe")):
         with pytest.raises(ValueError):
             collapsed_sweep(st, Xt, IBPHypers(), **kw)

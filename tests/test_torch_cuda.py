@@ -29,6 +29,7 @@ from _torch_cases import (
     collapsed_row_margin,
     gibbs_margin,
     gibbs_planted_case,
+    packed_scan_case,
     scan_case,
     scan_divergence,
 )
@@ -182,9 +183,10 @@ def test_gaussian_sse_kernel_matches_plain(cuda, N, D, K, dtype):
 SCAN_SX, SCAN_SA = 0.5, 1.0
 
 
-def _scan(fn, case, dev, n_rows=None, refresh=16):
+def _scan(fn, case, dev, n_rows=None, refresh=16, **kw):
     """One scan of ``case`` by ``fn`` (the kernel or the plain version),
-    with Gibbs births where the case has Gumbel noise."""
+    with Gibbs births where the case has Gumbel noise; ``kw`` (flavor,
+    B) is passed on."""
     rows = slice(None, n_rows)
     t = {k: torch.tensor(v[rows] if k in ("Z", "X", "u_logit", "j_prop",
                                            "log_u_acc", "gumbel") else v,
@@ -195,7 +197,8 @@ def _scan(fn, case, dev, n_rows=None, refresh=16):
                 t["u_logit"], t["j_prop"], t["log_u_acc"],
                 torch.tensor(SCAN_SX, device=dev),
                 torch.tensor(SCAN_SA, device=dev), N=N, refresh_every=refresh,
-                drift_tol=1e-2, gumbel=t.get("gumbel"), alpha=t.get("alpha"))
+                drift_tol=1e-2, gumbel=t.get("gumbel"), alpha=t.get("alpha"),
+                **kw)
     out = {k: t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX", "m")}
     return out, counts.cpu().numpy()
 
@@ -267,3 +270,90 @@ def test_collapsed_scan_gibbs_kernel_matches_plain(cuda, n_rows, K, D, alpha):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
     assert cg[0] == cw[0]  # refreshes
+
+
+def _hold_packed(case, dev, **kw):
+    """The packed kernel against its plain version on ``case`` with the
+    scan's ``kw`` (flavor, B, start_row): two launches bitwise equal; the
+    two scans first differ only at a float-boundary event, else Z, the
+    mask, m and ZtZ equal, ZtX close and the counts (refreshes, n_sat,
+    ovf_row) equal. Returns the plain scan's (out, counts)."""
+    got, cg = _scan(collapsed_scan, case, dev, **kw)
+    again, ca = _scan(collapsed_scan, case, dev, **kw)
+    for k in got:  # two launches bitwise equal
+        np.testing.assert_array_equal(got[k], again[k], err_msg=k)
+    np.testing.assert_array_equal(cg, ca)
+    want, cw = _scan(collapsed_scan_ref, case, dev, **kw)
+    n_rows = case["X"].shape[0]
+    ev = scan_divergence(
+        case, want["Z"], got["Z"],
+        lambda n: (_scan(collapsed_scan_ref, case, dev, n, **kw)[0][k]
+                   for k in ("active", "m")),
+        SCAN_SX, SCAN_SA, 4.0 * n_rows)
+    if ev is not None:
+        n, what, margin, u = ev
+        assert margin < 1e-3 * (1.0 + abs(u)), (
+            f"scans diverge at row {n} ({what}) away from a float boundary: "
+            f"margin {margin}")
+        print(f"float-boundary event at row {n} ({what}), margin {margin}")
+        np.testing.assert_array_equal(got["Z"][:n], want["Z"][:n])
+        return want, cw  # the scans follow different chains from there
+    for k in ("Z", "active", "m", "ZtZ"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(cg, cw)  # refreshes, n_sat, ovf_row
+    return want, cw
+
+
+# the packed carry: the rss flip with the carried G (flavor "fast") and
+# the mean form ("pallas"), on a block of B of K_can columns. K=8 MH is
+# the hybrid tail; the buckets 16 (shared memory) and 32 (global memory)
+# of K_can=64 run Gibbs births with the other columns out of the block;
+# in the last case the block has 2 free slots for the case's 3 births, so
+# the scan stops at the overflowing row (ovf_row equal to the plain scan's)
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["fast", "pallas"])
+@pytest.mark.parametrize("n_rows,K_can,D,width,B,gibbs,ovf", [
+    (512, 8, 1024, 8, 8, False, False), (600, 8, 36, 8, 8, False, False),
+    (512, 64, 1024, 24, 16, True, False), (256, 64, 1024, 48, 32, True, False),
+    (512, 64, 36, 24, 16, True, False), (512, 64, 1024, 39, 16, True, True)])
+def test_collapsed_scan_packed_kernel_matches_plain(cuda, flavor, n_rows,
+                                                    K_can, D, width, B,
+                                                    gibbs, ovf):
+    case = packed_scan_case(n_rows, K_can, D, width, seed=K_can + D + B,
+                            alpha=3.0 if gibbs else None)
+    kw = dict(flavor=flavor, B=B)
+    want, cw = _hold_packed(case, cuda, **kw)
+    if ovf:
+        assert cw[2] >= 0  # built to overflow
+    else:
+        assert cw[0] > 0 and cw[2] == -1  # refreshes, no overflow
+    out_of_block = np.ones(K_can, bool)
+    out_of_block[np.argsort(case["active"] < 0.5, kind="stable")[:B]] = False
+    assert not want["Z"][:, out_of_block].any()  # nothing left the block
+
+
+# a resumed segment (start_row > 0): the ring's stage index, its first
+# prefetch at start_row and the drain at the exit, at an odd start row
+# on the tail's K=8 and on buckets 16 (shared memory) and 32 (global
+# memory) of K_can=64; and the resume after an overflow, as the packed
+# sweep runs it: the plain scan at B=16 stops at ovf_row, and from its
+# state both scans go on from that row at B=32
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["fast", "pallas"])
+@pytest.mark.parametrize("n_rows,K_can,D,width,B,gibbs,start", [
+    (512, 8, 1024, 8, 8, False, 129), (512, 64, 1024, 24, 16, True, 77),
+    (256, 64, 1024, 48, 32, True, 33), (512, 64, 1024, 39, 32, True, None)])
+def test_collapsed_scan_packed_kernel_resumes(cuda, flavor, n_rows, K_can, D,
+                                              width, B, gibbs, start):
+    seed = K_can + D + (16 if start is None else B)
+    case = packed_scan_case(n_rows, K_can, D, width, seed=seed,
+                            alpha=3.0 if gibbs else None)
+    if start is None:  # the overflow case of the test above
+        st, c = _scan(collapsed_scan_ref, case, cuda, flavor=flavor, B=16)
+        start = int(c[2])
+        assert start > 0 and st["active"].sum() <= B
+        case = dict(case, **st)
+    want, cw = _hold_packed(case, cuda, flavor=flavor, B=B, start_row=start)
+    assert cw[2] == -1  # reached the last row
+    np.testing.assert_array_equal(want["Z"][:start], case["Z"][:start])

@@ -276,7 +276,7 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
               ckpt_dir=str(tmp_path), eval_every=5, seed=9, alpha=2.5,
               sigma_x=0.7, sigma_a=1.3, K_init=2, backend="pallas",
               overflow_every=3, k_tail_grow=2, collapsed_backend="pallas",
-              chol_refresh=16)
+              chol_refresh=16, k_live_buckets="off")
     for cfg_kw in ({}, kw):
         ref = JConfig(**cfg_kw).to_spec()
         spec = DriverConfig(**cfg_kw).to_spec()
@@ -296,9 +296,7 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     (dict(driver="multichain", n_chains=4), "item 8"),
     (dict(driver="shardmap"), "item 8"), (dict(driver="mesh"), "item 8"),
     (dict(n_chains=2), "item 8"), (dict(sync="fused"), "item 8"),
-    (dict(stale_sync=1), "item 8"),
-    (dict(k_live_buckets="off"), "item 7c"), (dict(harvest_every=5),
-                                              "item 9")])
+    (dict(stale_sync=1), "item 8"), (dict(harvest_every=5), "item 9")])
 def test_driver_config_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         DriverConfig(**kw).to_spec()
