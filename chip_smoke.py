@@ -23,10 +23,11 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 10.) The kernel that carries each TPU
+6. (Checked last, after phase 11.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
-   inside collapsed_scan) had its launch counter rise in phases 4 and 5,
-   and collapsed_scan and feature_stats theirs in phases 9 and 10.
+   inside collapsed_scan) had its launch counter rise in phases 4, 5 and
+   11 (gibbs_flip there also through the naive scorer), and
+   collapsed_scan and feature_stats theirs in phases 9 and 10.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
    checkpoint every iteration, run to iteration 6 with tail saturation
@@ -62,10 +63,29 @@ Phases, each of which raises on failure (exit code non-zero):
    seg_log), 3 timed, one profiled, and "off" against "on" from the same
    final state; "off" against "on" from a state whose K+ stays below
    K_max (20 planted columns, sigma_x at the data's noise); phase 5's
-   iteration and tail re-timed under each collapsed backend.
+   iteration and tail re-timed under each collapsed backend. The
+   overflow exit is timed on fresh copies of its case, its bound counted
+   over the rows it scanned.
+11. Posterior-predictive serving at phase 5's widths: MCMCDriver with
+   harvest_every=1, harvest_burn=0.2 for 20 iterations (S=16 samples;
+   the bank's K bucket, each sample's K+, the harvest's host seconds per
+   iteration; the saved npz loaded back equal bitwise); the batched
+   scorer on 256 held-out rows, card against CPU on the same pre-drawn
+   uniforms, unmasked and masked (a differing Z bit only at a
+   float-boundary event, |logit - u| < 1e-4); encode (64 sweeps) against
+   exact_posterior on a bank of 12 planted features (bucket 16, D=1024,
+   8 rows, tolerance 4 x 0.5 / sqrt(32)); serve_ibp.serve for each op on
+   64 requests of 1-48 held-out rows (rows/s, p50 and p95 latency,
+   warm-up, launches and device busy share of a 256-row dispatch, peak
+   memory); predictive_loglik_naive against predictive_loglik on 256
+   rows, and gibbs_flip at the naive scorer's shape against its plain
+   version; the mcmc CLI with --harvest-every and serve_ibp --smoke as
+   subprocesses.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-per-kernel JSON. Run from the root of a checkout: python3 chip_smoke.py
+per-kernel JSON, and before that the card's name and power limit and the
+script's total wall time. Run from the root of a checkout: python3
+chip_smoke.py
 """
 from __future__ import annotations
 
@@ -130,6 +150,17 @@ OFF = dict(backend="pallas", k_live_buckets="off")
 # 5's iteration and tail under each collapsed backend
 PACKED = dict(rows=1024, K_can=64, tail_K=8, buckets=(16, 32), K_max=64,
               K_init=4, alpha=3.0, warm=1, sweeps=3, iters=3)
+# phase 11: posterior-predictive serving at phase 5's widths: a harvest of
+# 20 iterations from iteration 5 (S=16); the batched scorer held on
+# hold_rows held-out rows, card against CPU; encode against the 2^12
+# enumeration (12 planted features of norm ~1.6 at sigma_x 1, so that the
+# posterior is not degenerate); the serving loop at the CLI's defaults,
+# on the harvested bank and, for loglik, on a bank of the planted model
+# (K bucket 32: the harvest's 20 iterations stop short of the data's K+)
+SERVING = dict(iters=20, harvest_every=1, harvest_burn=0.2, hold_rows=256,
+               n_sweeps=3, missing=0.25, enum_K=12, enum_rows=8,
+               enum_sweeps=64, enum_scale=0.05, enum_sigma=1.0, requests=64,
+               max_request=48, batch=256, naive_reps=3, planted_S=16)
 
 
 def log(msg: str) -> None:
@@ -1302,9 +1333,12 @@ def packed_case(data: tuple, K_can: int, modeled: int, unexplained: int,
 
 def packed_variant(dev, data: tuple, K_can: int, modeled: int,
                    unexplained: int, seed: int, gibbs: bool, flavor: str,
-                   B: int, timed_too: bool = True) -> dict:
+                   B: int) -> dict:
     """``hold_scan`` on a ``packed_case`` at block ``B`` with ``flavor``,
-    then (``timed_too``) the kernel's times beside its bound."""
+    then the kernel's times beside its bound: scanning on from its own
+    output, or, where a birth overflowed the block, from a fresh copy of
+    the case each call (the rows up to ``ovf_row`` are the work, the
+    copy is not a kernel)."""
     from repro_torch.kernels.collapsed_scan import collapsed_scan
 
     sx, sa, N = 0.5, 1.0, float(FULL["N"])
@@ -1318,14 +1352,17 @@ def packed_variant(dev, data: tuple, K_can: int, modeled: int,
     out = dict(shape=f"rows={R} B={B} of K_can={K_can} D={D} {flavor}"
                f"{' gibbs' if gibbs else ' mh'}", flavor=flavor, B=B,
                live_in=float(case["active"].sum()), **rep)
-    if timed_too:
-        b, by = scan_bound_ms(R, B, D, rep["k_live"], gibbs,
-                              fast=flavor == "fast")
-        t = tensors()  # timed scanning on from its own output
-        out.update(**timed(lambda: run(collapsed_scan, t),
-                           ("collapsed_scan_kernel",)), bound_ms=b,
-                   bound_by=by)
-        out["ms_per_row"] = out["ms"] / R
+    rows = rep["ovf_row"] + 1 if rep["ovf_row"] >= 0 else R
+    b, by = scan_bound_ms(rows, B, D, rep["k_live"], gibbs,
+                          fast=flavor == "fast")
+    if rep["ovf_row"] >= 0:
+        fn = lambda: run(collapsed_scan, tensors())  # noqa: E731
+    else:
+        t = tensors()
+        fn = lambda: run(collapsed_scan, t)  # noqa: E731
+    out.update(**timed(fn, ("collapsed_scan_kernel",)), bound_ms=b,
+               bound_by=by, rows_scanned=rows)
+    out["ms_per_row"] = out["ms"] / rows
     return out
 
 
@@ -1344,8 +1381,7 @@ def check_packed_scan(dev, data: tuple) -> list[dict]:
         for flavor in ("fast", "pallas"):
             out.append(packed_variant(dev, data, c["K_can"], modeled, 2,
                                       42 + B, True, flavor, B))
-    ovf = packed_variant(dev, data, c["K_can"], 13, 3, 43, True, "fast", 16,
-                         timed_too=False)
+    ovf = packed_variant(dev, data, c["K_can"], 13, 3, 43, True, "fast", 16)
     if ovf["plain_ovf_row"] < 0 or ovf["ovf_row"] != ovf["plain_ovf_row"]:
         raise AssertionError(f"packed: the forced overflow reported ovf_row "
                              f"{ovf['ovf_row']}, the plain scan "
@@ -1491,8 +1527,9 @@ def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
 
 def profile_call(fn) -> dict:
     """torch.profiler over one call of ``fn``: its wall time (ended by a
-    device sync), the device's busy share of it, and the device time of
-    its kernels by name (the six longest)."""
+    device sync), the device's busy share of it, the device time of its
+    kernels by name (the six longest) and the count of kernels it
+    launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1509,6 +1546,7 @@ def profile_call(fn) -> dict:
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(wall_s=wall, busy_share=busy / wall,
+                kernels=len(kernel_events(p)),
                 top_kernels_us=[(n, round(us, 1)) for n, us in top])
 
 
@@ -1560,8 +1598,362 @@ def profile_tail(X_p, Z_p, gs, N_g: float, g, K_tail: int,
                 top_kernels_us=[(n, round(us, 1)) for n, us in top])
 
 
+# --------------------------------------------------------------------------
+# phase 11: posterior-predictive serving
+# --------------------------------------------------------------------------
+
+
+def run_harvest(tmp: Path, data: tuple) -> tuple[dict, dict, object]:
+    """Phase 11's harvest: MCMCDriver at phase 5's widths with
+    ``harvest_every=1`` and ``harvest_burn=0.2`` for SERVING["iters"]
+    iterations. The harvest's host work (``add_state``: the copy of the
+    state and the live block's factor; ``save_bank``) is timed after a
+    device sync, so that it does not include the iteration it waits for.
+    Then the saved npz, loaded, must equal the built bank bitwise.
+    Returns (results, kernel launches of the run, the bank)."""
+    import torch
+
+    from repro_torch.core.ibp import IBPHypers, SampleBank, SamplerSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import MCMCDriver
+
+    f, c = FULL, SERVING
+    X_train, X_eval = data[:2]
+    spec = SamplerSpec(P=f["P"], K_max=f["K_max"], K_tail=f["K_tail"],
+                       L=f["L"], n_iters=c["iters"], eval_every=c["iters"],
+                       ckpt_every=c["iters"], ckpt_dir=str(tmp / "serve_ckpt"),
+                       harvest_every=c["harvest_every"],
+                       harvest_burn=c["harvest_burn"],
+                       bank_path=str(tmp / "bank.npz"))
+    drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval, device="cuda")
+    host = {"add_state": [], "save_bank": []}
+
+    def timed_host(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    drv.bank_builder.add_state = timed_host("add_state",
+                                            drv.bank_builder.add_state)
+    drv.save_bank = timed_host("save_bank", drv.save_bank)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    drv.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = launch_counts()
+    bank = drv.bank
+    S_want = c["iters"] - int(c["harvest_burn"] * c["iters"])
+    if bank.S != S_want or len(host["add_state"]) != S_want:
+        raise AssertionError(f"harvest: S={bank.S}, expected {S_want}")
+    back = SampleBank.load(spec.bank_path, device="cuda")
+    for fld in dataclasses.fields(SampleBank):
+        a, b = getattr(bank, fld.name), getattr(back, fld.name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"harvest: the loaded bank's {fld.name} "
+                                 f"differs from the built one")
+    rec = drv.history[-1]
+    if not (math.isfinite(rec["joint_ll_eval"]) and 1 <= rec["K"]):
+        raise AssertionError(f"harvest record out of range: {rec}")
+    harvest_s = sum(host["add_state"]) + sum(host["save_bank"])
+    return dict(
+        iters=c["iters"], S=bank.S, K_bucket=bank.K, D=bank.D,
+        K_plus=[int(v) for v in bank.active.sum(1).tolist()],
+        its=bank.it.tolist(), seconds_per_iteration=t_run / c["iters"],
+        harvest_seconds_per_iteration=harvest_s / c["iters"],
+        add_state_seconds=host["add_state"],
+        save_bank_seconds=host["save_bank"], loaded_bank_equal=True,
+        K=rec["K"], sigma_x=rec["sigma_x"],
+        joint_ll_eval=rec["joint_ll_eval"]), counts, bank
+
+
+def hold_scorer(bank, X_np, mask_np, seed: int) -> dict:
+    """The batched scorer on the card against the same call on the CPU:
+    the same bank, rows, mask and pre-drawn uniforms. A (sample, row)
+    chain whose draws differ must hold a float-boundary event (|logit -
+    u| or |y - 1/2| < 1e-4, ``scorer_divergence``); on the others probs
+    within 1e-4 and row log-likelihoods within 1e-5 relative."""
+    import numpy as np
+    import torch
+    from _torch_cases import scorer_divergence
+
+    from repro_torch.core.ibp import predict
+
+    c = SERVING
+    n_sw, B = c["n_sweeps"], X_np.shape[0]
+    rng = np.random.default_rng(seed)
+    u = rng.random((bank.S, n_sw, bank.K, B), dtype=np.float32)
+    cpu = dataclasses.replace(bank, **{f.name: getattr(bank, f.name).cpu()
+                                       for f in dataclasses.fields(bank)})
+    out = {}
+    t = {}
+    for name, b in (("cuda", bank), ("cpu", cpu)):
+        dev = b.A.device
+        args = [None if a is None else torch.from_numpy(a).to(dev)
+                for a in (X_np, mask_np, u)]
+        if name == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = predict._score_bank(b, *args, n_sw, n_sw // 2)
+        out[name] = [r.cpu().numpy() for r in res]
+        t[name] = time.perf_counter() - t0
+    (pg, Zg, lg), (pc, Zc, lc) = out["cuda"], out["cpu"]
+    fields = {f: getattr(cpu, f).numpy() for f in
+              ("A", "pi", "active", "sigma_x", "chol_f")}
+    events, n_bits = scorer_divergence(fields, X_np, mask_np, u, n_sw, Zc, Zg)
+    same = np.ones(lc.shape, bool)
+    for s, b_, _ in events:
+        same[s, b_] = False
+    dprob = float(np.abs(pg[same] - pc[same]).max())
+    drel = float((np.abs(lg[same] - lc[same]) / np.abs(lc[same])).max())
+    if not (dprob <= 1e-4 and drel <= 1e-5):
+        raise AssertionError(f"scorer hold: max |dprobs| {dprob} (tol 1e-4), "
+                             f"max rel |dll| {drel} (tol 1e-5)")
+    return dict(rows=B, masked=mask_np is not None, bits_differing=n_bits,
+                boundary_events=[dict(sample=s, row=r, margin=m)
+                                 for s, r, m in events],
+                decisions=int(bank.active.sum()) * B * n_sw,
+                max_abs_dprobs=dprob, dprobs_tol=1e-4,
+                max_rel_dll=drel, dll_rel_tol=1e-5,
+                card_seconds=t["cuda"], cpu_seconds=t["cpu"])
+
+
+def check_enumeration(dev) -> dict:
+    """encode with SERVING["enum_sweeps"] sweeps against exact_posterior's
+    marginals on the card, for a bank of one sample of 12 planted
+    features at D=1024 (bucket 16). exact_posterior runs on the sample's
+    live block (its first 12 rows of A, pi and active): its 2^K
+    enumeration holds a (2^K, B, D) temporary (134 MB at K=12, B=8,
+    D=1024). The RB estimate averages 32 kept conditional probabilities
+    in [0, 1]: its standard error is at most 0.5 / sqrt(32) = 0.088, and
+    the tolerance is 4 of them."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import predict
+
+    c = SERVING
+    K, D, B = c["enum_K"], FULL["D"], c["enum_rows"]
+    rng = np.random.default_rng(61)
+    A = np.zeros((FULL["K_max"], D), np.float32)
+    A[:K] = c["enum_scale"] * rng.standard_normal((K, D))
+    act = (np.arange(FULL["K_max"]) < K).astype(np.float32)
+    bb = predict.BankBuilder(FULL["K_max"])
+    bb.add(A, 0.3 * act, act, c["enum_sigma"], 1.0, 2.0)
+    bank = bb.build(dev)
+    Z = (rng.random((B, K)) < 0.3).astype(np.float32)
+    X = (Z @ A[:K] + c["enum_sigma"] * rng.standard_normal((B, D))).astype(
+        np.float32)
+    probs = predict.encode(bank, X, prng.key(62), n_sweeps=c["enum_sweeps"])
+    marg, _, _ = predict.exact_posterior(bank.A[0, :K], bank.pi[0, :K],
+                                         bank.active[0, :K],
+                                         bank.sigma_x[0], X)
+    kept = c["enum_sweeps"] - c["enum_sweeps"] // 2
+    tol = 4 * 0.5 / math.sqrt(kept)
+    err = (probs[0, :, :K] - marg).abs()
+    dead = float(probs[0, :, K:].abs().max())
+    if not (float(err.max()) < tol and dead == 0.0):
+        raise AssertionError(f"encode vs exact_posterior: max err "
+                             f"{float(err.max())} (tol {tol}), dead "
+                             f"columns {dead}")
+    return dict(K_bucket=bank.K, K_live=K, D=D, rows=B,
+                n_sweeps=c["enum_sweeps"], kept_sweeps=kept,
+                max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+                tol=tol, marginal_range=[float(marg.min()),
+                                         float(marg.max())])
+
+
+def serve_ops(bank, X_eval, ops: tuple[str, ...]) -> dict:
+    """serve_ibp.serve once for each of ``ops`` on SERVING["requests"]
+    requests of 1..max_request held-out planted rows (impute with 25% of
+    each row missing), at the CLI's batch and n_sweeps; then three
+    full-batch dispatches of the op under torch.profiler (kernels per
+    dispatch, the device's busy share), and its peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.launch import serve_ibp
+
+    c = SERVING
+    out = {}
+    Xb = X_eval[:c["batch"]]
+    for i, op in enumerate(ops):
+        reqs = serve_ibp.synth_requests(
+            c["requests"], c["max_request"], bank.D, seed=70 + i,
+            missing=c["missing"] if op == "impute" else 0.0, X=X_eval)
+        torch.cuda.reset_peak_memory_stats()
+        responses, stats = serve_ibp.serve(bank, reqs, op, c["batch"],
+                                           c["n_sweeps"], seed=80 + i)
+        peak = torch.cuda.max_memory_allocated()
+        for (rows, _), resp in zip(reqs, responses):
+            n = resp.shape[-2] if op == "encode" else resp.shape[0]
+            if n != rows.shape[0] or not np.all(np.isfinite(resp)):
+                raise AssertionError(f"serve {op}: bad response")
+        fn = serve_ibp.make_op(bank, op, c["n_sweeps"])
+        mask = (np.random.default_rng(90).random(Xb.shape) >= (
+            c["missing"] if op == "impute" else 0.0)).astype(np.float32)
+        prof = profile_call(lambda: [fn(Xb, mask, prng.key(91 + j))
+                                     for j in range(3)])
+        out[op] = dict(stats, max_memory_allocated=peak,
+                       dispatch_rows=c["batch"],
+                       launches_per_dispatch=prof["kernels"] / 3,
+                       dispatch_wall_s=prof["wall_s"] / 3,
+                       dispatch_busy_share=prof["busy_share"],
+                       dispatch_top_kernels_us=prof["top_kernels_us"])
+    return out
+
+
+def naive_vs_batched(bank, X_eval) -> tuple[dict, dict, dict]:
+    """predictive_loglik_naive (a loop over the S samples, n_sweeps of
+    uncollapsed_sweep each: S x n_sweeps gibbs_flip launches) against
+    predictive_loglik on the same bank and rows, host clock ended by the
+    fetch of the result, medians of SERVING["naive_reps"] calls; then the
+    sweep kernel at the naive scorer's shape (rows from Z=0 at the bank's
+    K bucket) against its plain version. Returns (results, the naive
+    call's launches, the kernel variant)."""
+    import statistics as st_
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp import predict
+    from repro_torch.core.ibp.sweeps import _logit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    c = SERVING
+    X = torch.from_numpy(X_eval[:c["batch"]]).cuda()
+    key = prng.key(95)
+    predict.predictive_loglik_naive(bank, X, key).cpu()  # first call
+    reset_launch_counts()
+    predict.predictive_loglik_naive(bank, X, key).cpu()
+    counts = launch_counts()
+    if counts.get("gibbs_flip", 0) != bank.S * c["n_sweeps"]:
+        raise AssertionError(f"naive scorer: gibbs_flip launched "
+                             f"{counts.get('gibbs_flip')} times for "
+                             f"{bank.S} x {c['n_sweeps']} sweeps")
+    times = {}
+    for name, fn in (("naive", predict.predictive_loglik_naive),
+                     ("batched", predict.predictive_loglik)):
+        ts = []
+        for _ in range(c["naive_reps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(bank, X, key, n_sweeps=c["n_sweeps"]).cpu()
+            ts.append(time.perf_counter() - t0)
+        times[name] = st_.median(ts)
+    g = torch.Generator(device="cuda").manual_seed(96)
+    Z0 = torch.zeros((X.shape[0], bank.K), device="cuda")
+    u = _logit(torch.rand(Z0.shape, generator=g, device="cuda"))
+    sweep = gibbs_variant(X, Z0, bank.A[0], _logit(bank.pi[0]),
+                          bank.active[0], u, 0.5 / bank.sigma_x[0]**2,
+                          " from Z=0 (naive scorer)")
+    return dict(rows=X.shape[0], S=bank.S, n_sweeps=c["n_sweeps"],
+                naive_seconds=times["naive"],
+                batched_seconds=times["batched"],
+                naive_over_batched=times["naive"] / times["batched"],
+                naive_gibbs_flip_launches=counts.get("gibbs_flip", 0)), \
+        counts, sweep
+
+
+def planted_bank(data: tuple, dev):
+    """A bank at the K+ the data supports: SERVING["planted_S"] samples
+    of phase 5's planted model itself (its 24 feature rows plus 0.01
+    N(0,1) each, pi 0.3, sigma_x at the data's noise 0.5), bucket 32 of
+    K_max=64."""
+    import numpy as np
+
+    from repro_torch.core.ibp import predict
+
+    A_true = data[4]
+    K, D = A_true.shape
+    rng = np.random.default_rng(67)
+    act = (np.arange(FULL["K_max"]) < K).astype(np.float32)
+    bb = predict.BankBuilder(FULL["K_max"])
+    for s in range(SERVING["planted_S"]):
+        A = np.zeros((FULL["K_max"], D), np.float32)
+        A[:K] = A_true + 0.01 * rng.standard_normal((K, D))
+        bb.add(A, FULL["p"] * act, act, FULL["sigma_n"], 1.0, 3.0, it=s)
+    return bb.build(dev)
+
+
+def run_cli_serving(tmp: Path) -> dict:
+    """The two CLIs as subprocesses: repro_torch.launch.mcmc harvests a
+    bank on Cambridge data, then repro_torch.launch.serve_ibp --smoke
+    serves it with --op loglik (both on the card, their default)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    bank = tmp / "cli11" / "bank.npz"
+    cmds = [
+        [sys.executable, "-m", "repro_torch.launch.mcmc", "--N", "1000",
+         "--P", "5", "--K-max", "32", "--iters", "20", "--eval-every", "10",
+         "--harvest-every", "2", "--harvest-burn", "0.5",
+         "--ckpt-dir", str(tmp / "cli11"), "--bank-path", str(bank),
+         "--out", str(tmp / "cli11" / "h.json")],
+        [sys.executable, "-m", "repro_torch.launch.serve_ibp", "--bank",
+         str(bank), "--op", "loglik", "--smoke"]]
+    outs = []
+    t0 = time.perf_counter()
+    for cmd, want in zip(cmds, ("sample bank (5 samples) -> ", "smoke OK")):
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=str(ROOT), timeout=300)
+        if r.returncode != 0 or want not in r.stdout:
+            raise AssertionError(f"{' '.join(cmd[2:4])}: rc {r.returncode}, "
+                                 f"no '{want}' line:\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-2000:]}")
+        outs.append([ln for ln in r.stdout.splitlines()
+                     if want in ln or ln.startswith(("op=", "bank:"))])
+    return dict(lines=outs, seconds=time.perf_counter() - t0)
+
+
+def run_serving(dev, data: tuple) -> tuple[dict, dict]:
+    """Phase 11. Returns (results, kernel launches of the harvest run and
+    the naive scorer's calls)."""
+    import numpy as np
+
+    from repro_torch.launch import serve_ibp
+
+    c = SERVING
+    X_eval = data[1]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        out["harvest"], counts, bank = run_harvest(tmp, data)
+        out["harvest"]["seconds"] = time.perf_counter() - t0
+        rows = X_eval[:c["hold_rows"]]
+        miss = (np.random.default_rng(63).random(rows.shape)
+                >= c["missing"]).astype(np.float32)
+        out["holds"] = [hold_scorer(bank, rows, None, 64),
+                        hold_scorer(bank, rows, miss, 65)]
+        out["enumeration"] = check_enumeration(dev)
+        out["serve"] = serve_ops(bank, X_eval, serve_ibp.OPS)
+        out["naive"], naive_counts, sweep = naive_vs_batched(bank, X_eval)
+        planted = planted_bank(data, dev)
+        out["planted"] = dict(
+            K_bucket=planted.K, S=planted.S,
+            serve=serve_ops(planted, X_eval, ("loglik",)))
+        out["planted"]["naive"], planted_counts, planted_sweep = \
+            naive_vs_batched(planted, X_eval)
+        out["cli"] = run_cli_serving(tmp)
+    for k in set(naive_counts) | set(planted_counts):
+        counts[k] = (counts.get(k, 0) + naive_counts.get(k, 0)
+                     + planted_counts.get(k, 0))
+    out["gibbs_flip_naive"] = [sweep, planted_sweep]
+    return out, counts
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs the "
@@ -1734,6 +2126,60 @@ def main() -> int:
             f"{v['tail_ms_per_row']:.5f} ms/row")
     log(f"[10] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 11: posterior-predictive serving
+    t0 = time.perf_counter()
+    serving, serving_counts = run_serving(dev, data)
+    log(f"[11] serving: {json.dumps(serving)}")
+    h = serving["harvest"]
+    log(f"[11] harvest: S={h['S']} samples at iterations {h['its']}, K "
+        f"bucket {h['K_bucket']} of K_max={FULL['K_max']}, K+ per sample "
+        f"{h['K_plus']}; {h['seconds_per_iteration']:.4f} s/iteration "
+        f"(phase 5: {full['seconds_per_iteration']:.4f}), the harvest's "
+        f"host work {h['harvest_seconds_per_iteration']:.5f} s/iteration; "
+        f"the loaded bank equals the built one bitwise")
+    log(f"[11] launches of the harvest run and the naive scorer "
+        f"{serving_counts}")
+    for v in serving["holds"]:
+        log(f"[11] scorer card vs CPU ({'masked' if v['masked'] else 'unmasked'},"
+            f" {v['rows']} rows, S={h['S']}): {v['bits_differing']} Z bits "
+            f"differ, boundary events {v['boundary_events']}; max |dprobs| "
+            f"{v['max_abs_dprobs']:.3g} (tol {v['dprobs_tol']}), max rel "
+            f"|dll| {v['max_rel_dll']:.3g} (tol {v['dll_rel_tol']})")
+    e = serving["enumeration"]
+    log(f"[11] encode (n_sweeps={e['n_sweeps']}) vs exact_posterior, K "
+        f"{e['K_live']} live of bucket {e['K_bucket']}, D={e['D']}, "
+        f"{e['rows']} rows: max |err| {e['max_abs_err']:.4f} (tol "
+        f"{e['tol']:.4f}), mean {e['mean_abs_err']:.4f}")
+    for op, v in serving["serve"].items():
+        log(f"[11] serve {op}: {v['rows_per_s']:.0f} rows/s, p50 "
+            f"{v['latency_p50_us']:.0f} us, p95 {v['latency_p95_us']:.0f} us,"
+            f" warm-up {v['warmup_s']:.2f} s, {v['requests']} requests / "
+            f"{v['rows']} rows; a {v['dispatch_rows']}-row dispatch: "
+            f"{v['launches_per_dispatch']} launches, device busy "
+            f"{v['dispatch_busy_share']:.4f}; peak "
+            f"{v['max_memory_allocated']} bytes")
+    pl = serving["planted"]
+    v = pl["serve"]["loglik"]
+    log(f"[11] serve loglik, planted bank (S={pl['S']}, K bucket "
+        f"{pl['K_bucket']}): {v['rows_per_s']:.0f} rows/s, p50 "
+        f"{v['latency_p50_us']:.0f} us, p95 {v['latency_p95_us']:.0f} us; a "
+        f"{v['dispatch_rows']}-row dispatch: {v['launches_per_dispatch']} "
+        f"launches, device busy {v['dispatch_busy_share']:.4f}; peak "
+        f"{v['max_memory_allocated']} bytes")
+    for tag, n in (("harvested", serving["naive"]), ("planted", pl["naive"])):
+        log(f"[11] naive vs batched predictive_loglik ({tag} bank) on "
+            f"{n['rows']} rows, S={n['S']}: {n['naive_seconds']:.4f} s vs "
+            f"{n['batched_seconds']:.4f} s, ratio "
+            f"{n['naive_over_batched']:.3f}; naive gibbs_flip launches "
+            f"{n['naive_gibbs_flip_launches']}")
+    for g in serving["gibbs_flip_naive"]:
+        log(f"[11] gibbs_flip {g['shape']}: ms={g['ms']:.4f} "
+            f"call_ms={g['call_ms']:.4f} bound_ms={g['bound_ms']:.5f} "
+            f"plain_ms={g['plain_ms']:.4f}")
+    for lines in serving["cli"]["lines"]:
+        log(f"[11] CLI: {lines}")
+    log(f"[11] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -1748,10 +2194,18 @@ def main() -> int:
             raise AssertionError(
                 f"{name} was not launched by the serial collapsed sampler "
                 f"(phase 9 {coll_counts}, phase 10 {packed_counts})")
-    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4 and 5; "
-        f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10")
+    for name in MAIN_PATH:
+        if serving_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by phase 11's harvest and naive "
+                f"scorer ({serving_counts})")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5 and 11 "
+        f"(gibbs_flip {serving['naive']['naive_gibbs_flip_launches']} "
+        f"times by the naive scorer); {', '.join(COLLAPSED_PATH)} in phases "
+        f"9 and 10")
 
-    later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep],
+    later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
+                            *serving["gibbs_flip_naive"]],
              "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
                                 *packed["holds"]],
              "feature_stats": [grown["feature_stats"], *coll["stats"]],
@@ -1777,8 +2231,10 @@ def main() -> int:
             launches_baseline=base_counts.get(name, 0),
             launches_collapsed=coll_counts.get(name, 0),
             launches_packed=packed_counts.get(name, 0),
+            launches_serving=serving_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels, "gpu": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,16 @@ sorted, dataclass fields in declaration order. The driver's checkpoint
 tree ``{"gs", "Z_global", "meta"}`` therefore reads ``Z_global``, the
 ``HybridGlobal`` fields (the key as uint32[2]), then ``meta.it`` — so
 one script can read either package's checkpoints.
+
+``save_arrays`` / ``load_arrays`` are the self-describing counterpart
+(named arrays, no template), which the posterior sample bank is saved
+with; ``update_json`` is the tolerant read-modify-write of a small JSON
+file. Both keep the reference's tmp + ``os.replace`` contract.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from typing import Any
@@ -60,6 +66,44 @@ def save_pytree(path: str, tree: Any, step: int, keep: int = 3) -> str:
         except OSError:
             pass
     return fname
+
+
+def save_arrays(path: str, arrays: dict[str, Any]) -> str:
+    """Atomic self-describing npz of named arrays (tensors go to the host
+    first), loadable with no template."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **{k: _to_numpy(v) for k, v in arrays.items()})
+    os.replace(tmp, path)
+    return path
+
+
+def load_arrays(path: str) -> dict[str, np.ndarray]:
+    """A ``save_arrays`` npz back as a name -> numpy array dict."""
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def update_json(path: str, update) -> str:
+    """Read-modify-write of a small JSON file: ``update`` maps the current
+    dict to the new one. A missing, corrupt or half-written file reads as
+    {}; the write is tmp + ``os.replace``."""
+    data: dict = {}
+    if os.path.exists(path):
+        try:
+            with open(path) as fh:
+                data = json.load(fh)
+        except (OSError, json.JSONDecodeError):
+            data = {}
+    data = update(data)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(data, fh, indent=1)
+    os.replace(tmp, path)
+    return path
 
 
 def all_steps(path: str) -> list[int]:

@@ -2,6 +2,7 @@ from . import convergence, predict
 from .api import Sampler, SamplerSpec, build_sampler
 from .collapsed import collapsed_sweep
 from .hybrid import HybridGlobal, HybridShard, init_hybrid
+from .predict import BankBuilder, SampleBank
 from .state import IBPHypers, IBPState, init_state
 from .sweeps import sufficient_stats, uncollapsed_sweep
 from .uncollapsed import uncollapsed_step
@@ -20,6 +21,8 @@ __all__ = [
     "Sampler",
     "SamplerSpec",
     "build_sampler",
+    "SampleBank",
+    "BankBuilder",
     "convergence",
     "predict",
 ]

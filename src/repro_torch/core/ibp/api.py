@@ -54,7 +54,6 @@ _LATER = {
     "chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "data": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "stale_sync": "ROADMAP queue 1 item 8 (the bounded-staleness body)",
-    "harvest_every": "ROADMAP queue 1 item 9 (serving: SampleBank harvest)",
     "driver": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "n_chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
     "sync": "ROADMAP queue 1 item 8 (the fused master sync)",
@@ -100,7 +99,12 @@ class SamplerSpec:
     #                            the tail-saturation counter fires
     #                            (0 = fixed K_tail; ceiling is K_max)
     seed: int = 0
-    harvest_every: int = 0     # only 0 (no harvest) is ported
+    # ---- posterior-predictive harvest (SampleBank, consumed by MCMCDriver)
+    harvest_every: int = 0     # harvest a posterior sample every this many
+    #                            iterations (0 = off)
+    harvest_burn: float = 0.5  # fraction of the run discarded as burn-in
+    #                            before harvesting starts
+    bank_path: str = ""        # SampleBank npz ("" = <ckpt_dir>/bank.npz)
 
     def __post_init__(self):
         def bad(msg: str):
@@ -144,14 +148,15 @@ class SamplerSpec:
         if self.harvest_every < 0:
             bad(f"harvest_every={self.harvest_every} must be >= 0 "
                 f"(0 disables harvesting)")
+        if not 0.0 <= self.harvest_burn < 1.0:
+            bad(f"harvest_burn={self.harvest_burn} must be in [0, 1) — a "
+                f"burn fraction of the run, not an iteration count")
         if self.chains != "none":
             _not_yet("chains", self.chains)
         if self.data != "vmap":
             _not_yet("data", self.data)
         if self.stale_sync > 0:
             _not_yet("stale_sync", self.stale_sync)
-        if self.harvest_every > 0:
-            _not_yet("harvest_every", self.harvest_every)
 
     def replace(self, **kw) -> "SamplerSpec":
         return dataclasses.replace(self, **kw)

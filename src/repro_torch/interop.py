@@ -1,10 +1,12 @@
-"""Carry the reference package's sampler state into the port.
+"""Carry the reference package's sampler state and sample bank into the
+port.
 
 ``from_reference`` takes the fields of the reference's ``HybridGlobal``
 and ``HybridShard``, ``state_from_reference`` those of its ``IBPState``,
-as numpy arrays (the key as ``jax.random.key_data``, uint32[2]), and
-each returns the port's state on ``device``. Tests use them to start
-both packages from the same state.
+``bank_from_reference`` those of its ``SampleBank``, as numpy arrays
+(the key as ``jax.random.key_data``, uint32[2]), and each returns the
+port's counterpart on ``device``. Tests use them to start both packages
+from the same state.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
+from repro_torch.core.ibp.predict import SampleBank
 from repro_torch.core.ibp.state import IBPState
 
 _HOST_FIELDS = ("key", "p_prime", "it")
@@ -43,3 +46,12 @@ def state_from_reference(st_np: dict,
                          ) -> IBPState:
     dev = _device.resolve(device)
     return IBPState(**{k: _field(k, v, dev) for k, v in st_np.items()})
+
+
+def bank_from_reference(fields: dict,
+                        device: str | torch.device | None = None
+                        ) -> SampleBank:
+    dev = _device.resolve(device)
+    # all of a bank's fields live on the device, its ``it`` too
+    return SampleBank(**{k: _field(k, v, dev).to(dev)
+                         for k, v in fields.items()})

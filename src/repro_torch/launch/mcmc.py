@@ -8,6 +8,15 @@ PyTorch versions of the kernels).
 Usage:
   python -m repro_torch.launch.mcmc --N 1000 --P 5 --iters 1000 --L 5
   python -m repro_torch.launch.mcmc --device cpu --N 120 --P 3 --iters 30
+
+Posterior-predictive harvest:
+
+  --harvest-every INT   harvest one posterior sample into the SampleBank
+                        every this many iterations (0 = off)
+  --harvest-burn FLOAT  fraction of the run discarded before harvesting
+                        starts (default 0.5)
+  --bank-path PATH      bank npz (default <ckpt-dir>/bank.npz); serve it
+                        with repro_torch.launch.serve_ibp
 """
 from __future__ import annotations
 
@@ -63,6 +72,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) runs the CUDA kernels and raises "
                          "without a GPU; cpu runs their plain versions")
+    ap.add_argument("--harvest-every", type=int, default=0,
+                    help="SampleBank harvest cadence in iterations "
+                         "(0 = off)")
+    ap.add_argument("--harvest-burn", type=float, default=0.5,
+                    help="fraction of the run discarded as burn-in "
+                         "before harvesting starts")
+    ap.add_argument("--bank-path", default="",
+                    help="SampleBank npz path (default: "
+                         "<ckpt-dir>/bank.npz)")
     ap.add_argument("--out", default="artifacts/mcmc_history.json")
     args = ap.parse_args(argv)
 
@@ -75,6 +93,8 @@ def main(argv=None):
         collapsed_backend=args.collapsed_backend,
         chol_refresh=args.chol_refresh, k_tail_grow=args.k_tail_grow,
         k_live_buckets=args.k_live_buckets,
+        harvest_every=args.harvest_every, harvest_burn=args.harvest_burn,
+        bank_path=args.bank_path,
     )
     drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval,
                      device=args.device)
@@ -102,6 +122,10 @@ def main(argv=None):
         # bare NaN is not valid JSON — emit null instead
         json.dump(_json_safe(drv.history), fh, indent=1)
     print(f"history -> {args.out}")
+    if drv.bank_builder is not None and len(drv.bank_builder):
+        # saved by the driver with the last iteration's checkpoint
+        print(f"sample bank ({len(drv.bank_builder)} samples) -> "
+              f"{drv.bank_path}")
     return drv
 
 

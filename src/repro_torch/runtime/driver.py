@@ -17,10 +17,17 @@ Port of ``repro/runtime/driver.py`` for the single-device layout:
 * eval records hold K, alpha, sigma_x, the train and held-out joint
   log-likelihoods, K_tail, tail_sat and split-R-hat / ESS / MCSE of the
   per-iteration sigma_x and K+ traces.
+* posterior-predictive harvest (``harvest_every``): past the burn-in,
+  every ``harvest_every`` iterations the post-sync draw of the global
+  parameters goes into a ``BankBuilder`` on the host; the built
+  ``SampleBank`` is saved (``bank_path``) before each checkpoint, and a
+  restart extends the builder from the saved bank and drops the samples
+  past the restored step, so each draw is in the bank once.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
@@ -39,6 +46,8 @@ from repro_torch.core.ibp.collapsed import (
 )
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
 from repro_torch.core.ibp.predict import (
+    BankBuilder,
+    SampleBank,
     heldout_joint_loglik,
     train_joint_loglik,
 )
@@ -60,8 +69,7 @@ class DriverConfig:
 
     Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
     device chooses the kernels), ``sync="staged"``, ``n_chains=1`` with
-    ``driver="vmap"``, ``harvest_burn`` and ``bank_path`` (read only
-    when harvesting). A value that selects work the port has not ported
+    ``driver="vmap"``. A value that selects work the port has not ported
     raises ``NotImplementedError`` naming its ROADMAP item; a value the
     reference rejects raises ``ValueError``.
     """
@@ -122,6 +130,7 @@ class DriverConfig:
             ckpt_dir=self.ckpt_dir, overflow_every=self.overflow_every,
             k_tail_grow=self.k_tail_grow, seed=self.seed,
             harvest_every=self.harvest_every,
+            harvest_burn=self.harvest_burn, bank_path=self.bank_path,
         )
 
 
@@ -154,6 +163,11 @@ class MCMCDriver:
         # the last checkpoint boundary (growth fires on new saturation only)
         self._tail_growths = 0
         self._sat_mark = 0
+        # the harvest's host-side accumulator; the bank is its own
+        # self-describing file beside the checkpoints
+        self.bank_builder = (BankBuilder(spec.K_max)
+                             if spec.harvest_every > 0 else None)
+        self._bank: SampleBank | None = None
 
     # ---- state <-> checkpoint layout (global Z) --------------------------
     def _to_ckpt(self, gs: HybridGlobal, ss: HybridShard) -> dict:
@@ -227,6 +241,29 @@ class MCMCDriver:
         gs, ss = self.sampler.init()
         return self._to_ckpt(gs, ss)
 
+    # ---- posterior-predictive harvest ----------------------------------
+    @property
+    def bank_path(self) -> str:
+        return self.spec.bank_path or os.path.join(self.spec.ckpt_dir,
+                                                   "bank.npz")
+
+    @property
+    def bank(self) -> SampleBank | None:
+        """The harvested samples as a ``SampleBank`` on the driver's device
+        (None before the first harvest), rebuilt when samples arrived."""
+        b = self.bank_builder
+        if b is None or len(b) == 0:
+            return self._bank
+        if self._bank is None or self._bank.S != len(b):
+            self._bank = b.build(self.device)
+        return self._bank
+
+    def save_bank(self) -> str | None:
+        """Build and save the bank; its path, or None if nothing was
+        harvested."""
+        bank = self.bank
+        return None if bank is None else bank.save(self.bank_path)
+
     # ---- adaptive K_tail --------------------------------------------------
     def _maybe_grow_tail(self, gs: HybridGlobal, ss: HybridShard
                          ) -> tuple[HybridGlobal, HybridShard, bool]:
@@ -268,12 +305,22 @@ class MCMCDriver:
         sampler = self.sampler
         n_iters = n_iters or spec.n_iters
         restored = restore(spec.ckpt_dir, self._template())
+        b = self.bank_builder
         if restored is not None:
             gs, ss = self._from_ckpt(restored[0])
             start = int(restored[1])
+            # a restart continues the harvest from the saved bank, less
+            # the samples past the restored step: those iterations re-run
+            # and harvest again
+            if b is not None and len(b) == 0 and os.path.exists(
+                    self.bank_path):
+                b.extend_from(SampleBank.load(self.bank_path, "cpu"))
         else:
             start = 0
             gs, ss = sampler.init(prng.key(spec.seed))
+        if b is not None:
+            b.prune_after(start)
+            self._bank = None
 
         t0 = time.time()
         for it in range(start, n_iters):
@@ -282,6 +329,9 @@ class MCMCDriver:
             gs, ss = sampler.step(gs, ss)
             self._record_trace(gs)
             last = it == n_iters - 1
+            if (b is not None and (it + 1) > int(spec.harvest_burn * n_iters)
+                    and (it + 1) % spec.harvest_every == 0):
+                b.add_state(gs, it=it + 1)
             need_eval = (it + 1) % spec.eval_every == 0 or last
             need_ckpt = (it + 1) % spec.ckpt_every == 0 or last
             # reading gs.overflow waits for the whole iteration on the
@@ -296,6 +346,10 @@ class MCMCDriver:
                 if on_eval:
                     on_eval(rec)
             if need_ckpt or overflowed:
+                # the bank first: a crash between the two writes rewinds to
+                # the older checkpoint, whose re-run harvests again
+                if b is not None and len(b):
+                    self.save_bank()
                 save_pytree(spec.ckpt_dir, self._to_ckpt(gs, ss), it + 1)
             # adaptive K_tail rides the checkpoint boundary, where tails are
             # empty; the checkpoint just written stays valid (tails are not

@@ -224,3 +224,75 @@ def packed_scan_case(n_rows, K_can, D, width, seed=0, lam=0.1, alpha=None):
                 ZtZ=f32(Z.T @ Z), ZtX=f32(Z.T @ case["X"]), m=f32(Z.sum(0)),
                 u_logit=f32(np.log(uu) - np.log1p(-uu)))
     return case
+
+
+def bank_samples(K_max, lives, D, sigma_x=0.6, seed=0, scale=1.0):
+    """Posterior samples for a ``BankBuilder`` (either package's): one
+    dict of ``add`` arguments per entry of ``lives``, that many live
+    features in the leading slots, A = ``scale`` N(0,1) on them, pi
+    uniform in [0.2, 0.8], chains alternating 0/1, it = 10, 11, ..."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s, kl in enumerate(lives):
+        act = np.zeros(K_max, np.float32)
+        act[:kl] = 1.0
+        A = (scale * rng.standard_normal((K_max, D))).astype(np.float32)
+        out.append(dict(A=A * act[:, None],
+                        pi=rng.uniform(0.2, 0.8, K_max).astype(np.float32)
+                        * act, active=act, sigma_x=sigma_x, sigma_a=1.0,
+                        alpha=2.0, chain=s % 2, it=10 + s))
+    return out
+
+
+def encode_row_margin(A, pi, active, sigma_x, chol, x, m, u, n_sweeps):
+    """The float-boundary margin of one row's Gibbs chain under one bank
+    sample, replayed in float64 along its own decisions: the smallest of
+    |y_k - 1/2| over the warm start's live bits and |logit - u| over the
+    live bit steps (``u`` the row's (n_sweeps, K) uniforms, ``m`` its
+    mask or None). Two float32 runs of the scorer whose logits err by
+    less than this margin make the same decisions."""
+    f = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    A, pi, act, L, x = f(A), f(pi), f(active), f(chol), f(x)
+    m = np.ones_like(x) if m is None else f(m)
+    live = act > 0.5
+    Am = A * act[:, None]
+    y = np.linalg.solve(L @ L.T, Am @ (x * m))
+    margin = float(np.min(np.abs(y[live] - 0.5), initial=np.inf))
+    z = ((y > 0.5) & live).astype(np.float64)
+    r = (x * m - z @ Am) * m
+    an = (A * A) @ m
+    logit = lambda p: np.log(p) - np.log1p(-p)  # noqa: E731
+    lpi = logit(np.clip(pi, 1e-6, 1 - 1e-6))
+    ul = logit(np.clip(f(u), 1e-6, 1 - 1e-6))
+    inv2s2 = 0.5 / float(sigma_x) ** 2
+    for s in range(n_sweeps):
+        for k in np.flatnonzero(live):
+            lg = lpi[k] + (2.0 * (r @ A[k] + z[k] * an[k]) - an[k]) * inv2s2
+            margin = min(margin, abs(lg - ul[s, k]))
+            znew = float(lg > ul[s, k])
+            r -= (znew - z[k]) * A[k] * m
+            z[k] = znew
+    return margin
+
+
+def scorer_divergence(bank, X, mask, u, n_sweeps, Z_a, Z_b, tol=1e-4):
+    """Hold two runs of the batched scorer on the same inputs (``bank``
+    fields, X, mask and u as numpy arrays; Z_a, Z_b (S, B, K) their
+    draws): rows are independent chains, so each (sample, row) whose
+    draws differ must have a float-boundary event (``encode_row_margin``
+    < ``tol``) on its chain. Returns the differing (s, b, margin) and the
+    count of differing bits; raises on a difference away from the
+    boundary."""
+    diff = np.argwhere(np.any(Z_a != Z_b, axis=-1))
+    events = []
+    for s, b in diff:
+        mg = encode_row_margin(
+            bank["A"][s], bank["pi"][s], bank["active"][s],
+            bank["sigma_x"][s], bank["chol_f"][s], X[b],
+            None if mask is None else mask[b], u[s, :, :, b], n_sweeps)
+        if not mg < tol:
+            raise AssertionError(f"scorer: sample {s} row {b} differs "
+                                 f"away from a float boundary (margin "
+                                 f"{mg})")
+        events.append((int(s), int(b), mg))
+    return events, int((Z_a != Z_b).sum())

@@ -14,7 +14,9 @@ and draws: Z, the mask, m, ZtZ and the saturation count equal, ZtX at
 feature_stats' tolerance; the two may first differ only at a
 float-boundary event, whose row and margin the test names. The same holds
 for the serial sweep's scan with Gibbs births, whose launches are also
-bitwise repeatable. No JAX is
+bitwise repeatable. The serving scorer (plain PyTorch batched over the
+bank's samples) is held on the card against its own run on the CPU, and
+its naive baseline is checked to sweep through gibbs_flip. No JAX is
 imported: the GPU machine has none.
 """
 import numpy as np
@@ -29,12 +31,17 @@ from _torch_cases import (
     collapsed_row_margin,
     gibbs_margin,
     gibbs_planted_case,
+    bank_samples,
     packed_scan_case,
     scan_case,
     scan_divergence,
+    scorer_divergence,
 )
 
+from repro_torch import prng
 from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+from repro_torch.core.ibp import predict
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.collapsed_row import collapsed_row_flip, collapsed_row_flip_ref
 from repro_torch.kernels.collapsed_scan import collapsed_scan, collapsed_scan_ref
 from repro_torch.kernels.feature_stats import feature_stats, feature_stats_ref
@@ -357,3 +364,61 @@ def test_collapsed_scan_packed_kernel_resumes(cuda, flavor, n_rows, K_can, D,
     want, cw = _hold_packed(case, cuda, flavor=flavor, B=B, start_row=start)
     assert cw[2] == -1  # reached the last row
     np.testing.assert_array_equal(want["Z"][:start], case["Z"][:start])
+
+
+def _serving_case(K_max, lives, D, B, masked, seed):
+    bb = predict.BankBuilder(K_max)
+    for kw in bank_samples(K_max, lives, D, sigma_x=0.6, seed=seed,
+                           scale=0.3):
+        bb.add(**kw)
+    rng = np.random.default_rng(seed + 1)
+    X = rng.standard_normal((B, D)).astype(np.float32)
+    mask = ((rng.random((B, D)) > 0.25).astype(np.float32) if masked
+            else None)
+    return bb, X, mask, rng
+
+
+# the batched scorer on the card against the same call on the CPU, on the
+# same bank, rows and draws: a (sample, row) chain whose draws differ must
+# hold a float-boundary event (margin < 1e-4, ``scorer_divergence``);
+# probs to 1e-4 and row log-likelihoods to 1e-5 relative on the others
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("K_max,lives,D,B,n_sweeps", [
+    (16, (5, 9, 7), 64, 32, 8), (64, (40, 33, 60, 12), 1024, 256, 3)])
+def test_batched_scorer_on_card_matches_cpu(cuda, masked, K_max, lives, D, B,
+                                            n_sweeps):
+    bb, X, mask, rng = _serving_case(K_max, lives, D, B, masked, K_max)
+    banks = {d: bb.build(d) for d in ("cpu", cuda)}
+    u = rng.random((len(lives), n_sweeps, banks["cpu"].K, B),
+                   dtype=np.float32)
+    out = {}
+    for d, bank in banks.items():
+        t = lambda a: None if a is None else torch.from_numpy(a).to(d)  # noqa: E731
+        out[d] = [o.cpu().numpy() for o in predict._score_bank(
+            bank, t(X), t(mask), t(u), n_sweeps, n_sweeps // 2)]
+    (pc, Zc, lc), (pg, Zg, lg) = out["cpu"], out[cuda]
+    fields = {f: getattr(banks["cpu"], f).numpy() for f in
+              ("A", "pi", "active", "sigma_x", "chol_f")}
+    events, _ = scorer_divergence(fields, X, mask, u, n_sweeps, Zc, Zg)
+    same = np.ones(lc.shape, bool)
+    for s, b, _ in events:
+        same[s, b] = False
+    np.testing.assert_allclose(pg[same], pc[same], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lg[same], lc[same], rtol=1e-5)
+
+
+# the naive baseline sweeps each sample's rows through gibbs_flip: S x
+# n_sweeps launches a call, and its mixture estimates the batched one's
+@pytest.mark.cuda
+def test_naive_scorer_sweeps_through_gibbs_flip(cuda):
+    bb, X, _, _ = _serving_case(64, (20, 31, 12), 1024, 256, False, 5)
+    bank = bb.build(cuda)
+    key = prng.key(3)
+    reset_launch_counts()
+    naive = predict.predictive_loglik_naive(bank, X, key, n_sweeps=3)
+    assert launch_counts().get("gibbs_flip") == bank.S * 3
+    batched = predict.predictive_loglik(bank, X, key, n_sweeps=8)
+    assert naive.shape == (256,) and torch.isfinite(naive).all()
+    assert float((naive - batched).abs().max()) < \
+        0.05 * float(batched.abs().max())

@@ -142,7 +142,7 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, tmp_path, X):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(chains="vmap"), "item 8"), (dict(data="shardmap"), "item 8"),
-    (dict(stale_sync=1), "item 8"), (dict(harvest_every=5), "item 9")])
+    (dict(stale_sync=1), "item 8"), (dict(chains="mesh"), "item 8")])
 def test_spec_rejects_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         SamplerSpec(**kw)

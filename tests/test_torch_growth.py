@@ -296,7 +296,8 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     (dict(driver="multichain", n_chains=4), "item 8"),
     (dict(driver="shardmap"), "item 8"), (dict(driver="mesh"), "item 8"),
     (dict(n_chains=2), "item 8"), (dict(sync="fused"), "item 8"),
-    (dict(stale_sync=1), "item 8"), (dict(harvest_every=5), "item 9")])
+    (dict(stale_sync=1), "item 8"), (dict(driver="multichain", n_chains=1),
+                                      "item 8")])
 def test_driver_config_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         DriverConfig(**kw).to_spec()
