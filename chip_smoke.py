@@ -23,10 +23,10 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 11.) The kernel that carries each TPU
+6. (Checked last, after phase 12.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
-   inside collapsed_scan) had its launch counter rise in phases 4, 5 and
-   11 (gibbs_flip there also through the naive scorer), and
+   inside collapsed_scan) had its launch counter rise in phases 4, 5, 11
+   and 12 (gibbs_flip in 11 also through the naive scorer), and
    collapsed_scan and feature_stats theirs in phases 9 and 10.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
@@ -81,6 +81,18 @@ Phases, each of which raises on failure (exit code non-zero):
    rows, and gibbs_flip at the naive scorer's shape against its plain
    version; the mcmc CLI with --harvest-every and serve_ibp --smoke as
    subprocesses.
+12. C independent chains on one card (the multichain driver) at phase
+   5's widths, C=4: 3 iterations (s/iteration beside phase 5's), with
+   collapsed_scan launched L times an iteration, once a sub-iteration for
+   all C tails, not C x L; resumed to iteration 19 for R-hat, ESS and the
+   per-chain lists of the eval record; one iteration with stale_sync=1
+   (2 L scan launches). The chained collapsed_scan (one launch of C
+   blocks) in the rss flavor on 1024 rows of C planted cases at K=8
+   (ring) and K=32 (global arena): each chain against the plain scan
+   (0 decisions differ, counts equal) and bitwise equal to a single-chain
+   launch from its inputs; then timed at C = 1, 4, 16 on N_p rows at K=8
+   and at C = 1, 4 on 1024 rows at K=32, each beside C times the
+   single-chain bound.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
@@ -161,6 +173,16 @@ SERVING = dict(iters=20, harvest_every=1, harvest_burn=0.2, hold_rows=256,
                n_sweeps=3, missing=0.25, enum_K=12, enum_rows=8,
                enum_sweeps=64, enum_scale=0.05, enum_sigma=1.0, requests=64,
                max_request=48, batch=256, naive_reps=3, planted_S=16)
+# phase 12: C independent chains on one card at phase 5's widths: the
+# multichain driver for phase 5's 3 iterations, resumed to 19 for R-hat
+# and ESS over the 16 after the restore (split-R-hat needs 4 draws a
+# half-chain after the half burn-in), then one iteration with a stale
+# pass; the chained collapsed_scan held on hold_rows rows of C planted
+# cases at K 8 (each chain's carry in its block's shared memory) and 32
+# (each in its own global arena), and timed on the tail's N_p rows at each
+# C of time_C (K=8) and on hold_rows rows at each of time_C_global (K=32)
+MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=1024, hold_K=(8, 32),
+             time_C=(1, 4, 16), time_C_global=(1, 4), reps=10)
 
 
 def log(msg: str) -> None:
@@ -1950,6 +1972,212 @@ def run_serving(dev, data: tuple) -> tuple[dict, dict]:
     return out, counts
 
 
+# --------------------------------------------------------------------------
+# phase 12: C independent chains on one card
+# --------------------------------------------------------------------------
+
+
+def run_multichain(tmp: Path, data: tuple) -> tuple[dict, dict, dict]:
+    """Phase 12's driver runs: ``MCMCDriver`` with driver="multichain",
+    n_chains=C at phase 5's widths for 3 iterations (phase 5's protocol:
+    eval and checkpoint at the end), resumed from that checkpoint to
+    iteration 19 (R-hat and ESS over the 16 iterations after the
+    restore), then resumed for one iteration with stale_sync=1. The tail
+    of all C chains is one collapsed_scan launch a sub-iteration, so the
+    3 iterations launch it L x 3 times, and the stale iteration 2 L
+    times. Returns (results, launches of the 3 iterations, launches of
+    the stale iteration)."""
+    import torch
+
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import MCMCDriver
+
+    f, mc = FULL, MULTI
+    C, L = mc["C"], f["L"]
+    X_train, X_eval = data[:2]
+
+    def drive(spec):
+        drv = MCMCDriver(X_train, spec, IBPHypers(), X_eval=X_eval,
+                         device="cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        gs, ss = drv.run()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        rec = drv.history[-1]
+        if not (math.isfinite(rec["joint_ll_eval"]) and all(
+                math.isfinite(v) for v in rec["sigma_x_chains"]) and all(
+                1 <= k <= f["K_max"] for k in rec["K_chains"])
+                and len(rec["K_chains"]) == C):
+            raise AssertionError(f"multichain record out of range: {rec}")
+        if int(gs.overflow.max()) != 0 or gs.key.shape != (C, 2):
+            raise AssertionError("multichain run overflowed K_max or lost "
+                                 "its chain axis")
+        return t, rec, launch_counts(), gs
+
+    spec = SamplerSpec.for_driver(
+        "multichain", n_chains=C, P=f["P"], K_max=f["K_max"],
+        K_tail=f["K_tail"], L=L, n_iters=mc["iters"],
+        eval_every=mc["iters"], ckpt_every=mc["iters"],
+        ckpt_dir=str(tmp / "multi_ckpt"))
+    torch.cuda.reset_peak_memory_stats()
+    t_run, rec, counts, _ = drive(spec)
+    peak = torch.cuda.max_memory_allocated()
+    if counts.get("collapsed_scan") != L * mc["iters"]:
+        raise AssertionError(
+            f"multichain: collapsed_scan launched "
+            f"{counts.get('collapsed_scan')} times in {mc['iters']} "
+            f"iterations, expected L x iterations = {L * mc['iters']}")
+    missing = [n for n in MAIN_PATH if counts.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"multichain run launched no {missing}")
+    n2 = mc["resume_iters"]
+    t_resume, rec2, _, gs = drive(spec.replace(n_iters=n2, eval_every=n2,
+                                               ckpt_every=n2))
+    for k in ("sigma_x_rhat", "sigma_x_ess", "K_rhat", "K_ess"):
+        if k not in rec2:
+            raise AssertionError(f"multichain eval record lacks {k}")
+    t_stale, rec3, stale_counts, _ = drive(spec.replace(
+        n_iters=n2 + 1, eval_every=n2 + 1, ckpt_every=n2 + 1, stale_sync=1))
+    if stale_counts.get("collapsed_scan") != 2 * L:
+        raise AssertionError(
+            f"stale iteration: collapsed_scan launched "
+            f"{stale_counts.get('collapsed_scan')} times, expected 2 L")
+    return dict(
+        C=C, N=f["N"], D=f["D"], K_max=f["K_max"], K_tail=f["K_tail"],
+        P=f["P"], L=L, iters=mc["iters"],
+        seconds_per_iteration=t_run / mc["iters"],
+        resumed_to=n2, resumed_seconds_per_iteration=t_resume / (
+            n2 - mc["iters"]),
+        stale_iteration_seconds=t_stale, max_memory_allocated=peak,
+        record=rec, resumed_record=rec2, stale_record=rec3,
+        it=gs.it.tolist()), counts, stale_counts
+
+
+def multi_cases(n_rows: int, K: int, D: int, C: int, seed: int) -> list:
+    """C planted scan cases (``scan_case``), one a chain: each chain its
+    own rows and draws; MH births proposed at 1% of rows, as phase 3's."""
+    from _torch_cases import scan_case
+
+    return [scan_case(n_rows, K, D, seed=seed + c, lam=0.01)
+            for c in range(C)]
+
+
+SCAN_FIELDS = ("Z", "active", "ZtZ", "ZtX", "m", "X", "u_logit", "j_prop",
+               "log_u_acc")
+
+
+def chained_inputs(dev, cases: list) -> tuple[dict, object, object]:
+    """The chained scan's inputs on the card: every field of ``cases``
+    stacked on a leading chain axis, and sx, sa a chain."""
+    import numpy as np
+    import torch
+
+    st = {k: torch.tensor(np.stack([c[k] for c in cases]), device=dev)
+          for k in SCAN_FIELDS}
+    C = len(cases)
+    return (st, torch.full((C,), 0.5, device=dev),
+            torch.full((C,), 1.0, device=dev))
+
+
+def hold_chained(dev, n_rows: int, K: int, D: int, C: int, seed: int
+                 ) -> dict:
+    """The chained collapsed_scan (one launch, C blocks) in the tail's
+    default rss flavor: each chain held against the plain scan
+    (``hold_scan``: its single-chain launch must make the plain scan's
+    decisions, a float-boundary event aside) and each chain of the
+    chained launch bitwise equal to that chain's single-chain launch
+    (Z, active, m, ZᵀZ, ZᵀX and the counts)."""
+    import torch
+
+    from repro_torch.kernels.collapsed_scan import collapsed_scan
+
+    sx, sa, N = 0.5, 1.0, float(FULL["N"])
+    kw = dict(N=N, refresh_every=64, drift_tol=1e-2, flavor="fast")
+    cases = multi_cases(n_rows, K, D, C, seed)
+    st, sxs, sas = chained_inputs(dev, cases)
+    counts = collapsed_scan(*(st[k] for k in SCAN_FIELDS), sxs, sas, **kw)
+    reps = []
+    for c, case in enumerate(cases):
+        rep, run, tensors = hold_scan(dev, case, sx, sa, N,
+                                      f"collapsed_scan chain {c} of {C} "
+                                      f"K={K}", flavor="fast")
+        t = tensors()
+        one = run(collapsed_scan, t)
+        if not (torch.equal(counts[c], one) and all(
+                torch.equal(st[k][c], t[k])
+                for k in ("Z", "active", "m", "ZtZ", "ZtX"))):
+            raise AssertionError(f"chained collapsed_scan K={K}: chain {c} "
+                                 f"differs from its single-chain launch")
+        del rep["Z"]
+        reps.append(rep)
+    return dict(
+        shape=f"C={C} rows={n_rows} K={K} D={D} fast",
+        decisions_differing=sum(r["decisions_differing"] for r in reps),
+        boundary_events=[r["boundary_event"] for r in reps],
+        counts_equal=all(r["counts_equal"] for r in reps),
+        chains_equal_single_launch=True,
+        plain_ms=sum(r["plain_ms"] for r in reps),
+        k_live=[r["k_live"] for r in reps],
+        n_refresh=[r["n_refresh"] for r in reps],
+        n_sat=[r["n_sat"] for r in reps],
+        max_abs_err=max((r["max_abs_err"] for r in reps
+                         if r["max_abs_err"] is not None), default=None))
+
+
+def time_chained(dev, n_rows: int, K: int, D: int, Cs: tuple, seed: int
+                 ) -> list[dict]:
+    """The chained launch timed at each C of ``Cs`` on C planted cases
+    (the kernel scanning on from its own output, as phase 3 times it):
+    device ms (profiler), call ms, ms a row, and the bound: C times the
+    single-chain bound (``scan_bound_ms``, rss form) at the chains' mean
+    live columns after the timing."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.collapsed_scan import collapsed_scan
+
+    kw = dict(N=float(FULL["N"]), refresh_every=64, drift_tol=1e-2,
+              flavor="fast")
+    cases = multi_cases(n_rows, K, D, max(Cs), seed)
+    out = []
+    for C in Cs:
+        st, sxs, sas = chained_inputs(dev, cases[:C])
+
+        def call():
+            return collapsed_scan(*(st[k] for k in SCAN_FIELDS), sxs, sas,
+                                  **kw)
+
+        reset_launch_counts()
+        t = timed(call, ("collapsed_scan_kernel",), MULTI["reps"])
+        calls = launch_counts()["collapsed_scan"]
+        k_live = float(st["active"].sum(-1).mean())
+        b, by = scan_bound_ms(n_rows, K, D, k_live, gibbs=False, fast=True)
+        out.append(dict(shape=f"C={C} rows={n_rows} K={K} D={D} fast", C=C,
+                        **t, ms_per_row=t["ms"] / n_rows, bound_ms=C * b,
+                        bound_by=by, k_live=k_live,
+                        launches_per_call=calls / (2 * MULTI["reps"] + 2),
+                        library_ms=None))
+    return out
+
+
+def run_chains(dev, data: tuple) -> tuple[dict, dict, dict]:
+    """Phase 12: the multichain driver runs, then the chained scan held
+    and timed. Returns (results, launches of the 3 iterations, launches
+    of the stale iteration)."""
+    mc, D = MULTI, FULL["D"]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        drive, counts, stale_counts = run_multichain(Path(tmpdir), data)
+    holds = [hold_chained(dev, mc["hold_rows"], K, D, mc["C"], 400 + K)
+             for K in mc["hold_K"]]
+    n_p = FULL["N"] // FULL["P"]
+    timing = (time_chained(dev, n_p, mc["hold_K"][0], D, mc["time_C"], 500)
+              + time_chained(dev, mc["hold_rows"], mc["hold_K"][1], D,
+                             mc["time_C_global"], 600))
+    return dict(drive=drive, holds=holds, timing=timing), counts, \
+        stale_counts
+
+
 def main() -> int:
     import torch
 
@@ -2180,6 +2408,40 @@ def main() -> int:
         log(f"[11] CLI: {lines}")
     log(f"[11] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 12: C independent chains on one card
+    t0 = time.perf_counter()
+    multi, multi_counts, stale_counts = run_chains(dev, data)
+    d = multi["drive"]
+    log(f"[12] multichain: {json.dumps(multi)}")
+    log(f"[12] launches of {d['iters']} iterations {multi_counts}; of one "
+        f"iteration with stale_sync=1 {stale_counts}")
+    log(f"[12] s/iteration at C={d['C']}: {d['seconds_per_iteration']:.4f} "
+        f"(phase 5, one chain: {full['seconds_per_iteration']:.4f}); "
+        f"resumed to it={d['resumed_to']}: "
+        f"{d['resumed_seconds_per_iteration']:.4f} s/iteration; with "
+        f"stale_sync=1: {d['stale_iteration_seconds']:.4f} s for one "
+        f"iteration; peak {d['max_memory_allocated']} bytes")
+    r = d["resumed_record"]
+    log(f"[12] eval at it={r['it']}: R-hat sigma_x {r['sigma_x_rhat']}, K "
+        f"{r['K_rhat']}; ESS sigma_x {r['sigma_x_ess']}, K {r['K_ess']}; "
+        f"MCSE sigma_x {r.get('sigma_x_mcse')}; K per chain "
+        f"{r['K_chains']}, sigma_x per chain {r['sigma_x_chains']}, "
+        f"joint_ll_train per chain {r['joint_ll_train_chains']}, tail_sat "
+        f"per chain {r['tail_sat_chains']}, joint_ll_eval "
+        f"{r['joint_ll_eval']}")
+    for v in multi["holds"]:
+        log(f"[12] chained collapsed_scan {v['shape']} against the plain "
+            f"scan: {v['decisions_differing']} decisions differ, boundary "
+            f"events {v['boundary_events']}, counts equal "
+            f"{v['counts_equal']}; each chain bitwise equal to its "
+            f"single-chain launch; plain_ms={v['plain_ms']:.1f}")
+    for v in multi["timing"]:
+        log(f"[12] chained collapsed_scan {v['shape']}: ms={v['ms']:.3f} "
+            f"call_ms={v['call_ms']:.3f} ({v['timing']}) "
+            f"ms/row={v['ms_per_row']:.5f} bound_ms={v['bound_ms']:.5f} "
+            f"({v['bound_by']}), launches a call {v['launches_per_call']}")
+    log(f"[12] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -2199,15 +2461,22 @@ def main() -> int:
             raise AssertionError(
                 f"{name} was not launched by phase 11's harvest and naive "
                 f"scorer ({serving_counts})")
-    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5 and 11 "
+    for name in MAIN_PATH:
+        if multi_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by phase 12's multichain run "
+                f"({multi_counts})")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11 and 12 "
         f"(gibbs_flip {serving['naive']['naive_gibbs_flip_launches']} "
-        f"times by the naive scorer); {', '.join(COLLAPSED_PATH)} in phases "
-        f"9 and 10")
+        f"times by the naive scorer; collapsed_scan once a sub-iteration "
+        f"for all {MULTI['C']} chains in phase 12); "
+        f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10")
 
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
                             *serving["gibbs_flip_naive"]],
              "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
-                                *packed["holds"]],
+                                *packed["holds"], *multi["holds"],
+                                *multi["timing"]],
              "feature_stats": [grown["feature_stats"], *coll["stats"]],
              "gaussian_sse": [grown["gaussian_sse"]]}
     kernels = []
@@ -2232,6 +2501,8 @@ def main() -> int:
             launches_collapsed=coll_counts.get(name, 0),
             launches_packed=packed_counts.get(name, 0),
             launches_serving=serving_counts.get(name, 0),
+            launches_multichain=multi_counts.get(name, 0),
+            launches_stale=stale_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -1,16 +1,21 @@
 """Sampler API: ``SamplerSpec`` + ``build_sampler``.
 
-Port of ``repro/core/ibp/api.py`` for the single-device layout
-(``chains="none"`` x ``data="vmap"``: P shards simulated on one device):
+Port of ``repro/core/ibp/api.py`` for the single-device layouts
+(``chains="none"`` or ``"vmap"`` x ``data="vmap"``: P shards simulated
+on one device, and with ``chains="vmap"`` C independent chains):
 
     s = build_sampler(SamplerSpec(P=4, K_max=16, L=5), IBPHypers(), X)
     gs, ss = s.init()
     gs, ss = s.step(gs, ss)          # one full hybrid iteration
-    ss = s.to_canonical(ss)          # HybridShard, (P, N_p, K) layout
+    gs, ss = s.stale(gs, ss)         # bounded-staleness pass (non-exact)
+    ss = s.to_canonical(ss)          # HybridShard, (C?, P, N_p, K) layout
     ss = s.from_canonical(ss)        # back onto the sampler's device
 
-The spec keeps the reference's field names and validation for what the
-port supports. Values that select work not yet ported raise
+Parallelism is two axes, ``chains`` ("none" | "vmap" | "mesh") x
+``data`` ("vmap" | "shardmap"); the historical driver names are points
+of that grid (``DRIVERS``). The spec keeps the reference's field names
+and validation. The mesh layouts (``data="shardmap"``,
+``chains="mesh"``) need several devices and raise
 ``NotImplementedError`` naming the ROADMAP item that brings them. The
 kernel choice follows the device (CUDA kernels on a GPU, their plain
 versions on the CPU), so the reference's ``backend`` is not a knob here.
@@ -42,28 +47,29 @@ from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH, K_LIVE_MODES
 from .hybrid import (
     HybridGlobal,
     HybridShard,
-    _hybrid_iteration_body,
+    build_hybrid_fns,
     init_hybrid,
+    init_multichain,
 )
 from .state import IBPHypers
 
 CHAIN_MODES = ("none", "vmap", "mesh")
 DATA_MODES = ("vmap", "shardmap")
+SYNC_MODES = ("staged", "fused")
 
-_LATER = {
-    "chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
-    "data": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
-    "stale_sync": "ROADMAP queue 1 item 8 (the bounded-staleness body)",
-    "driver": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
-    "n_chains": "ROADMAP queue 1 item 8 (multichain and mesh layouts)",
-    "sync": "ROADMAP queue 1 item 8 (the fused master sync)",
+# historical driver names -> (chains, data) axis modes
+DRIVERS = {
+    "vmap": ("none", "vmap"),
+    "multichain": ("vmap", "vmap"),
+    "shardmap": ("none", "shardmap"),
+    "mesh": ("mesh", "shardmap"),
 }
 
-
-def _not_yet(field: str, value, owner: str = "SamplerSpec") -> None:
+def _not_yet(field: str, value) -> None:
+    """A mesh layout: several devices, not ported yet."""
     raise NotImplementedError(
-        f"{owner}: {field}={value!r} is not ported yet; it comes with "
-        f"{_LATER[field]}"
+        f"SamplerSpec: {field}={value!r} is not ported yet; it comes with "
+        f"ROADMAP queue 1 item 8b (the torch.distributed layouts)"
     )
 
 
@@ -84,10 +90,12 @@ class SamplerSpec:
     collapsed_backend: str = "fast"  # tail row step: "ref"|"fast"|"pallas"
     chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
     k_live_buckets: str = "on"  # validated; inert here (module docstring)
-    # ---- parallelism layout
-    chains: str = "none"       # only "none" is ported
-    data: str = "vmap"         # only "vmap" is ported
-    stale_sync: int = 0        # only 0 is ported
+    # ---- parallelism layout (axes, not an enum)
+    chains: str = "none"       # "none" | "vmap" ("mesh": item 8b)
+    data: str = "vmap"         # "vmap" ("shardmap": item 8b)
+    n_chains: int = 1          # C (chain axis size; 1 when chains="none")
+    sync: str = "staged"       # "staged" | "fused" master sync (shardmap)
+    stale_sync: int = 0        # bounded-staleness passes/iter (non-exact)
     # ---- run control (consumed by MCMCDriver, validated here)
     n_iters: int = 1000
     eval_every: int = 20
@@ -101,7 +109,8 @@ class SamplerSpec:
     seed: int = 0
     # ---- posterior-predictive harvest (SampleBank, consumed by MCMCDriver)
     harvest_every: int = 0     # harvest a posterior sample every this many
-    #                            iterations (0 = off)
+    #                            iterations (0 = off); chain-batched runs
+    #                            harvest one sample per chain
     harvest_burn: float = 0.5  # fraction of the run discarded as burn-in
     #                            before harvesting starts
     bank_path: str = ""        # SampleBank npz ("" = <ckpt_dir>/bank.npz)
@@ -114,6 +123,20 @@ class SamplerSpec:
             bad(f"chains={self.chains!r} not in {CHAIN_MODES}")
         if self.data not in DATA_MODES:
             bad(f"data={self.data!r} not in {DATA_MODES}")
+        if (self.chains, self.data) == ("vmap", "shardmap"):
+            bad("chains='vmap' cannot compose with data='shardmap' (vmap "
+                "of a collective program is not a layout; use "
+                "chains='mesh')")
+        if self.n_chains < 1:
+            bad(f"n_chains={self.n_chains} must be >= 1")
+        if self.chains == "none" and self.n_chains != 1:
+            bad(f"n_chains={self.n_chains} needs a chain axis; set "
+                f"chains='vmap' or 'mesh' (driver='multichain'/'mesh')")
+        if self.sync not in SYNC_MODES:
+            bad(f"sync={self.sync!r} not in {SYNC_MODES}")
+        if self.sync == "fused" and self.data != "shardmap":
+            bad(f"sync='fused' is a collective schedule; data="
+                f"{self.data!r} has no collectives (use data='shardmap')")
         if self.collapsed_backend not in COLLAPSED_BACKENDS:
             bad(f"collapsed_backend={self.collapsed_backend!r} not in "
                 f"{COLLAPSED_BACKENDS}")
@@ -139,7 +162,8 @@ class SamplerSpec:
         if not 0 <= self.K_init <= self.K_max:
             bad(f"K_init={self.K_init} must be in [0, K_max={self.K_max}]")
         if self.stale_sync < 0:
-            bad(f"stale_sync={self.stale_sync} must be >= 0")
+            bad(f"stale_sync={self.stale_sync} must be >= 0 (a negative "
+                f"value would silently skip the stale loop)")
         if self.overflow_every < 1:
             bad(f"overflow_every={self.overflow_every} must be >= 1")
         if self.n_iters < 1 or self.eval_every < 1 or self.ckpt_every < 1:
@@ -151,19 +175,48 @@ class SamplerSpec:
         if not 0.0 <= self.harvest_burn < 1.0:
             bad(f"harvest_burn={self.harvest_burn} must be in [0, 1) — a "
                 f"burn fraction of the run, not an iteration count")
-        if self.chains != "none":
+        if self.chains == "mesh":
             _not_yet("chains", self.chains)
-        if self.data != "vmap":
+        if self.data == "shardmap":
             _not_yet("data", self.data)
-        if self.stale_sync > 0:
-            _not_yet("stale_sync", self.stale_sync)
+
+    # ---- derived views ----------------------------------------------------
+    @property
+    def driver(self) -> str:
+        """Historical driver name for this layout (display/CLI)."""
+        if self.chains == "mesh":
+            return "mesh"
+        if self.chains == "vmap":
+            return "multichain"
+        return "shardmap" if self.data == "shardmap" else "vmap"
+
+    @property
+    def chain_axis(self) -> bool:
+        """Whether state leaves carry a leading chain axis."""
+        return self.chains != "none"
+
+    @property
+    def devices_needed(self) -> int:
+        """Real devices this layout requires (1 for pure-vmap layouts)."""
+        c = self.n_chains if self.chains == "mesh" else 1
+        p = self.P if self.data == "shardmap" else 1
+        return c * p
+
+    @classmethod
+    def for_driver(cls, driver: str, **kw) -> "SamplerSpec":
+        """Spec for a historical driver name (the DriverConfig shim path)."""
+        if driver not in DRIVERS:
+            raise ValueError(f"driver={driver!r} not in {tuple(DRIVERS)}")
+        chains, data = DRIVERS[driver]
+        return cls(chains=chains, data=data, **kw)
 
     def replace(self, **kw) -> "SamplerSpec":
         return dataclasses.replace(self, **kw)
 
 
 class Sampler:
-    """A built sampler on one device. Construct via ``build_sampler``."""
+    """A built sampler on one device: init/step/stale/canonicalize over
+    the single-device layouts. Construct via ``build_sampler``."""
 
     def __init__(self, spec: SamplerSpec, hyp: IBPHypers, X: Any,
                  device: torch.device):
@@ -181,6 +234,7 @@ class Sampler:
         self.N, self.D = N, X.shape[1]
         self.Xs = torch.as_tensor(
             self.X_global.reshape(spec.P, N // spec.P, self.D)).to(device)
+        self._fns = build_hybrid_fns(spec, hyp, N_global=N)
 
     def with_spec(self, spec: SamplerSpec) -> "Sampler":
         """This sampler under another ``spec`` of the same P, sharing the
@@ -192,26 +246,33 @@ class Sampler:
         _check_capacity(spec, self.device)
         out = copy.copy(self)
         out.spec = spec
+        out._fns = build_hybrid_fns(spec, self.hyp, N_global=self.N)
         return out
 
     def init(self, key: torch.Tensor | None = None):
-        """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``."""
+        """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``.
+        With a chain axis, chain c starts from ``prng.split(key, C)[c]``."""
         spec = self.spec
         if key is None:
             key = prng.key(spec.seed)
-        return init_hybrid(key, self.Xs, spec.K_max, K_tail=spec.K_tail,
-                           alpha=spec.alpha, sigma_x=spec.sigma_x,
-                           sigma_a=spec.sigma_a, K_init=spec.K_init)
+        kw = dict(K_tail=spec.K_tail, alpha=spec.alpha, sigma_x=spec.sigma_x,
+                  sigma_a=spec.sigma_a, K_init=spec.K_init)
+        if spec.chain_axis:
+            return init_multichain(key, self.Xs, spec.n_chains, spec.K_max,
+                                   **kw)
+        return init_hybrid(key, self.Xs, spec.K_max, **kw)
 
     def step(self, gs: HybridGlobal, ss: HybridShard):
         """One full hybrid iteration (sub-iterations + master sync)."""
-        return _hybrid_iteration_body(self.Xs, gs, ss, self.hyp, self.spec.L,
-                                      float(self.N), self.spec.chol_refresh,
-                                      self.spec.collapsed_backend)
+        return self._fns.step(self.Xs, gs, ss)
+
+    def stale(self, gs: HybridGlobal, ss: HybridShard):
+        """One bounded-staleness pass: sub-iterations, no sync (non-exact)."""
+        return self._fns.stale(self.Xs, gs, ss)
 
     def to_canonical(self, ss: HybridShard) -> HybridShard:
-        """Native state -> canonical (P, N_p, K) HybridShard (the same
-        on the single-device layout)."""
+        """Native state -> canonical (C?, P, N_p, K) HybridShard (the same
+        on the single-device layouts)."""
         return ss
 
     def from_canonical(self, ss: HybridShard) -> HybridShard:

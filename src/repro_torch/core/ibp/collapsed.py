@@ -45,6 +45,11 @@ hybrid tail, which the reference switches by ``pack``, takes no such
 switch: its float path is the same at either value of the spec's
 ``k_live_buckets``.
 
+Chains: the hybrid tail of C independent chains is one chained scan
+(a leading chain axis on the scan's state, rows and draws; one
+``collapsed_scan`` launch of C blocks on the card), each chain's draws
+from its own generator.
+
 Draws: a scan's randomness is drawn up front (``draw_scan``), as the
 reference hoists it, and passed in, so a test can feed the port the
 reference's own draws. A resumed segment reads the draws of its rows,
@@ -102,13 +107,23 @@ class ScanDraws:
 
 
 def draw_scan(n_rows: int, K: int, alpha: Tensor, N: float,
-              gen: torch.Generator, birth: str = "mh") -> ScanDraws:
+              gen: torch.Generator | list[torch.Generator],
+              birth: str = "mh") -> ScanDraws:
     """Draw a scan's randomness on ``alpha``'s device from ``gen``.
 
     Gibbs births take standard Gumbel noise, -log(-log U) with U clamped
-    below at the float32 tiny, as ``jax.random.gumbel`` draws it."""
+    below at the float32 tiny, as ``jax.random.gumbel`` draws it. With
+    C chains (``alpha`` of shape (C,), ``gen`` C generators) chain c's
+    draws come from generator c, stacked on a leading chain axis."""
     if birth not in BIRTHS:
         raise ValueError(f"birth={birth!r} not in {BIRTHS}")
+    if alpha.dim() == 1:
+        per = [draw_scan(n_rows, K, a, N, g, birth)
+               for a, g in zip(alpha, gen, strict=True)]
+        return ScanDraws(**{
+            f.name: None if getattr(per[0], f.name) is None else
+            torch.stack([getattr(d, f.name) for d in per])
+            for f in dataclasses.fields(ScanDraws)})
     dev, dt = alpha.device, alpha.dtype
     uu = torch.rand((n_rows, K), generator=gen, dtype=dt, device=dev)
     uu = torch.clamp(uu, 1e-7, 1.0 - 1e-7)
@@ -187,9 +202,9 @@ def _segment_scan(Z: Tensor, active: Tensor, ZtZ: Tensor, ZtX: Tensor,
     reference's ``_packed_scan``: rows ``start_row``.. on the packed
     block of ``B`` columns, flip flavor ``backend`` ("fast" or "pallas").
     Moves the canonical Z, active, ZtZ, ZtX and m in place and returns
-    the int32 device counts (n_refresh, n_sat, ovf_row); ``ovf_row`` is
-    the first row not committed, or -1 when the segment reached the last
-    row."""
+    the int32 device counts (n_refresh, n_sat, ovf_row), (C, 3) for a
+    chained scan; ``ovf_row`` is the first row not committed, or -1 when
+    the segment reached the last row."""
     gibbs = birth == "gibbs"
     return collapsed_scan(
         Z, active, ZtZ, ZtX, m, X, draws.u_logit, draws.j_prop,
@@ -230,12 +245,26 @@ def collapsed_row_scan(
     refactorizations (0 on the ``"ref"`` backend, which has no carry)
     and capacity-vetoed accepted MH births (0 for Gibbs births). The
     caller's tensors are not modified.
+
+    C chains (the hybrid tail of a chain-batched state): every argument
+    but ``N`` with a leading chain axis, ``draws`` as ``draw_scan`` stacks
+    them, MH births; the carried scan is one chained launch, the oracle
+    runs chain by chain; every output gains the chain axis.
     """
     backend = _check_backend(backend)
     if birth not in BIRTHS:
         raise ValueError(f"birth={birth!r} not in {BIRTHS}")
     if birth == "gibbs" and (alpha is None or draws.gumbel is None):
         raise ValueError("Gibbs births need alpha and draws.gumbel")
+    if Z.dim() == 3 and backend == "ref":
+        outs = [collapsed_row_scan(
+            Z[c], active[c], ZtZ[c], ZtX[c], m[c], X[c], sx[c], sa[c],
+            ScanDraws(**{f.name: None if getattr(draws, f.name) is None
+                         else getattr(draws, f.name)[c]
+                         for f in dataclasses.fields(ScanDraws)}),
+            N=N, alpha=None if alpha is None else alpha[c], birth=birth,
+            backend=backend) for c in range(Z.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     Z, active, ZtZ, ZtX, m = (t.clone(memory_format=torch.contiguous_format)
                               for t in (Z, active, ZtZ, ZtX, m))
     if backend == "ref":
@@ -248,8 +277,8 @@ def collapsed_row_scan(
     counts = _segment_scan(
         Z, active, ZtZ, ZtX, m, X, sx, sa, draws, N=N, alpha=alpha,
         birth=birth, backend=backend, refresh_every=refresh_every,
-        drift_tol=drift_tol, B=Z.shape[1])
-    return Z, active, ZtZ, ZtX, m, counts[0], counts[1]
+        drift_tol=drift_tol, B=Z.shape[-1])
+    return Z, active, ZtZ, ZtX, m, counts[..., 0], counts[..., 1]
 
 
 def _sweep_stats(Z: Tensor, active: Tensor, X: Tensor

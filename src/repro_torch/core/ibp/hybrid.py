@@ -1,8 +1,10 @@
 """The paper's hybrid parallel MCMC sampler for the IBP, on one device.
 
-Port of the single-device layout of ``repro/core/ibp/hybrid.py``
-(``_hybrid_iteration_body``: P shards simulated on one device). One
-global iteration (paper Sec. 3):
+Port of the single-device layouts of ``repro/core/ibp/hybrid.py``
+(``_hybrid_iteration_body``: P shards simulated on one device; with
+chains="vmap", C independent chains: ``init_multichain``, the iteration
+under ``jax.vmap``, and the bounded-staleness pass). One global
+iteration (paper Sec. 3):
 
   for l = 1..L sub-iterations:
       every shard p:   uncollapsed Gibbs sweep of Z over the K+ instantiated
@@ -32,10 +34,20 @@ Where the port differs in form, not in algorithm:
   control flow (which shard runs the tail, which generator draws what),
   and keeping them there means an iteration never waits on the device.
   p' is drawn from a CPU generator.
+* Chains: the iteration is written chain-batched (every leaf with a
+  leading chain axis C; keys (C, 2), p' and it (C,)); a chainless state
+  runs as a chain of one. Each chain's sweeps, ``feature_stats`` and
+  ``gaussian_sse`` are launches of their own (each chain has its own A,
+  pi, active and sigma_x); each sub-iteration gathers every chain's tail
+  rows from its own p' and runs the C tails as ONE chained
+  ``collapsed_scan`` launch, C blocks on C SMs, then scatters them
+  back. Chain c's keys are derived from its own key row, so chain c
+  follows the single-chain iteration on its own state.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -77,6 +89,21 @@ class HybridShard:
     Z: Tensor            # (P, N_p, K_max)
     Z_tail: Tensor       # (P, N_p, K_tail)
     tail_active: Tensor  # (P, K_tail)
+
+
+def chain_of(tree, c: int):
+    """Chain c of a chain-batched HybridGlobal or HybridShard (views)."""
+    return dataclasses.replace(tree, **{
+        f.name: getattr(tree, f.name)[c] for f in dataclasses.fields(tree)})
+
+
+def stack_chains(trees: list):
+    """HybridGlobals (or HybridShards) of C chains -> one chain-batched
+    state, every leaf stacked on a leading chain axis on its own device
+    (the host fields stay on the host)."""
+    return dataclasses.replace(trees[0], **{
+        f.name: torch.stack([getattr(t, f.name) for t in trees])
+        for f in dataclasses.fields(trees[0])})
 
 
 def _host_int(v: int) -> Tensor:
@@ -136,6 +163,70 @@ def init_hybrid(
     return gs, ss
 
 
+def init_multichain(
+    key: Tensor,
+    X_shards: Tensor,  # (P, N_p, D), shared by every chain
+    C: int,
+    K_max: int,
+    **kw,
+) -> tuple[HybridGlobal, HybridShard]:
+    """C independent chains: every state leaf gains a leading chain axis.
+
+    Chains share the data but start from ``prng.split(key, C)``, so chain
+    c is ``init_hybrid`` from key c and the trajectories are independent,
+    as split-R-hat needs."""
+    outs = [init_hybrid(k, X_shards, K_max, **kw)
+            for k in prng.split(key, C)]
+    return (stack_chains([o[0] for o in outs]),
+            stack_chains([o[1] for o in outs]))
+
+
+def _chain_tails(
+    X_p: Tensor,
+    Z: Tensor,
+    Z_tail: Tensor,
+    tail_active: Tensor,
+    gs: HybridGlobal,
+    N_global: float,
+    gens: list[torch.Generator],
+    chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "fast",
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Collapsed Gibbs + MH births on the tails of C chains, each on its
+    own p′: X_p (C, N_p, D) and Z (C, N_p, K_max) the rows of each chain's
+    p′, Z_tail (C, N_p, K_tail), tail_active (C, K_tail), ``gs``
+    chain-batched, ``gens`` a generator a chain.
+
+    ``collapsed_backend`` selects the row step: "fast" (the rss flip with
+    the carried G) or "pallas" (the mean-form flip), each the carried
+    scan, one ``collapsed_scan`` launch for all C chains on the card;
+    "ref" the O(K^3) oracle ``_row_step``. The tail runs its full K_tail
+    width; the reference's ``k_live_pack`` switch has no counterpart,
+    because the port carries G for "fast" either way (``collapsed``
+    module docstring). A chain's residual and statistics are computed on
+    its own, as a single chain's would be. Returns (Z_tail, tail_active,
+    n_sat): ``n_sat`` (C,) counts rows whose accepted MH birth was vetoed
+    purely by K_tail capacity.
+    """
+    C = Z_tail.shape[0]
+    # residual given instantiated features = the tail model's data
+    R = torch.stack([X_p[c] - (Z[c] * gs.active[c][None, :]) @ gs.A[c]
+                     for c in range(C)])
+    m_t = torch.sum(Z_tail, dim=1)
+    ZtZ_t = torch.stack([Z_tail[c].T @ Z_tail[c] for c in range(C)])
+    ZtR = torch.stack([Z_tail[c].T @ R[c] for c in range(C)])
+    draws = draw_scan(R.shape[1], Z_tail.shape[2], gs.alpha, N_global, gens)
+    Z_tail, tail_active, _, _, m_t, _, n_sat = collapsed_row_scan(
+        Z_tail, tail_active, ZtZ_t, ZtR, m_t, R, gs.sigma_x, gs.sigma_a,
+        draws, N=N_global, birth="mh", backend=collapsed_backend,
+        refresh_every=chol_refresh,
+    )
+    # prune dead tail columns
+    tail_active = tail_active * (m_t > 0.5)
+    Z_tail = Z_tail * tail_active[:, None, :]
+    return Z_tail, tail_active, n_sat
+
+
 def _tail_sub_iteration(
     X_p: Tensor,
     Z: Tensor,
@@ -147,32 +238,14 @@ def _tail_sub_iteration(
     chol_refresh: int = DEFAULT_REFRESH,
     collapsed_backend: str = "fast",
 ) -> tuple[Tensor, Tensor, Tensor]:
-    """Collapsed Gibbs + MH births on the tail of shard p'.
-
-    ``collapsed_backend`` selects the row step: "fast" (the rss flip with
-    the carried G) or "pallas" (the mean-form flip), each the carried
-    scan, one ``collapsed_scan`` launch on the card; "ref" the O(K^3)
-    oracle ``_row_step``. The tail runs its full K_tail width; the
-    reference's ``k_live_pack`` switch has no counterpart, because the
-    port carries G for "fast" either way (``collapsed`` module
-    docstring). Returns (Z_tail, tail_active, n_sat): ``n_sat`` counts
-    rows whose accepted MH birth was vetoed purely by K_tail capacity.
-    """
-    # residual given instantiated features = the tail model's data
-    R = X_p - (Z * gs.active[None, :]) @ gs.A
-    m_t = torch.sum(Z_tail, dim=0)
-    ZtZ_t = Z_tail.T @ Z_tail
-    ZtR = Z_tail.T @ R
-    draws = draw_scan(R.shape[0], Z_tail.shape[1], gs.alpha, N_global, gen)
-    Z_tail, tail_active, _, _, m_t, _, n_sat = collapsed_row_scan(
-        Z_tail, tail_active, ZtZ_t, ZtR, m_t, R, gs.sigma_x, gs.sigma_a,
-        draws, N=N_global, birth="mh", backend=collapsed_backend,
-        refresh_every=chol_refresh,
-    )
-    # prune dead tail columns
-    tail_active = tail_active * (m_t > 0.5)
-    Z_tail = Z_tail * tail_active[None, :]
-    return Z_tail, tail_active, n_sat
+    """``_chain_tails`` for one chain (chainless arguments): the tail of
+    shard p′, one ``collapsed_scan`` launch on the card. Returns
+    (Z_tail, tail_active, n_sat)."""
+    out = _chain_tails(X_p[None], Z[None], Z_tail[None], tail_active[None],
+                       stack_chains([gs]), N_global, [gen],
+                       chol_refresh=chol_refresh,
+                       collapsed_backend=collapsed_backend)
+    return tuple(t[0] for t in out)
 
 
 def shard_sub_iterations(
@@ -186,34 +259,52 @@ def shard_sub_iterations(
     chol_refresh: int = DEFAULT_REFRESH,
     collapsed_backend: str = "fast",
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """L sub-iterations of the paper's inner loop on all P shards.
+    """L sub-iterations of the paper's inner loop on all P shards of C
+    chains: Z (C, P, N_p, K_max), Z_tail (C, P, N_p, K_tail),
+    tail_active (C, P, K_tail), ``gs`` chain-batched.
 
-    Each sub-iteration sweeps every shard's rows in one call, then runs
-    the tail on p'. Returns (Z, Z_tail, tail_active, n_sat).
+    Each sub-iteration sweeps every shard's rows of a chain in one
+    ``gibbs_flip`` call (C calls: each chain has its own A, π, active and
+    σ_x), then gathers each chain's tail on its own p′ into (C, N_p, ·)
+    buffers, runs the C tails as one chained scan and scatters them
+    back. Chain c's keys are derived from its key row exactly as a
+    single chain's. Returns (Z, Z_tail, tail_active, n_sat (C,)).
     """
+    C = Z.shape[0]
     P_, N_p, D = X_shards.shape
     dev = X_shards.device
-    pp = int(gs.p_prime)
+    pps = [int(p) for p in gs.p_prime.tolist()]
     Xf = X_shards.reshape(P_ * N_p, D)
-    Zf = Z.reshape(P_ * N_p, -1)
+    Zf = [Z[c].reshape(P_ * N_p, -1) for c in range(C)]
     Z_tail, tail_active = Z_tail.clone(), tail_active.clone()
-    n_sat = torch.zeros((), dtype=torch.int32, device=dev)
+    n_sat = torch.zeros((C,), dtype=torch.int32, device=dev)
     k_all = prng.fold_in(gs.key, _ALL_SHARDS)
-    k_pp = prng.fold_in(gs.key, pp)
+    k_pp = torch.stack([prng.fold_in(gs.key[c], pp)
+                        for c, pp in enumerate(pps)])
     for l in range(L):
         ku, _ = prng.split(prng.fold_in(k_all, l), 2)
         _, kt = prng.split(prng.fold_in(k_pp, l), 2)
-        Zf = uncollapsed_sweep(Xf, Zf, gs.A, gs.pi, gs.active, gs.sigma_x,
-                               prng.generator(ku, dev))
-        Zt, ta, sat = _tail_sub_iteration(
-            X_shards[pp], Zf.view(P_, N_p, -1)[pp], Z_tail[pp],
-            tail_active[pp], gs, N_global, prng.generator(kt, dev),
+        for c in range(C):
+            Zf[c] = uncollapsed_sweep(Xf, Zf[c], gs.A[c], gs.pi[c],
+                                      gs.active[c], gs.sigma_x[c],
+                                      prng.generator(ku[c], dev))
+        # gathered and scattered by host indices (views and copies on
+        # the device), so no index tensor is copied to the device
+        Zt, ta, sat = _chain_tails(
+            torch.stack([X_shards[pp] for pp in pps]),
+            torch.stack([Zf[c].view(P_, N_p, -1)[pp]
+                         for c, pp in enumerate(pps)]),
+            torch.stack([Z_tail[c, pp] for c, pp in enumerate(pps)]),
+            torch.stack([tail_active[c, pp] for c, pp in enumerate(pps)]),
+            gs, N_global, [prng.generator(k, dev) for k in kt],
             chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
         )
-        Z_tail[pp] = Zt
-        tail_active[pp] = ta
+        for c, pp in enumerate(pps):
+            Z_tail[c, pp] = Zt[c]
+            tail_active[c, pp] = ta[c]
         n_sat = n_sat + sat
-    return Zf.view(P_, N_p, -1), Z_tail, tail_active, n_sat
+    return (torch.stack([z.view(P_, N_p, -1) for z in Zf]), Z_tail,
+            tail_active, n_sat)
 
 
 def promote_tail(
@@ -319,24 +410,20 @@ def master_step2(
                             dtype=torch.int32)
     return sigma_x, sigma_a, alpha, p_prime
 
-
-def _hybrid_iteration_body(
-    X_shards: Tensor,  # (P, N_p, D)
+def _master_sync(
+    X_shards: Tensor,
     gs: HybridGlobal,
-    ss: HybridShard,
+    Z: Tensor,
+    Z_tail: Tensor,
+    tail_active: Tensor,
+    n_sat: Tensor,
     hyp,
-    L: int,
     N_g: float,
-    chol_refresh: int = DEFAULT_REFRESH,
-    collapsed_backend: str = "fast",
 ) -> tuple[HybridGlobal, HybridShard]:
-    """One full hybrid iteration (sub-iterations + master sync)."""
+    """One chain's master sync after its sub-iterations (chainless
+    arguments): promote p′'s tail, the statistics, A and π, the SSE, σ,
+    α and the next p′; the tails are cleared."""
     P_, N_p, D = X_shards.shape
-    Z, Z_tail, tail_active, n_sat = shard_sub_iterations(
-        X_shards, ss.Z, ss.Z_tail, ss.tail_active, gs, N_g, L,
-        chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
-    )
-    # ---- master sync
     tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero
     Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
     stats = local_stats(X_shards, Z)
@@ -356,7 +443,155 @@ def _hybrid_iteration_body(
     )
     ss_new = HybridShard(
         Z=Z,
-        Z_tail=torch.zeros_like(ss.Z_tail),
-        tail_active=torch.zeros_like(ss.tail_active),
+        Z_tail=torch.zeros_like(Z_tail),
+        tail_active=torch.zeros_like(tail_active),
     )
     return gs_new, ss_new
+
+
+def _chain_iteration_body(
+    X_shards: Tensor,  # (P, N_p, D), shared by every chain
+    gs: HybridGlobal,
+    ss: HybridShard,
+    hyp,
+    L: int,
+    N_g: float,
+    chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "fast",
+) -> tuple[HybridGlobal, HybridShard]:
+    """One full hybrid iteration of C independent chains (every leaf of
+    ``gs`` and ``ss`` with a leading chain axis): the reference's
+    ``_hybrid_iteration_body`` under ``jax.vmap``. The sub-iterations run
+    the C tails as one chained scan; each chain's sync is its own."""
+    Z, Z_tail, tail_active, n_sat = shard_sub_iterations(
+        X_shards, ss.Z, ss.Z_tail, ss.tail_active, gs, N_g, L,
+        chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
+    )
+    outs = [_master_sync(X_shards, chain_of(gs, c), Z[c], Z_tail[c],
+                         tail_active[c], n_sat[c], hyp, N_g)
+            for c in range(Z.shape[0])]
+    return (stack_chains([o[0] for o in outs]),
+            stack_chains([o[1] for o in outs]))
+
+
+def _chain_stale_body(
+    X_shards: Tensor,
+    gs: HybridGlobal,
+    ss: HybridShard,
+    L: int,
+    N_g: float,
+    chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "fast",
+) -> tuple[HybridGlobal, HybridShard]:
+    """Bounded-staleness pass of C chains (chain-batched state): the
+    sub-iterations WITHOUT the master sync (DESIGN.md §10).
+
+    Shards keep Gibbs-sweeping Z (and p′ keeps exploring its tail)
+    against stale global parameters; tails carry over into the next full
+    iteration's promotion. Non-exact by construction. The key consumed by
+    the sweeps (fold 13) and the key handed on (fold 14) differ:
+    returning the consumed key would make the next iteration replay the
+    same uniforms. ``gs`` is otherwise untouched: saturation on a stale
+    pass is not counted, as in the reference.
+    """
+    gs_sweep = dataclasses.replace(gs, key=prng.fold_in(gs.key, 13))
+    Z, Z_tail, tail_active, _ = shard_sub_iterations(
+        X_shards, ss.Z, ss.Z_tail, ss.tail_active, gs_sweep, N_g, L,
+        chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
+    )
+    gs_out = dataclasses.replace(gs, key=prng.fold_in(gs.key, 14))
+    return gs_out, HybridShard(Z=Z, Z_tail=Z_tail, tail_active=tail_active)
+
+
+def _one_chain(fn, X_shards: Tensor, gs: HybridGlobal, ss: HybridShard,
+               *args) -> tuple[HybridGlobal, HybridShard]:
+    """A chain-batched body run on a chainless state, as a chain of one."""
+    gs, ss = fn(X_shards, stack_chains([gs]), stack_chains([ss]), *args)
+    return chain_of(gs, 0), chain_of(ss, 0)
+
+
+def _hybrid_iteration_body(
+    X_shards: Tensor,  # (P, N_p, D)
+    gs: HybridGlobal,
+    ss: HybridShard,
+    hyp,
+    L: int,
+    N_g: float,
+    chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "fast",
+) -> tuple[HybridGlobal, HybridShard]:
+    """One full hybrid iteration (sub-iterations + master sync) of one
+    chain: ``_chain_iteration_body`` on a chain of one."""
+    return _one_chain(_chain_iteration_body, X_shards, gs, ss, hyp, L, N_g,
+                      chol_refresh, collapsed_backend)
+
+
+def _hybrid_stale_body(
+    X_shards: Tensor,
+    gs: HybridGlobal,
+    ss: HybridShard,
+    L: int,
+    N_g: float,
+    chol_refresh: int = DEFAULT_REFRESH,
+    collapsed_backend: str = "fast",
+) -> tuple[HybridGlobal, HybridShard]:
+    """The bounded-staleness pass of one chain: ``_chain_stale_body`` on a
+    chain of one."""
+    return _one_chain(_chain_stale_body, X_shards, gs, ss, L, N_g,
+                      chol_refresh, collapsed_backend)
+
+
+# --------------------------------------------------------------------------
+# the spec-driven construction path (the reference's DESIGN.md §13)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridFns:
+    """The iteration functions of a layout: ``step(X_shards, gs, ss) ->
+    (gs, ss)`` and the bounded-staleness pass ``stale`` in the same
+    convention, on HybridShard state (chain-batched leaves when
+    chains="vmap")."""
+
+    step: Any
+    stale: Any
+
+
+def build_hybrid_fns(spec, hyp, *, N_global: int) -> HybridFns:
+    """Build the hybrid iteration for ``spec``'s parallelism layout: the
+    kernel knobs (``L``, ``collapsed_backend``, ``chol_refresh``) and the
+    layout (``chains`` x ``data``) are read off ``spec`` (a
+    ``SamplerSpec`` or anything with those attributes)."""
+    N_g = float(N_global)
+    if spec.chains in ("none", "vmap") and spec.data == "vmap":
+        return _build_vmap_fns(spec, hyp, N_g)
+    return _build_mesh_fns(spec, hyp, N_g)
+
+
+def _build_vmap_fns(spec, hyp, N_g: float) -> HybridFns:
+    """Single-device layouts: P shards as a batch axis, and with
+    chains="vmap" C chains as a leading axis of every state leaf (the
+    reference vmaps the iteration over it; here the C tails share one
+    chained scan)."""
+    L, cb, cr = spec.L, spec.collapsed_backend, spec.chol_refresh
+    if spec.chains == "vmap":
+        body, stale = _chain_iteration_body, _chain_stale_body
+    else:
+        body, stale = _hybrid_iteration_body, _hybrid_stale_body
+
+    def step(Xs, gs, ss):
+        return body(Xs, gs, ss, hyp, L, N_g, cr, cb)
+
+    def stale_pass(Xs, gs, ss):
+        return stale(Xs, gs, ss, L, N_g, cr, cb)
+
+    return HybridFns(step=step, stale=stale_pass)
+
+
+def _build_mesh_fns(spec, hyp, N_g: float) -> HybridFns:
+    """The mesh layouts (data="shardmap", chains="mesh") need several
+    devices and ``torch.distributed``; they are not ported."""
+    raise NotImplementedError(
+        f"layout chains={spec.chains!r} x data={spec.data!r} is not ported "
+        f"yet; it comes with ROADMAP queue 1 item 8b (the torch.distributed "
+        f"layouts)")

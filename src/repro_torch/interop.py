@@ -5,8 +5,10 @@ port.
 and ``HybridShard``, ``state_from_reference`` those of its ``IBPState``,
 ``bank_from_reference`` those of its ``SampleBank``, as numpy arrays
 (the key as ``jax.random.key_data``, uint32[2]), and each returns the
-port's counterpart on ``device``. Tests use them to start both packages
-from the same state.
+port's counterpart on ``device``. A chain-batched state (the reference's
+``init_multichain``) keeps its leading chain axis on every leaf, keys
+(C, 2) included. Tests use them to start both packages from the same
+state.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ _HOST_FIELDS = ("key", "p_prime", "it")
 def _field(name: str, value, dev: torch.device) -> torch.Tensor:
     a = np.asarray(value)
     if name == "key":
-        return torch.as_tensor(a.astype(np.uint32).reshape(2))
+        return torch.as_tensor(a.astype(np.uint32).reshape(*a.shape[:-1], 2))
     if a.dtype.kind in "iu":
         t = torch.as_tensor(a.astype(np.int32))
     else:

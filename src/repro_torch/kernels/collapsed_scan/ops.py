@@ -6,6 +6,10 @@ rows; sx, sa and (for Gibbs births) alpha are 0-d device tensors read by
 the kernel, the packed block is gathered and scattered back by index ops
 on the device, and the counts come back in a device tensor, so a scan
 needs no host sync.
+
+A chained scan (a leading chain axis C on every per-chain input) scans C
+independent chains' tails in one launch of C blocks, one chain a block:
+MH births on the full width from row 0, the hybrid tail's case.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _fns():
     launch = _build.function(
         "collapsed_scan", "collapsed_scan_launch",
-        [_I] + [_P] * 16 + [_I] * 5 + [_F, _I, _F, _I, _I, _P])
+        [_I] + [_P] * 16 + [_I] * 5 + [_F, _I, _F, _I, _I, _I, _P])
     scratch = _build.function("collapsed_scan",
                               "collapsed_scan_scratch_floats", [_I] * 3,
                               ctypes.c_long)
@@ -50,7 +54,13 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
     Precondition, not checked here (it would be a host read): the block
     holds every live column, ``B >= sum(active)``. A smaller block would
     leave live columns out, and writing the block back zeroes their
-    statistics."""
+    statistics.
+
+    Chained: Z (C, n_rows, K), active (C, K), ZtZ (C, K, K), ZtX (C, K,
+    D), m (C, K), X (C, n_rows, D), u_logit (C, n_rows, K), j_prop and
+    log_u_acc (C, n_rows), sx and sa (C,): C independent scans, MH births
+    on the full width (B = K) from row 0, in one launch on the card;
+    returns counts (C, 3)."""
     name = "collapsed_scan"
     gibbs = gumbel is not None
     births = (gumbel, alpha) if gibbs else (j_prop, log_u_acc)
@@ -59,12 +69,18 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
         raise ValueError(f"{name}: {need} are needed for its births")
     if flavor not in FLAVORS:
         raise ValueError(f"{name}: flavor={flavor!r} not in {FLAVORS}")
-    n_rows, D = X.shape
-    K = Z.shape[1]
+    chained = Z.dim() == 3
+    lead = tuple(Z.shape[:1]) if chained else ()
+    n_rows, K = Z.shape[-2:]
+    D = X.shape[-1]
     B = K if B is None else B
     if not (1 <= B <= K and 0 <= start_row <= n_rows):
         raise ValueError(f"{name}: B={B} must be in [1, {K}] and "
                          f"start_row={start_row} in [0, {n_rows}]")
+    if chained and (gibbs or B != K or start_row != 0):
+        raise ValueError(f"{name}: a chained scan takes MH births on the "
+                         f"full width from row 0 (gibbs={gibbs}, B={B} of "
+                         f"K={K}, start_row={start_row})")
     args = (Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, sx, sa)
     kw = dict(N=N, refresh_every=refresh_every, drift_tol=drift_tol,
               gumbel=gumbel, alpha=alpha, flavor=flavor, B=B,
@@ -72,26 +88,31 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
     if on_cpu(name, *(t for t in (*args, *births) if t is not None)):
         return collapsed_scan_ref(*args, **kw)
     draws = (dict(gumbel=(gumbel, (n_rows, J_MAX + 1)), alpha=(alpha, ()))
-             if gibbs else dict(j_prop=(j_prop, (n_rows,)),
-                                log_u_acc=(log_u_acc, (n_rows,))))
-    expect(name, (torch.float32,), Z=(Z, (n_rows, K)), active=(active, (K,)),
-           ZtZ=(ZtZ, (K, K)), ZtX=(ZtX, (K, D)), m=(m, (K,)),
-           X=(X, (n_rows, D)), u_logit=(u_logit, (n_rows, K)),
-           sx=(sx, ()), sa=(sa, ()), **draws)
+             if gibbs else dict(j_prop=(j_prop, (*lead, n_rows)),
+                                log_u_acc=(log_u_acc, (*lead, n_rows))))
+    expect(name, (torch.float32,), Z=(Z, (*lead, n_rows, K)),
+           active=(active, (*lead, K)), ZtZ=(ZtZ, (*lead, K, K)),
+           ZtX=(ZtX, (*lead, K, D)), m=(m, (*lead, K)),
+           X=(X, (*lead, n_rows, D)), u_logit=(u_logit, (*lead, n_rows, K)),
+           sx=(sx, lead), sa=(sa, lead), **draws)
     launch, scratch = _fns()
+    C = lead[0] if chained else 1
     canon = (active, ZtZ, ZtX, m)
-    cols, _, block = gather_block(*canon, B)
-    block = tuple(t.contiguous() for t in block)
-    counts = torch.empty((3,), dtype=torch.int32, device=X.device)
-    arena = torch.empty((scratch(X.device.index, B, D),), dtype=torch.float32,
-                        device=X.device)
+    if chained:  # the full width: the kernel moves the buffers in place
+        cols, block = torch.arange(K, device=X.device), canon
+    else:
+        cols, _, block = gather_block(*canon, B)
+        block = tuple(t.contiguous() for t in block)
+    counts = torch.empty((*lead, 3), dtype=torch.int32, device=X.device)
+    arena = torch.empty((C * scratch(X.device.index, B, D),),
+                        dtype=torch.float32, device=X.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = launch(X.device.index,
                 *(ptr(t) for t in (Z, *block, X, u_logit, j_prop, log_u_acc,
                                    gumbel, sx, sa, alpha, cols, counts,
                                    arena)),
                 n_rows, K, B, D, start_row, float(N), int(refresh_every),
-                float(drift_tol), int(gibbs), int(flavor == "fast"),
+                float(drift_tol), int(gibbs), int(flavor == "fast"), C,
                 stream(X))
     _build.check(rc, name)
     counter.launches += 1

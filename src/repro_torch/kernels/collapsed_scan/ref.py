@@ -221,7 +221,20 @@ def collapsed_scan_ref(
     ovf_row): exact refactorizations and capacity-vetoed accepted MH
     births of the committed rows, and the row whose birth overflowed the
     block (not committed; -1 when the scan reached the last row).
+
+    Chained (a leading chain axis C on Z, active, ZtZ, ZtX, m, X,
+    u_logit, j_prop, log_u_acc, sx and sa, as the kernel's chained launch
+    takes them): the single-chain scan chain by chain, counts (C, 3).
     """
+    if Z.dim() == 3:
+        if gumbel is not None:
+            raise ValueError("a chained scan takes MH births")
+        per_chain = (Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
+                     sx, sa)
+        return torch.stack([collapsed_scan_ref(
+            *(t[c] for t in per_chain), N=N, refresh_every=refresh_every,
+            drift_tol=drift_tol, gumbel=gumbel, alpha=alpha, flavor=flavor,
+            B=B, start_row=start_row) for c in range(Z.shape[0])])
     if flavor not in FLAVORS:
         raise ValueError(f"flavor={flavor!r} not in {FLAVORS}")
     n_rows, D = X.shape

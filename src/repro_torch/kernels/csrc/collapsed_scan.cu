@@ -42,6 +42,10 @@
 // reductions over D. The design therefore spends nothing between rows:
 //   * one block of 256 threads walks every row, so there is no launch and
 //     no host sync per row;
+//   * C independent chains (the multichain sampler's tails) are C blocks
+//     of one launch (instances of their own, CHAINED), each on its own
+//     SM, so they take about the wall time of one: a single chain leaves
+//     the other SMs idle;
 //   * the carry (Lt, M, H, G, their row-removed copies, ZtZ, ZtX, m,
 //     active and the row's vectors) stays in shared memory when it fits
 //     (about 3 B D + 9 B^2 + 2 D floats and two row stages: 224 KB at
@@ -305,14 +309,19 @@ __device__ __forceinline__ void prefetch_row(
   }
 }
 
-// One block scans rows start_row.. of the segment. RING: the carry is in
+// One block scans rows start_row.. of the segment. CHAINED: a launch of C
+// blocks scans C independent chains (the hybrid tails of C chains, MH
+// births at the full width), blockIdx.x the chain; its own instances, so
+// that a single chain's launch runs the code it ran before the chain axis
+// (the moved pointers would hold registers through the row loop that the
+// kernel's parameters do not). RING: the carry is in
 // dynamic shared memory and rows stream through the ring; otherwise the
 // carry is the global scratch ``arena`` and rows are read where they lie,
 // and (``stage_rec``) the rss pass reads M1, G1, v, rH and z from a copy
 // in dynamic shared memory. FAST: the rss flip with the carried G, else
 // the mean form (each flavor its own instance, so the mean form carries
 // no code of the other).
-template <bool RING, bool FAST>
+template <bool RING, bool FAST, bool CHAINED>
 __global__ void __launch_bounds__(THREADS)
 collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       float* __restrict__ ZtZ_io, float* __restrict__ ZtX_io,
@@ -330,6 +339,26 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       float N, int refresh_every, float drift_tol, bool gibbs,
                       bool stage_rec) {
   constexpr bool fast = FAST;
+  // chain c's buffers: each per-chain input is C copies stacked
+  // chain-major, so a pointer moves by c times one chain's extent; cols
+  // is shared, and a chained launch takes no Gibbs births (the launcher
+  // refuses them)
+  if constexpr (CHAINED) {
+    const long c = blockIdx.x;
+    Z += c * n_rows * K_can;
+    u_logit += c * n_rows * K_can;
+    X += c * n_rows * D;
+    active_io += c * K;
+    m_io += c * K;
+    ZtZ_io += c * K * K;
+    ZtX_io += c * K * D;
+    j_prop += c * n_rows;
+    log_u_acc += c * n_rows;
+    sx_p += c;
+    sa_p += c;
+    counts += 3 * c;
+    if constexpr (!RING) arena_g += c * layout(K, D, false).total;
+  }
   extern __shared__ float4 sh4[];
   __shared__ float red[2 * NW];
   float* arena = RING ? reinterpret_cast<float*>(sh4) : arena_g;
@@ -898,13 +927,16 @@ cudaError_t allow_smem(int device) {
   const bool cached = device >= 0 && device < MAX_DEVICES;
   if (cached && done[device]) return cudaSuccess;
   const int bytes = smem_optin(device) - (int)(2 * NW * sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(
-      collapsed_scan_kernel<true, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(collapsed_scan_kernel<true, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+  decltype(&collapsed_scan_kernel<true, false, false>) const ring[] = {
+      collapsed_scan_kernel<true, false, false>,
+      collapsed_scan_kernel<true, true, false>,
+      collapsed_scan_kernel<true, false, true>,
+      collapsed_scan_kernel<true, true, true>};
+  cudaError_t e = cudaSuccess;
+  for (auto kernel : ring)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && cached) done[device] = true;
   return e;
 }
@@ -936,8 +968,12 @@ extern "C" long collapsed_scan_scratch_floats(int device, int K, int D) {
 // and alpha (a device scalar), the other pair unread (may be null); the
 // flip in mean form (fast 0) or in rss form with the carried G (fast 1);
 // counts (3 int32): n_refresh, n_sat, ovf_row; scratch:
-// collapsed_scan_scratch_floats(device, K, D) floats. Returns the CUDA
-// error of the launch (0 on success).
+// collapsed_scan_scratch_floats(device, K, D) floats. chains > 1 scans C
+// independent chains in one launch of C blocks: Z, active, ZtZ, ZtX, m,
+// X, u_logit, j_prop, log_u_acc, sx, sa, counts and the scratch are C
+// copies stacked chain-major, cols is shared; births by MH only, at the
+// full width (K == K_can) from row 0. Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int collapsed_scan_launch(
     int device, float* Z, float* active, float* ZtZ, float* ZtX, float* m,
     const float* X, const float* u_logit, const float* j_prop,
@@ -945,8 +981,10 @@ extern "C" int collapsed_scan_launch(
     const float* sa, const float* alpha, const long long* cols, int* counts,
     float* scratch, int n_rows, int K_can, int K, int D, int start_row,
     float N, int refresh_every, float drift_tol, int gibbs, int fast,
-    void* stream_) {
+    int chains, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
+  if (chains < 1 || (chains > 1 && (gibbs || K != K_can || start_row != 0)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   size_t bytes;
@@ -958,11 +996,17 @@ extern "C" int collapsed_scan_launch(
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     bytes = fast ? rec_stage_bytes(K) : 0;
   }
-  auto kernel = ring ? (fast ? collapsed_scan_kernel<true, true>
-                             : collapsed_scan_kernel<true, false>)
-                     : (fast ? collapsed_scan_kernel<false, true>
-                             : collapsed_scan_kernel<false, false>);
-  kernel<<<1, THREADS, bytes, stream>>>(
+  auto kernel =
+      chains > 1
+          ? (ring ? (fast ? collapsed_scan_kernel<true, true, true>
+                          : collapsed_scan_kernel<true, false, true>)
+                  : (fast ? collapsed_scan_kernel<false, true, true>
+                          : collapsed_scan_kernel<false, false, true>))
+          : (ring ? (fast ? collapsed_scan_kernel<true, true, false>
+                          : collapsed_scan_kernel<true, false, false>)
+                  : (fast ? collapsed_scan_kernel<false, true, false>
+                          : collapsed_scan_kernel<false, false, false>));
+  kernel<<<chains, THREADS, bytes, stream>>>(
       Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
       alpha, cols, counts, ring ? nullptr : scratch, n_rows, K_can, K, D,
       start_row, N, refresh_every, drift_tol, gibbs != 0, bytes > 0);

@@ -1,13 +1,17 @@
 """IBP hybrid-MCMC launcher of the port, end to end on one device.
 
 The CLI builds a ``SamplerSpec`` and hands it to ``MCMCDriver``, as
-``repro.launch.mcmc`` does, with the flags of the knobs the port
-supports plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions of the kernels).
+``repro.launch.mcmc`` does, with the reference's flags plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain PyTorch versions of the
+kernels). ``--driver shardmap`` and ``mesh`` need several devices and
+are not ported (ROADMAP item 8b).
 
 Usage:
   python -m repro_torch.launch.mcmc --N 1000 --P 5 --iters 1000 --L 5
   python -m repro_torch.launch.mcmc --device cpu --N 120 --P 3 --iters 30
+  # C chains on one device (R-hat / ESS columns), bounded staleness
+  python -m repro_torch.launch.mcmc --driver multichain --chains 4 \
+      --stale-sync 1 ...
 
 Posterior-predictive harvest:
 
@@ -26,6 +30,7 @@ import math
 import os
 
 from repro_torch.core.ibp import IBPHypers, SamplerSpec
+from repro_torch.core.ibp.api import DRIVERS
 from repro_torch.core.ibp.collapsed import DEFAULT_REFRESH
 from repro_torch.data import cambridge_data, train_eval_split
 from repro_torch.runtime import MCMCDriver
@@ -51,6 +56,19 @@ def main(argv=None):
     ap.add_argument("--sigma-n", type=float, default=0.5)
     ap.add_argument("--ckpt-dir", default="artifacts/ckpt/mcmc")
     ap.add_argument("--eval-every", type=int, default=20)
+    ap.add_argument("--driver", default="vmap", choices=sorted(DRIVERS),
+                    help="parallelism layout: vmap (single device), "
+                         "multichain (C chains vmapped), shardmap (P-device "
+                         "data mesh), mesh (C chains x P data shards on a "
+                         "2-D mesh; needs C*P devices)")
+    ap.add_argument("--chains", type=int, default=None,
+                    help="chain count for --driver multichain/mesh "
+                         "(default 4 / 2); values > 1 require a chainful "
+                         "driver")
+    ap.add_argument("--sync", default="staged", choices=["staged", "fused"],
+                    help="master-sync schedule for --driver shardmap/mesh")
+    ap.add_argument("--stale-sync", type=int, default=0,
+                    help="bounded-staleness passes per iteration (non-exact)")
     ap.add_argument("--collapsed-backend", default="fast",
                     choices=["ref", "fast", "pallas"],
                     help="tail collapsed row step (default: fast — the "
@@ -86,7 +104,13 @@ def main(argv=None):
 
     X, _, _ = cambridge_data(N=args.N, sigma_n=args.sigma_n, seed=args.seed)
     X_train, X_eval = train_eval_split(X, eval_frac=0.1, seed=args.seed)
-    spec = SamplerSpec(
+    # explicit --chains passes through so spec validation can reject it
+    # loudly under a chainless driver; the default never does
+    default_chains = {"multichain": 4, "mesh": 2}.get(args.driver, 1)
+    spec = SamplerSpec.for_driver(
+        args.driver,
+        n_chains=(args.chains if args.chains is not None else default_chains),
+        sync=args.sync, stale_sync=args.stale_sync,
         P=args.P, K_max=args.K_max, K_tail=args.K_tail, L=args.L,
         n_iters=args.iters, eval_every=args.eval_every,
         ckpt_dir=args.ckpt_dir, seed=args.seed,

@@ -9,6 +9,10 @@ touches the device. Random numbers come from ``generator(key, device)``:
 a ``torch.Generator`` on the state's device seeded from the key, so a
 resumed run repeats an uninterrupted one bitwise on the same device.
 
+A chain-batched state holds C keys as a (C, 2) stack. ``fold_in`` and
+``split`` apply to each row, so chain c's derivations are those of a
+single-chain run started from key c; ``generator`` takes one key.
+
 The streams are not JAX's: the reference and the port are compared
 statistically, or fed the same pre-drawn numbers.
 """
@@ -44,12 +48,16 @@ def key(seed: int) -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """A new key from ``k`` and an integer tag."""
+    """A new key from ``k`` and an integer tag; a (C, 2) stack folds each
+    row."""
+    if k.dim() == 2:
+        return torch.stack([fold_in(r, data) for r in k])
     return _from64(_mix(_word64(k) ^ _mix((data + _GOLDEN) & _M64)))
 
 
 def split(k: torch.Tensor, n: int) -> list[torch.Tensor]:
-    """``n`` independent keys derived from ``k``."""
+    """``n`` independent keys derived from ``k``, each (C, 2) when ``k``
+    is a (C, 2) stack."""
     return [fold_in(k, _SPLIT_DOMAIN + i) for i in range(n)]
 
 

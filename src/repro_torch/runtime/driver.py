@@ -1,7 +1,9 @@
 """MCMC driver: run loop, checkpoint/restart, capacity restarts, adaptive
 K_tail, eval records — over a ``Sampler`` built by ``build_sampler``.
 
-Port of ``repro/runtime/driver.py`` for the single-device layout:
+Port of ``repro/runtime/driver.py`` for the single-device layouts
+(``driver="vmap"``: one chain; ``driver="multichain"``: C chains, every
+state leaf with a leading chain axis):
 
 * every ``ckpt_every`` iterations the full sampler state (global params,
   Z in global (N, K) layout, the PRNG key) is written atomically in the
@@ -13,10 +15,19 @@ Port of ``repro/runtime/driver.py`` for the single-device layout:
   axis with empty slots; under a smaller one it compacts the live
   features into the new capacity and refuses when they do not fit.
 * adaptive K_tail (``k_tail_grow``): new tail saturation at a
-  checkpoint boundary doubles K_tail in-process.
+  checkpoint boundary (the most of any chain) doubles K_tail in-process.
+* ``stale_sync`` bounded-staleness passes (sub-iterations without the
+  master sync; non-exact) run before each full iteration.
 * eval records hold K, alpha, sigma_x, the train and held-out joint
   log-likelihoods, K_tail, tail_sat and split-R-hat / ESS / MCSE of the
-  per-iteration sigma_x and K+ traces.
+  per-iteration sigma_x and K+ traces; with chains, the means over
+  chains and the per-chain lists (``K_chains``, ``sigma_x_chains``,
+  ``joint_ll_train_chains``, ``tail_sat_chains``), and R-hat across
+  chains.
+* chains: a checkpoint keeps the chain axis (``Z_global`` (C, N, K));
+  a chainless checkpoint under a chained spec, or the reverse, or a
+  changed ``n_chains`` is refused loudly; overflow is the most of any
+  chain; a harvest adds one sample per chain.
 * posterior-predictive harvest (``harvest_every``): past the burn-in,
   every ``harvest_every`` iterations the post-sync draw of the global
   parameters goes into a ``BankBuilder`` on the host; the built
@@ -38,7 +49,8 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.checkpoint import restore, save_pytree
 from repro_torch.core.ibp import convergence
-from repro_torch.core.ibp.api import SamplerSpec, _not_yet, build_sampler
+from repro_torch.core.ibp.api import DRIVERS, SYNC_MODES, SamplerSpec, \
+    build_sampler
 from repro_torch.core.ibp.collapsed import (
     COLLAPSED_BACKENDS,
     DEFAULT_REFRESH,
@@ -54,11 +66,7 @@ from repro_torch.core.ibp.predict import (
 from repro_torch.core.ibp.state import IBPHypers
 
 
-DRIVERS = ("vmap", "multichain", "shardmap", "mesh")
 SWEEP_BACKENDS = ("jnp", "pallas")
-SYNC_MODES = ("staged", "fused")
-# the DriverConfig values the port runs; other valid values are refused
-_PORTED = {"driver": ("vmap",), "n_chains": (1,), "sync": ("staged",)}
 
 
 @dataclasses.dataclass
@@ -68,9 +76,9 @@ class DriverConfig:
     defaults, so ``DriverConfig()`` builds.
 
     Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
-    device chooses the kernels), ``sync="staged"``, ``n_chains=1`` with
-    ``driver="vmap"``. A value that selects work the port has not ported
-    raises ``NotImplementedError`` naming its ROADMAP item; a value the
+    device chooses the kernels). ``driver`` maps onto the spec's
+    ``chains`` x ``data`` axes (``DRIVERS``); the mesh layouts raise
+    ``NotImplementedError`` naming their ROADMAP item, and a value the
     reference rejects raises ``ValueError``.
     """
 
@@ -103,7 +111,7 @@ class DriverConfig:
 
     def to_spec(self) -> SamplerSpec:
         for field, value, allowed in (
-                ("driver", self.driver, DRIVERS),
+                ("driver", self.driver, tuple(DRIVERS)),
                 ("backend", self.backend, SWEEP_BACKENDS),
                 ("collapsed_backend", self.collapsed_backend,
                  COLLAPSED_BACKENDS),
@@ -115,17 +123,14 @@ class DriverConfig:
         if not 0.0 <= self.harvest_burn < 1.0:
             raise ValueError(f"DriverConfig: harvest_burn="
                              f"{self.harvest_burn} must be in [0, 1)")
-        for field, ported in _PORTED.items():
-            if getattr(self, field) not in ported:
-                _not_yet(field, getattr(self, field), owner="DriverConfig")
-        return SamplerSpec(
-            P=self.P, K_max=self.K_max, K_tail=self.K_tail,
+        return SamplerSpec.for_driver(
+            self.driver, P=self.P, K_max=self.K_max, K_tail=self.K_tail,
             K_init=self.K_init, alpha=self.alpha, sigma_x=self.sigma_x,
             sigma_a=self.sigma_a, L=self.L,
             collapsed_backend=self.collapsed_backend,
             chol_refresh=self.chol_refresh,
-            k_live_buckets=self.k_live_buckets,
-            stale_sync=self.stale_sync, n_iters=self.n_iters,
+            k_live_buckets=self.k_live_buckets, n_chains=self.n_chains,
+            sync=self.sync, stale_sync=self.stale_sync, n_iters=self.n_iters,
             eval_every=self.eval_every, ckpt_every=self.ckpt_every,
             ckpt_dir=self.ckpt_dir, overflow_every=self.overflow_every,
             k_tail_grow=self.k_tail_grow, seed=self.seed,
@@ -173,8 +178,8 @@ class MCMCDriver:
     def _to_ckpt(self, gs: HybridGlobal, ss: HybridShard) -> dict:
         # tail buffers are not serialized: checkpoints are written
         # post-sync, where tails are always cleared
-        P, N_p, K = ss.Z.shape
-        return {"gs": gs, "Z_global": ss.Z.reshape(P * N_p, K),
+        *lead, P, N_p, K = ss.Z.shape
+        return {"gs": gs, "Z_global": ss.Z.reshape(*lead, P * N_p, K),
                 "meta": {"it": gs.it}}
 
     def _shrink_features(self, gs: HybridGlobal, Zg: torch.Tensor,
@@ -183,38 +188,47 @@ class MCMCDriver:
         smaller K_max. The kept columns are every live feature plus the
         lowest-index free slots, in ascending order, so the posterior
         state is untouched and only dead slots are dropped. Refuses when
-        the live features do not fit. The port's checkpoints carry no
-        chain axis, so there is one live set to compact."""
-        live = torch.nonzero(gs.active > 0.5).flatten()
-        if live.numel() > K_new:
-            raise ValueError(
-                f"cannot shrink to K_max={K_new}: the checkpoint carries "
-                f"{live.numel()} live features; restart with "
-                f"K_max >= {live.numel()}"
-            )
-        free = torch.nonzero(gs.active <= 0.5).flatten()
-        cols, _ = torch.sort(torch.cat([live, free[:K_new - live.numel()]]))
-        gs = dataclasses.replace(gs, A=gs.A.index_select(0, cols),
-                                 pi=gs.pi.index_select(0, cols),
-                                 active=gs.active.index_select(0, cols))
-        return gs, Zg.index_select(1, cols)
+        the live features do not fit. A chain-batched checkpoint compacts
+        per chain (each chain has its own live set)."""
+        chained = gs.active.dim() == 2
+        A, pi, act, Z = (t if chained else t[None]
+                         for t in (gs.A, gs.pi, gs.active, Zg))
+        cols = []
+        for c, a in enumerate(act):
+            live = torch.nonzero(a > 0.5).flatten()
+            if live.numel() > K_new:
+                who = (f"chain {c} of the checkpoint" if chained
+                       else "the checkpoint")
+                raise ValueError(
+                    f"cannot shrink to K_max={K_new}: {who} carries "
+                    f"{live.numel()} live features; restart with "
+                    f"K_max >= {live.numel()}"
+                )
+            free = torch.nonzero(a <= 0.5).flatten()
+            cols.append(torch.sort(torch.cat(
+                [live, free[:K_new - live.numel()]]))[0])
+
+        def pick(t: torch.Tensor, dim: int) -> torch.Tensor:
+            out = torch.stack([t[i].index_select(dim, c)
+                               for i, c in enumerate(cols)])
+            return out if chained else out[0]
+
+        gs = dataclasses.replace(gs, A=pick(A, 0), pi=pick(pi, 0),
+                                 active=pick(act, 0))
+        return gs, pick(Z, 1)
 
     def _from_ckpt(self, blob: dict) -> tuple[HybridGlobal, HybridShard]:
         """Checkpoint -> (gs, ss) under this driver's spec. A checkpoint of
         another K_max is grown (empty slots appended, overflow reset) or
         shrunk (``_shrink_features``; overflow kept, as the reference
-        does). Tail buffers are rebuilt empty at the configured K_tail:
+        does). The chain axis must match the spec: a chainless checkpoint
+        under a chained spec, the reverse, or another ``n_chains`` is
+        refused. Tail buffers are rebuilt empty at the configured K_tail:
         checkpoints are written post-sync, where tails are cleared."""
         spec = self.spec
         gs: HybridGlobal = blob["gs"]
         Zg = blob["Z_global"]
-        if Zg.dim() != 2:
-            raise ValueError(
-                f"checkpoint in {spec.ckpt_dir} carries a chain axis "
-                f"(Z_global {tuple(Zg.shape)}); chains come with ROADMAP "
-                f"queue 1 item 8"
-            )
-        K_ck = Zg.shape[1]
+        K_ck = Zg.shape[-1]
         if K_ck > spec.K_max:
             gs, Zg = self._shrink_features(gs, Zg, spec.K_max)
         if K_ck < spec.K_max:
@@ -224,18 +238,31 @@ class MCMCDriver:
                 gs, A=F.pad(gs.A, (0, 0, 0, grow)), pi=F.pad(gs.pi, (0, grow)),
                 active=F.pad(gs.active, (0, grow)),
                 overflow=torch.zeros_like(gs.overflow))
-        N, K = Zg.shape
+        *lead, N, K = Zg.shape
         if N != self.N:
             raise ValueError(
                 f"checkpoint has N={N} observations but this driver "
                 f"truncated the data to N={self.N} (P={spec.P}); pick a P "
                 f"that keeps N={N}"
             )
+        # the chain count is part of the state: it cannot change across a
+        # restart, and a chainless state never restores as a chained one
+        if spec.chain_axis:
+            if not lead or lead[0] != spec.n_chains:
+                raise ValueError(
+                    f"checkpoint chain axis {tuple(lead) or 'absent'} does "
+                    f"not match configured n_chains={spec.n_chains}"
+                )
+        elif lead:
+            raise ValueError(
+                f"checkpoint carries a chain axis {tuple(lead)}; restore it "
+                f"with driver='multichain' and n_chains={lead[0]}"
+            )
         P = spec.P
-        z = torch.zeros((P, N // P, spec.K_tail), dtype=Zg.dtype,
+        z = torch.zeros((*lead, P, N // P, spec.K_tail), dtype=Zg.dtype,
                         device=Zg.device)
-        return gs, HybridShard(Z=Zg.reshape(P, N // P, K), Z_tail=z,
-                               tail_active=z[:, 0, :].clone())
+        return gs, HybridShard(Z=Zg.reshape(*lead, P, N // P, K), Z_tail=z,
+                               tail_active=z[..., 0, :].clone())
 
     def _template(self):
         gs, ss = self.sampler.init()
@@ -269,14 +296,15 @@ class MCMCDriver:
                          ) -> tuple[HybridGlobal, HybridShard, bool]:
         """Double K_tail (up to K_max, at most ``k_tail_grow`` times) when
         new tail saturation (``gs.tail_sat``: accepted births vetoed by
-        K_tail capacity) accrued since the last checkpoint boundary. Runs
+        K_tail capacity; with chains, the most of any chain) accrued
+        since the last checkpoint boundary. Runs
         at a post-sync checkpoint boundary, where tails are empty, so the
         sampler is rebuilt with empty tail buffers at the new width and the
         posterior state is untouched; the counter is zeroed so the next
         decision sees only post-growth saturation. Reading ``tail_sat``
         waits for the iteration. Returns (gs, ss, grew)."""
         spec = self.spec
-        sat = int(gs.tail_sat)
+        sat = int(gs.tail_sat.max())
         grew = False
         if (self._tail_growths < spec.k_tail_grow
                 and spec.K_tail < spec.K_max and sat > self._sat_mark):
@@ -284,10 +312,9 @@ class MCMCDriver:
             spec = spec.replace(K_tail=new_tail)
             self.spec = self.cfg = spec
             self.sampler = self.sampler.with_spec(spec)
-            P, N_p, _ = ss.Z.shape
-            z = ss.Z.new_zeros((P, N_p, new_tail))
+            z = ss.Z.new_zeros((*ss.Z.shape[:-1], new_tail))
             ss = HybridShard(Z=ss.Z, Z_tail=z,
-                             tail_active=z[:, 0, :].clone())
+                             tail_active=z[..., 0, :].clone())
             gs = dataclasses.replace(gs,
                                      tail_sat=torch.zeros_like(gs.tail_sat))
             self._tail_growths += 1
@@ -326,6 +353,8 @@ class MCMCDriver:
         for it in range(start, n_iters):
             if crash_at is not None and it == crash_at:
                 raise RuntimeError(f"injected crash at iteration {it}")
+            for _ in range(spec.stale_sync):
+                gs, ss = sampler.stale(gs, ss)
             gs, ss = sampler.step(gs, ss)
             self._record_trace(gs)
             last = it == n_iters - 1
@@ -339,7 +368,7 @@ class MCMCDriver:
             overflowed = (
                 need_eval or need_ckpt
                 or (it + 1) % spec.overflow_every == 0
-            ) and int(gs.overflow) > 0
+            ) and int(gs.overflow.max()) > 0
             if need_eval:
                 rec = self.evaluate(gs, ss, it + 1, time.time() - t0)
                 self.history.append(rec)
@@ -368,9 +397,10 @@ class MCMCDriver:
 
     # ---- diagnostics ------------------------------------------------------
     def _record_trace(self, gs: HybridGlobal) -> None:
-        # device scalars: converting here would wait on every iteration
-        self.trace["sigma_x"].append(gs.sigma_x.reshape(1))
-        self.trace["K"].append(torch.sum(gs.active).reshape(1))
+        # device rows of shape (C,) (chainless: (1,)): converting here
+        # would wait on every iteration
+        self.trace["sigma_x"].append(gs.sigma_x.reshape(-1))
+        self.trace["K"].append(torch.sum(gs.active, dim=-1).reshape(-1))
 
     def diagnostics(self, burn_frac: float = 0.5) -> dict[str, float]:
         """split-R-hat / ESS / MCSE of the monitored scalars over the
@@ -383,7 +413,7 @@ class MCMCDriver:
                     rows[i] = r.cpu().numpy().astype(np.float64)
             if len(rows) < 8:
                 continue
-            arr = np.stack(rows, axis=1)               # (1, T)
+            arr = np.stack(rows, axis=1)               # (C, T)
             tail = arr[:, int(burn_frac * arr.shape[1]):]
             s = convergence.summarize(tail, name)
             for k in ("rhat", "ess", "mcse"):
@@ -393,6 +423,8 @@ class MCMCDriver:
     def evaluate(self, gs: HybridGlobal, ss: HybridShard, it: int,
                  elapsed: float) -> dict[str, Any]:
         X = self.sampler.Xs.reshape(self.N, -1)
+        if self.spec.chain_axis:
+            return self._evaluate_chains(X, gs, ss, it, elapsed)
         Z = ss.Z.reshape(self.N, -1)
         rec: dict[str, Any] = {
             "it": it,
@@ -409,5 +441,40 @@ class MCMCDriver:
             rec["joint_ll_eval"] = float(heldout_joint_loglik(
                 self.X_eval, gs.A, gs.pi, gs.active, gs.sigma_x,
                 prng.fold_in(gs.key, 999)))
+        rec.update(self.diagnostics())
+        return rec
+
+    def _evaluate_chains(self, X: torch.Tensor, gs: HybridGlobal,
+                         ss: HybridShard, it: int, elapsed: float
+                         ) -> dict[str, Any]:
+        """A chain-batched eval record: the means over chains, the
+        per-chain lists, and each chain's held-out log-likelihood under
+        ``fold_in(key_c, 999)`` (the record keeps their mean)."""
+        C = ss.Z.shape[0]
+        lls = torch.stack([train_joint_loglik(
+            X, ss.Z[c].reshape(self.N, -1), gs.A[c], gs.pi[c], gs.active[c],
+            gs.sigma_x[c]) for c in range(C)]).cpu().numpy()
+        Ks = torch.sum(gs.active, dim=-1).cpu().numpy()
+        sx = gs.sigma_x.cpu().numpy()
+        sat = gs.tail_sat.cpu().numpy()
+        rec: dict[str, Any] = {
+            "it": it,
+            "t": elapsed,
+            "K": float(Ks.mean()),
+            "K_chains": [int(k) for k in Ks],
+            "alpha": float(gs.alpha.mean()),
+            "sigma_x": float(sx.mean()),
+            "sigma_x_chains": [float(v) for v in sx],
+            "joint_ll_train": float(lls.mean()),
+            "joint_ll_train_chains": [float(v) for v in lls],
+            "K_tail": int(self.spec.K_tail),
+            "tail_sat": int(sat.max()),
+            "tail_sat_chains": [int(v) for v in sat],
+        }
+        if self.X_eval is not None:
+            ev = torch.stack([heldout_joint_loglik(
+                self.X_eval, gs.A[c], gs.pi[c], gs.active[c], gs.sigma_x[c],
+                prng.fold_in(gs.key[c], 999)) for c in range(C)])
+            rec["joint_ll_eval"] = float(ev.mean())
         rec.update(self.diagnostics())
         return rec

@@ -14,7 +14,9 @@ and draws: Z, the mask, m, ZtZ and the saturation count equal, ZtX at
 feature_stats' tolerance; the two may first differ only at a
 float-boundary event, whose row and margin the test names. The same holds
 for the serial sweep's scan with Gibbs births, whose launches are also
-bitwise repeatable. The serving scorer (plain PyTorch batched over the
+bitwise repeatable, and for the chained launch of C tails, each chain of
+which is also bitwise equal to a single-chain launch from its inputs.
+The serving scorer (plain PyTorch batched over the
 bank's samples) is held on the card against its own run on the CPU, and
 its naive baseline is checked to sweep through gibbs_flip. No JAX is
 imported: the GPU machine has none.
@@ -277,6 +279,79 @@ def test_collapsed_scan_gibbs_kernel_matches_plain(cuda, n_rows, K, D, alpha):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     np.testing.assert_allclose(got["ZtX"], want["ZtX"], rtol=1e-5, atol=1e-4)
     assert cg[0] == cw[0]  # refreshes
+
+
+# C independent tails in one chained launch (the multichain sampler's):
+# K=8 keeps each chain's carry in its block's shared memory, K=32 in its
+# own global arena; each chain bitwise equal to a single-chain launch
+# from its inputs, and held against the plain scan as above
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["fast", "pallas"])
+@pytest.mark.parametrize("C,n_rows,K,D", [(4, 512, 8, 1024),
+                                          (4, 256, 32, 1024),
+                                          (3, 600, 8, 36)])
+def test_collapsed_scan_chained_kernel_matches_single_launches(
+        cuda, flavor, C, n_rows, K, D):
+    cases = [scan_case(n_rows, K, D, seed=K + D + 7 * c) for c in range(C)]
+    fields = ("Z", "active", "ZtZ", "ZtX", "m", "X", "u_logit", "j_prop",
+              "log_u_acc")
+    sx = torch.full((C,), SCAN_SX, device=cuda)
+    sa = torch.full((C,), SCAN_SA, device=cuda)
+    N = 4.0 * n_rows
+    kw = dict(N=N, refresh_every=16, drift_tol=1e-2, flavor=flavor)
+    st = {f: torch.tensor(np.stack([c[f] for c in cases]), device=cuda)
+          for f in fields}
+    reset_launch_counts()
+    counts = collapsed_scan(*(st[f] for f in fields), sx, sa, **kw)
+    assert launch_counts()["collapsed_scan"] == 1 and counts.shape == (C, 3)
+    for c, case in enumerate(cases):
+        one, c1 = _scan(collapsed_scan, case, cuda, flavor=flavor)
+        np.testing.assert_array_equal(counts[c].cpu().numpy(), c1)
+        for f in ("Z", "active", "ZtZ", "ZtX", "m"):
+            np.testing.assert_array_equal(st[f][c].cpu().numpy(), one[f],
+                                          err_msg=f"chain {c} {f}")
+        want, cw = _scan(collapsed_scan_ref, case, cuda, flavor=flavor)
+        ev = scan_divergence(
+            case, want["Z"], one["Z"],
+            lambda n: (_scan(collapsed_scan_ref, case, cuda, n,
+                             flavor=flavor)[0][k] for k in ("active", "m")),
+            SCAN_SX, SCAN_SA, N)
+        if ev is not None:
+            n, what, margin, u = ev
+            assert margin < 1e-3 * (1.0 + abs(u)), (
+                f"chain {c} diverges from the plain scan at row {n} "
+                f"({what}) away from a float boundary: margin {margin}")
+            continue  # the scans follow different chains from there
+        for f in ("Z", "active", "m", "ZtZ"):
+            np.testing.assert_array_equal(one[f], want[f], err_msg=f)
+        np.testing.assert_array_equal(c1, cw)
+    # every chain scanned its own rows: the results differ between chains
+    assert not torch.equal(st["Z"][0], st["Z"][1])
+
+
+# the multichain sampler's tails: one collapsed_scan launch a
+# sub-iteration for all C chains; the sweeps, feature_stats and
+# gaussian_sse launch once a chain
+@pytest.mark.cuda
+def test_multichain_iteration_launches_one_scan_per_sub_iteration(cuda):
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((300, 36)).astype(np.float32)
+    C, L = 4, 3
+    s = build_sampler(SamplerSpec(P=3, K_max=16, K_tail=8, L=L,
+                                  chains="vmap", n_chains=C),
+                      IBPHypers(), X, device=cuda)
+    gs, ss = s.init()
+    reset_launch_counts()
+    gs, ss = s.step(gs, ss)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["collapsed_scan"] == L
+    assert counts["gibbs_flip"] == C * L
+    assert counts["feature_stats"] == C and counts["gaussian_sse"] == C
+    assert gs.key.shape == (C, 2) and torch.isfinite(gs.sigma_x).all()
+    reset_launch_counts()
+    s.stale(gs, ss)
+    assert launch_counts()["collapsed_scan"] == L
 
 
 def _hold_packed(case, dev, **kw):

@@ -30,7 +30,7 @@ from repro.data import cambridge_data
 from repro.runtime import MCMCDriver as JDriver
 from repro_torch.core.ibp import SamplerSpec, build_sampler
 from repro_torch.launch import mcmc
-from repro_torch.runtime import MCMCDriver
+from repro_torch.runtime import DriverConfig, MCMCDriver
 
 torch.set_num_threads(1)
 
@@ -140,12 +140,14 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, tmp_path, X):
     assert not (tmp_path / "ck").exists()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(chains="vmap"), "item 8"), (dict(data="shardmap"), "item 8"),
-    (dict(stale_sync=1), "item 8"), (dict(chains="mesh"), "item 8")])
-def test_spec_rejects_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        SamplerSpec(**kw)
+@pytest.mark.parametrize("make", [
+    lambda: SamplerSpec(data="shardmap"),
+    lambda: SamplerSpec(chains="mesh", n_chains=2),
+    lambda: SamplerSpec(chains="mesh", data="shardmap", n_chains=2),
+    lambda: DriverConfig(driver="shardmap").to_spec()])
+def test_spec_rejects_what_is_not_ported(make):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8b"):
+        make()
 
 
 def test_spec_keeps_reference_validation():

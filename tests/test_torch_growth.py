@@ -143,9 +143,9 @@ def test_port_resumes_after_restore_into_another_capacity(
 
 
 def test_chain_axis_checkpoint_refused(tmp_path, X):
-    # the port has no chain axis: a checkpoint in the reference's
-    # multichain layout (every leaf with a leading chain axis) is refused
-    # with the item that brings chains, not reshaped
+    # a checkpoint in the multichain layout (every leaf with a leading
+    # chain axis) under a chainless spec is refused, naming the driver
+    # that restores it, not reshaped
     drv = MCMCDriver(X, DriverConfig(P=2, K_max=8, ckpt_dir=str(tmp_path)),
                      device="cpu")
     blob = drv._template()
@@ -154,7 +154,8 @@ def test_chain_axis_checkpoint_refused(tmp_path, X):
         "Z_global": torch.stack([blob["Z_global"]] * 2),
         "meta": {"it": torch.stack([blob["meta"]["it"]] * 2)}}
     save_pytree(str(tmp_path), chains, 1)
-    with pytest.raises(ValueError, match="chain axis.*item 8"):
+    with pytest.raises(ValueError,
+                       match="chain axis.*multichain.*n_chains=2"):
         drv.run()
 
 
@@ -277,7 +278,8 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
               sigma_x=0.7, sigma_a=1.3, K_init=2, backend="pallas",
               overflow_every=3, k_tail_grow=2, collapsed_backend="pallas",
               chol_refresh=16, k_live_buckets="off")
-    for cfg_kw in ({}, kw):
+    for cfg_kw in ({}, kw, dict(kw, driver="multichain", n_chains=3,
+                                stale_sync=2)):
         ref = JConfig(**cfg_kw).to_spec()
         spec = DriverConfig(**cfg_kw).to_spec()
         assert isinstance(spec, SamplerSpec)
@@ -292,12 +294,15 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     assert drv.cfg is drv.spec and drv.spec.K_max == 8
 
 
+# the mesh layouts need several devices: every driver value that selects
+# one is refused with the item that brings them
 @pytest.mark.parametrize("kw,item", [
-    (dict(driver="multichain", n_chains=4), "item 8"),
-    (dict(driver="shardmap"), "item 8"), (dict(driver="mesh"), "item 8"),
-    (dict(n_chains=2), "item 8"), (dict(sync="fused"), "item 8"),
-    (dict(stale_sync=1), "item 8"), (dict(driver="multichain", n_chains=1),
-                                      "item 8")])
+    (dict(driver="shardmap"), "item 8b"), (dict(driver="mesh"), "item 8b"),
+    (dict(driver="mesh", n_chains=2), "item 8b"),
+    (dict(driver="shardmap", sync="fused"), "item 8b"),
+    (dict(driver="mesh", sync="fused", n_chains=4), "item 8b"),
+    (dict(driver="shardmap", stale_sync=1), "item 8b"),
+    (dict(driver="mesh", n_chains=2, stale_sync=1), "item 8b")])
 def test_driver_config_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         DriverConfig(**kw).to_spec()
@@ -311,6 +316,19 @@ def test_driver_config_rejects_what_the_reference_rejects(kw):
     with pytest.raises(ValueError):
         JConfig(**kw).to_spec()
     with pytest.raises(ValueError, match="DriverConfig"):
+        DriverConfig(**kw).to_spec()
+
+
+# layout values the reference's spec validation rejects, rejected by the
+# port's spec in the same words
+@pytest.mark.parametrize("kw,words", [
+    (dict(n_chains=2), "needs a chain axis"),
+    (dict(sync="fused"), "is a collective schedule"),
+    (dict(driver="multichain", n_chains=0), "must be >= 1")])
+def test_driver_config_rejects_layouts_as_the_reference_does(kw, words):
+    with pytest.raises(ValueError, match=words):
+        JConfig(**kw).to_spec()
+    with pytest.raises(ValueError, match=f"SamplerSpec: .*{words}"):
         DriverConfig(**kw).to_spec()
 
 
