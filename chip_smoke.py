@@ -23,10 +23,11 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 12.) The kernel that carries each TPU
+6. (Checked last, after phase 13.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
-   inside collapsed_scan) had its launch counter rise in phases 4, 5, 11
-   and 12 (gibbs_flip in 11 also through the naive scorer), and
+   inside collapsed_scan) had its launch counter rise in phases 4, 5,
+   11, 12 and 13 (gibbs_flip in 11 also through the naive scorer; in 13
+   on the ranks, which send their counts to this process), and
    collapsed_scan and feature_stats theirs in phases 9 and 10.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
@@ -93,6 +94,29 @@ Phases, each of which raises on failure (exit code non-zero):
    launch from its inputs; then timed at C = 1, 4, 16 on N_p rows at K=8
    and at C = 1, 4 on 1024 rows at K=32, each beside C times the
    single-chain bound.
+13. The data-parallel layout (data="shardmap"): phase 5's P=8 ranks,
+   processes of repro_torch.parallel.spawn sharing cuda:0 over gloo
+   (NCCL refuses two ranks on one card), from phase 5's final state: 3
+   iterations under the staged sync (after one untimed, whose result is
+   dropped) and 3 under the fused, then one stale pass. Each rank's
+   launches and collectives an iteration (gibbs_flip L, collapsed_scan
+   L on p′'s rank only, feature_stats 1, gaussian_sse 1 under staged and
+   0 under fused; 3 all-reduces, 1, and none in the stale pass) and
+   every rank's HybridGlobal bitwise equal to rank 0's. The first
+   iteration of each against the vmap layout's from the same state, and
+   fused against staged: Z bits differing only in a shard whose first
+   sweep, run as one call and as the rank's block, differs at a counted
+   float-boundary event; p′ equal; while Z agrees, A within 1e-4 of max
+   |A| and sigma_x within 1e-5. Always, the master's draws replayed here
+   on the ranks' own Z: A within 1e-4 of max |A|, sigma_x (from
+   gaussian_sse, so the fused sync's identity too) within 1e-5, p′
+   equal. The fused sync's SSE identity within 1e-5 of gaussian_sse on
+   one state. gibbs_flip, feature_stats and gaussian_sse at a rank's
+   shape (N_p=4096 rows, K=64, D=1024) against their plain versions,
+   timed as in phase 3. s/iteration beside phase 5's, the collectives'
+   host time. One iteration in an NCCL world of one rank, bitwise equal
+   to the vmap layout at P=1; the CLI under torch.distributed.run on 4
+   ranks of cuda:0 (fused), on Cambridge data.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
@@ -183,6 +207,15 @@ SERVING = dict(iters=20, harvest_every=1, harvest_burn=0.2, hold_rows=256,
 # C of time_C (K=8) and on hold_rows rows at each of time_C_global (K=32)
 MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=1024, hold_K=(8, 32),
              time_C=(1, 4, 16), time_C_global=(1, 4), reps=10)
+# phase 13: the data-parallel layout: phase 5's P ranks on cuda:0 over gloo
+# (NCCL refuses two ranks on one card), iters under each sync from phase
+# 5's final state, then a stale pass; a differing decision between the
+# layouts' sweeps must sit within `boundary` of |logit - u|, and A within
+# A_rtol of max |A|, sigma_x within sx_rtol, the fused sync's SSE identity
+# within sse_rtol of gaussian_sse; the CLI on cli_ranks processes of
+# torch.distributed.run
+SHARDMAP = dict(iters=3, boundary=1e-4, A_rtol=1e-4, sx_rtol=1e-5,
+                sse_rtol=1e-5, cli_ranks=4, cli_N=1000, cli_iters=20)
 
 
 def log(msg: str) -> None:
@@ -2178,6 +2211,486 @@ def run_chains(dev, data: tuple) -> tuple[dict, dict, dict]:
         stale_counts
 
 
+# --------------------------------------------------------------------------
+# phase 13: the data-parallel layout on P ranks
+# --------------------------------------------------------------------------
+
+
+def state_np(gs) -> dict:
+    """A HybridGlobal's fields as numpy arrays (``interop`` takes them
+    back onto a device)."""
+    return {f: v.cpu().numpy().copy() for f, v in vars(gs).items()}
+
+
+def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
+                    syncs: tuple[str, ...], iters: int, stale: bool,
+                    warm: bool) -> dict:
+    """Phase 13 on one rank of the group (``parallel.spawn``): from the
+    canonical state (Z of ``z_path`` reshaped to kw["P"] shards, empty
+    tails, ``gs_np``), ``iters`` iterations under each sync of ``syncs``,
+    each with its time, its launches and its collectives; the state after
+    the first; under "fused", the SSE identity beside gaussian_sse on the
+    last state, then one stale pass when ``stale``. With ``warm``, one
+    untimed iteration first (its result dropped): a process's first
+    iteration loads the kernel libraries and creates its library
+    handles."""
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+    from repro_torch.core.ibp import hybrid as thy
+    from repro_torch.interop import from_reference
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    w = parallel.world()
+    X = np.load(x_path, mmap_mode="c")
+    Zc = np.load(z_path)
+    Zc = Zc.reshape(kw["P"], -1, Zc.shape[-1])
+    P, N_p, _ = Zc.shape
+    ss_np = dict(Z=Zc, Z_tail=np.zeros((P, N_p, kw["K_tail"]), np.float32),
+                 tail_active=np.zeros((P, kw["K_tail"]), np.float32))
+
+    def wait():
+        if w.device.type == "cuda":
+            torch.cuda.synchronize(w.device)
+
+    def timed_call(fn):
+        wait()
+        reset_launch_counts()
+        parallel.reset_collective_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wait()
+        return out, dict(seconds=time.perf_counter() - t0,
+                         launches=launch_counts(),
+                         collectives=parallel.collective_counts(),
+                         collective_seconds=sum(
+                             parallel.collective_seconds().values()))
+
+    out = dict(rank=w.rank, backend=w.backend, device=str(w.device))
+
+    def all_reduce_ms(n: int) -> float:
+        """One all-reduce of n floats with the device idle and every rank
+        at a barrier before it: the collective's own cost (median of
+        10, after one)."""
+        t = torch.zeros((n,), device=w.device)
+        times = []
+        for _ in range(11):
+            wait()
+            parallel.barrier()
+            t0 = time.perf_counter()
+            parallel.all_reduce_sum(t)
+            wait()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:]) * 1e3
+
+    # the fused payload's size, and one float
+    K, Kt = kw["K_max"], kw["K_tail"]
+    out["all_reduce_ms"] = {
+        n: all_reduce_ms(n) for n in (K * K + K * X.shape[1] + K + Kt + 2, 1)}
+    for sync in syncs:
+        s = build_sampler(SamplerSpec(data="shardmap", sync=sync, **kw),
+                          IBPHypers(), X)
+        gs, ss = from_reference(gs_np, ss_np, device=w.device)
+        ss = s.from_canonical(ss)
+        if warm and sync == syncs[0]:
+            s.step(gs, ss)
+            wait()
+        steps = []
+        for i in range(iters):
+            pp = int(gs.p_prime)
+            (gs, ss), rec = timed_call(lambda: s.step(gs, ss))
+            steps.append(dict(rec, p_prime=pp))
+            if i == 0:
+                first = dict(Z=ss.Z[0].bool().cpu().numpy(), gs=state_np(gs))
+        run = dict(steps=steps, first=first, last=state_np(gs))
+        if sync == "fused":
+            st = thy.local_stats(s.Xs, ss.Z)
+            ZtZ, ZtX, xx = parallel.all_reduce_sum(
+                st["ZtZ"], st["ZtX"], torch.sum(s.Xs * s.Xs)[None])
+            run["sse_identity"] = float(thy.sse_identity(
+                xx[0], ZtZ, ZtX, gs.A, gs.active))
+            run["sse_kernel"] = float(parallel.all_reduce_sum(
+                thy.local_sse(s.Xs, ss.Z, gs.A, gs.active)))
+            if stale:
+                pp = int(gs.p_prime)
+                _, rec = timed_call(lambda: s.stale(gs, ss))
+                run["stale"] = dict(rec, p_prime=pp)
+        out[sync] = run
+    return out
+
+
+def shard_uniforms(gs, p: int, shape: tuple, dev):
+    """The logit uniforms of shard p's first sweep, as the sampler derives
+    them: fold_in(fold_in(key, p), 0), split, the first half."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.core.ibp.sweeps import _logit
+
+    key = prng.split(prng.fold_in(prng.fold_in(gs.key, p), 0), 2)[0]
+    return _logit(torch.rand(shape, generator=prng.generator(key, dev),
+                             device=dev))
+
+
+def sweep_blocks(sampler, gs, ss) -> dict:
+    """The layouts' only difference before the sync, held directly: the
+    first sub-iteration's sweep as the vmap layout runs it (one
+    gibbs_flip call on all P·N_p rows) and as each rank runs it (one call
+    on its N_p rows), on the same rows, state and per-shard uniforms.
+    Each decision that differs must sit at a float-boundary event,
+    |logit - u| < SHARDMAP["boundary"] in float64."""
+    import torch
+
+    from repro_torch.core.ibp.sweeps import _logit
+    from repro_torch.kernels.gibbs_flip import gibbs_flip_core
+
+    Xs = sampler.Xs
+    P, N_p, D = Xs.shape
+    K = ss.Z.shape[-1]
+    u = torch.cat([shard_uniforms(gs, p, (N_p, K), Xs.device)
+                   for p in range(P)])
+    args = (_logit(gs.pi), gs.active)
+    inv2s2 = 0.5 / gs.sigma_x**2
+    Xf, Zf = Xs.reshape(P * N_p, D), ss.Z.reshape(P * N_p, K)
+    whole = gibbs_flip_core(Xf, Zf, gs.A, *args, u, inv2s2)
+    blocks = torch.cat([gibbs_flip_core(
+        Xs[p], ss.Z[p], gs.A, *args, u[p * N_p:(p + 1) * N_p], inv2s2)
+        for p in range(P)])
+    diff = (whole != blocks).nonzero().tolist()
+    events = []
+    for n in sorted({n for n, _ in diff}):
+        k = min(kk for nn, kk in diff if nn == n)
+        m = gibbs_margin(Xf, Zf, whole, gs.A, args[0], inv2s2, u, n, k)
+        if not m < SHARDMAP["boundary"]:
+            raise AssertionError(
+                f"shardmap sweep: decision ({n},{k}) differs between one "
+                f"call and the rank's block away from the boundary "
+                f"(|logit-u|={m})")
+        events.append(n)
+    return dict(decisions_differing=len(diff), boundary_events=len(events),
+                shards_with_events=sorted({n // N_p for n in events}))
+
+
+def rel_A(tag: str, got, want) -> tuple[float, float]:
+    """max |got - want| of A, and its share of max |want|, which must be
+    within SHARDMAP["A_rtol"]."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    dA = float(np.abs(got - want).max())
+    rel = dA / max(float(np.abs(want).max()), 1e-30)
+    if not rel <= SHARDMAP["A_rtol"]:
+        raise AssertionError(f"{tag}: A differs by {dA} ({rel:.3g} of "
+                             f"max |A|)")
+    return dA, rel
+
+
+def rel_sigma_x(tag: str, got, want) -> float:
+    """|got - want| / want of sigma_x, which must be within
+    SHARDMAP["sx_rtol"]."""
+    rel = abs(float(got) - float(want)) / float(want)
+    if not rel <= SHARDMAP["sx_rtol"]:
+        raise AssertionError(f"{tag}: sigma_x {float(got)} vs "
+                             f"{float(want)} ({rel:.3g})")
+    return rel
+
+
+def master_replay(tag: str, sampler, gs, Z_got, gs_got: dict) -> dict:
+    """The master's draws replayed in this process on the ranks' own
+    first iteration: the statistics of their gathered Z (after the tail's
+    promotion and the deaths) with phase 5's keys give the ranks' A (within
+    A_rtol of max |A|) and their active set; gaussian_sse of that Z
+    against the ranks' A gives their sigma_x (within sx_rtol) and p′.
+    Independent of the sweeps, so it holds A and sigma_x also where a
+    boundary event made Z differ from the vmap layout's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ibp import hybrid as thy
+
+    Xs = sampler.Xs
+    P, N_p, D = Xs.shape
+    Z = torch.from_numpy(Z_got).to(Xs.device, torch.float32)
+    active = torch.from_numpy(gs_got["active"]).to(Xs.device)
+    A, _, act, _ = thy.master_step1(thy.local_stats(Xs, Z), active, gs,
+                                    sampler.N, D)
+    if not torch.equal(act, active):
+        raise AssertionError(f"{tag} replay: active {act.tolist()} vs the "
+                             f"ranks' {active.tolist()}")
+    dA, rel = rel_A(f"{tag} replay", gs_got["A"], A.cpu().numpy())
+    A_got = torch.from_numpy(gs_got["A"]).to(Xs.device)
+    sx, _, _, pp = thy.master_step2(
+        thy.local_sse(Xs, Z, A_got, active), A_got, active, gs,
+        sampler.hyp, sampler.N, D, P)
+    rel_sx = rel_sigma_x(f"{tag} replay", gs_got["sigma_x"], sx)
+    if int(pp) != int(gs_got["p_prime"]):
+        raise AssertionError(f"{tag} replay: p' {int(pp)} vs the ranks' "
+                             f"{int(gs_got['p_prime'])}")
+    return dict(A_max_abs_diff=dA, A_rel_max=rel, sigma_x_rel=rel_sx,
+                sigma_x=float(sx), K=int(np.sum(gs_got["active"])))
+
+
+def compare_first(tag: str, Z_got, gs_got: dict, Z_want, gs_want: dict,
+                  sweep: dict) -> dict:
+    """One first iteration against another from the same state: Z bits
+    (a difference only in shards with a counted boundary event), p′
+    equal, and while Z agrees A within SHARDMAP["A_rtol"] of max |A| and
+    sigma_x within SHARDMAP["sx_rtol"] (where Z differs,
+    ``master_replay`` holds them)."""
+    import numpy as np
+
+    diff = Z_got != Z_want
+    n_bits = int(diff.sum())
+    shards = sorted(set(np.nonzero(diff.any(axis=(1, 2)))[0].tolist()))
+    if n_bits and not set(shards) <= set(sweep["shards_with_events"]):
+        raise AssertionError(
+            f"{tag}: {n_bits} Z bits differ in shards {shards}, where the "
+            f"sweep had no boundary event ({sweep})")
+    if int(gs_got["p_prime"]) != int(gs_want["p_prime"]):
+        raise AssertionError(f"{tag}: p' {gs_got['p_prime']} != "
+                             f"{gs_want['p_prime']}")
+    out = dict(z_bits_differing=n_bits, shards_differing=shards,
+               sigma_x=(float(gs_got["sigma_x"]), float(gs_want["sigma_x"])),
+               p_prime=int(gs_got["p_prime"]))
+    if not n_bits:
+        out["A_max_abs_diff"], out["A_rel_max"] = rel_A(
+            tag, gs_got["A"], gs_want["A"])
+        out["sigma_x_rel"] = rel_sigma_x(tag, gs_got["sigma_x"],
+                                         gs_want["sigma_x"])
+    return out
+
+
+def rank_kernels(sampler, gs, ss) -> dict:
+    """gibbs_flip, feature_stats and gaussian_sse at a rank's shape: shard
+    0's N_p rows of phase 5's final state, the first sweep's inputs on
+    rank 0 (its uniforms included), each against its plain version with
+    its times, bound and library call."""
+    import torch
+
+    from repro_torch.core.ibp.sweeps import _logit
+
+    Xp, Zp = sampler.Xs[0], ss.Z[0]
+    u = shard_uniforms(gs, 0, tuple(Zp.shape), Xp.device)
+    tag = " a rank's N_p rows (phase 13)"
+    return dict(
+        gibbs_flip=dict(gibbs_variant(Xp, Zp, gs.A, _logit(gs.pi),
+                                      gs.active, u, 0.5 / gs.sigma_x**2,
+                                      tag), library_ms=None),
+        feature_stats=stats_variant(Xp, Zp, tag),
+        gaussian_sse=sse_variant(Xp, Zp, gs.A, gs.active, torch.float32,
+                                 tag))
+
+
+def check_rank_launches(ranks: list, sync: str, L: int) -> None:
+    """Each iteration on each rank: gibbs_flip L, collapsed_scan L on p′'s
+    rank and 0 elsewhere, feature_stats 1, gaussian_sse 1 under staged
+    and 0 under fused; 3 all-reduces under staged, 1 under fused; the
+    stale pass: the sweeps and p′'s tail, no collective."""
+    for r in ranks:
+        run = r[sync]
+        for i, st in enumerate(run["steps"]):
+            pp = st["p_prime"] == r["rank"]
+            want = dict(gibbs_flip=L, collapsed_scan=L if pp else 0,
+                        feature_stats=1,
+                        gaussian_sse=1 if sync == "staged" else 0)
+            want_c = dict(all_reduce_sum=3 if sync == "staged" else 1,
+                          all_gather_rows=0)
+            got = {k: st["launches"].get(k, 0) for k in want}
+            if got != want or st["collectives"] != want_c:
+                raise AssertionError(
+                    f"shardmap {sync} rank {r['rank']} iteration {i}: "
+                    f"launches {got}, collectives {st['collectives']}; "
+                    f"expected {want}, {want_c}")
+        if "stale" in run:
+            st = run["stale"]
+            pp = st["p_prime"] == r["rank"]
+            want = dict(gibbs_flip=L, collapsed_scan=L if pp else 0,
+                        feature_stats=0, gaussian_sse=0)
+            got = {k: st["launches"].get(k, 0) for k in want}
+            if got != want or any(st["collectives"].values()):
+                raise AssertionError(
+                    f"shardmap stale pass rank {r['rank']}: launches {got}, "
+                    f"collectives {st['collectives']}; expected {want}, "
+                    f"none")
+
+
+def check_replicated(ranks: list, sync: str) -> None:
+    """Every rank's HybridGlobal equals rank 0's bitwise, after the first
+    iteration and after the last."""
+    import numpy as np
+
+    for r in ranks[1:]:
+        for which in ("first", "last"):
+            got, want = (
+                (x[sync]["first"]["gs"], x[sync]["last"])[which == "last"]
+                for x in (r, ranks[0]))
+            for f in want:
+                if not np.array_equal(got[f], want[f]):
+                    raise AssertionError(
+                        f"shardmap {sync}: rank {r['rank']}'s {f} differs "
+                        f"from rank 0's after the {which} iteration")
+
+
+def run_cli_shardmap(tmp: Path, device: str) -> dict:
+    """The CLI as SHARDMAP["cli_ranks"] processes of torch.distributed.run
+    on ``device`` (the fused sync), on Cambridge data."""
+    import os
+
+    sm = SHARDMAP
+    out = tmp / "shard_cli.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(sm["cli_ranks"]), "-m",
+           "repro_torch.launch.mcmc", "--device", device, "--driver",
+           "shardmap", "--sync", "fused", "--P", str(sm["cli_ranks"]),
+           "--N", str(sm["cli_N"]), "--K-max", "32", "--iters",
+           str(sm["cli_iters"]), "--eval-every", str(sm["cli_iters"] // 2),
+           "--ckpt-dir", str(tmp / "shard_cli_ckpt"), "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       timeout=600, cwd=str(tmp))
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"shardmap CLI exited {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("it=")]
+    hist = json.loads(out.read_text())
+    its = [r["it"] for r in hist]
+    if len(lines) != 2 or its != [sm["cli_iters"] // 2, sm["cli_iters"]]:
+        raise AssertionError(f"shardmap CLI: lines {lines}, records at {its}")
+    for r in hist:
+        if not (math.isfinite(r["joint_ll_eval"]) and 1 <= r["K"] <= 32):
+            raise AssertionError(f"shardmap CLI record out of range: {r}")
+    return dict(seconds=secs, lines=lines)
+
+
+def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
+                 ) -> tuple[dict, dict]:
+    """Phase 13: phase 5's final state on P ranks of cuda:0, which they
+    share (so over gloo), against the vmap layout's first iteration from
+    it and the master's draws replayed on the ranks' Z; the kernels at a
+    rank's shape against their plain versions; the NCCL world of
+    one rank against the vmap layout at P=1; the CLI under
+    torch.distributed.run. Returns (results, launches of every rank in
+    the driven iterations, summed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+    from repro_torch.interop import from_reference
+
+    f, sm = FULL, SHARDMAP
+    sampler, gs, ss = phase5
+    P, L = f["P"], f["L"]
+    kw = dict(P=P, K_max=f["K_max"], K_tail=f["K_tail"], L=L)
+    x_path, z_path = tmp / "shard_x.npy", tmp / "shard_z.npy"
+    np.save(x_path, np.ascontiguousarray(data[0][:f["N"]]))
+    np.save(z_path, ss.Z.cpu().numpy())
+    gs_np = state_np(gs)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(rank_iterations, P, str(x_path), str(z_path),
+                           gs_np, kw, ("staged", "fused"), sm["iters"], True,
+                           True, device="cuda:0", timeout_s=900)
+    t_spawn = time.perf_counter() - t0
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"shardmap ranks on one card ran "
+                             f"{[r['backend'] for r in ranks]}, not gloo")
+
+    # the vmap layout's first iteration from the same state, this process
+    gs_v, ss_v = sampler.step(gs, ss)
+    Z_v, g_v = ss_v.Z.bool().cpu().numpy(), state_np(gs_v)
+    sweep = sweep_blocks(sampler, gs, ss)
+    res = dict(P=P, N=f["N"], D=f["D"], K_max=f["K_max"], L=L,
+               iters=sm["iters"], spawn_seconds=t_spawn, sweep=sweep)
+    firsts = {}
+    for sync in ("staged", "fused"):
+        check_replicated(ranks, sync)
+        check_rank_launches(ranks, sync, L)
+        firsts[sync] = (np.stack([r[sync]["first"]["Z"] for r in ranks]),
+                        ranks[0][sync]["first"]["gs"])
+        steps = [r[sync]["steps"] for r in ranks]
+        per_it = [max(s[i]["seconds"] for s in steps)
+                  for i in range(sm["iters"])]
+        res[sync] = dict(
+            iterations=per_it, seconds_per_iteration=sum(per_it) / len(per_it),
+            collectives_per_iteration=steps[0][0]["collectives"],
+            # a rank's host time in the collectives: waiting for p′'s
+            # tail, and for its own kernels (gloo copies a CUDA payload
+            # to the host once the kernels that wrote it are done)
+            collective_host_seconds_per_iteration=statistics.mean(
+                s[i]["collective_seconds"] for s in steps
+                for i in range(sm["iters"])),
+            launches_per_rank=[r[sync]["steps"][0]["launches"]
+                               for r in ranks],
+            p_prime=[s["p_prime"] for s in steps[0]],
+            vs_vmap=compare_first(f"shardmap {sync} vs vmap",
+                                  *firsts[sync], Z_v, g_v, sweep),
+            replay=master_replay(f"shardmap {sync}", sampler, gs,
+                                 *firsts[sync]),
+            K=int(ranks[0][sync]["last"]["active"].sum()),
+            sigma_x=float(ranks[0][sync]["last"]["sigma_x"]))
+    res["fused_vs_staged"] = compare_first(
+        "shardmap fused vs staged", *firsts["fused"], *firsts["staged"],
+        sweep)
+    fu = ranks[0]["fused"]
+    res["sse"] = dict(identity=fu["sse_identity"], kernel=fu["sse_kernel"],
+                      rel_gap=abs(fu["sse_identity"] - fu["sse_kernel"])
+                      / fu["sse_kernel"])
+    if not res["sse"]["rel_gap"] <= sm["sse_rtol"]:
+        raise AssertionError(f"shardmap: the SSE identity is "
+                             f"{res['sse']['rel_gap']:.3g} off gaussian_sse "
+                             f"(limit {sm['sse_rtol']})")
+    res["kernels"] = rank_kernels(sampler, gs, ss)
+    res["all_reduce_ms"] = {  # the slowest rank's median
+        str(n): max(r["all_reduce_ms"][n] for r in ranks)
+        for n in ranks[0]["all_reduce_ms"]}
+    res["stale"] = dict(
+        seconds=max(r["fused"]["stale"]["seconds"] for r in ranks),
+        collectives=ranks[0]["fused"]["stale"]["collectives"],
+        p_prime=ranks[0]["fused"]["stale"]["p_prime"])
+    counts: dict[str, int] = {}
+    for r in ranks:
+        for sync in ("staged", "fused"):
+            recs = r[sync]["steps"] + [r[sync].get("stale", {})]
+            for rec in recs:
+                for k, v in rec.get("launches", {}).items():
+                    counts[k] = counts.get(k, 0) + v
+
+    # one iteration in an NCCL world of one rank against the vmap layout
+    # at P=1, from phase 5's state with all rows on the one shard
+    kw1 = dict(kw, P=1)
+    gs1_np = dict(gs_np, p_prime=np.zeros((), np.int32))
+    t0 = time.perf_counter()
+    one = parallel.spawn(rank_iterations, 1, str(x_path), str(z_path),
+                         gs1_np, kw1, ("staged",), 1, False, False,
+                         device="cuda:0", timeout_s=600)[0]
+    t_one = time.perf_counter() - t0
+    s1 = build_sampler(SamplerSpec(**kw1), IBPHypers(), data[0][:f["N"]],
+                       device=dev)
+    z1 = ss.Z.cpu().numpy().reshape(1, f["N"], -1)
+    g1, st1 = from_reference(gs1_np, dict(
+        Z=z1, Z_tail=np.zeros((1, f["N"], f["K_tail"]), np.float32),
+        tail_active=np.zeros((1, f["K_tail"]), np.float32)), device=dev)
+    g1, st1 = s1.step(g1, st1)
+    got, want = one["staged"]["first"], state_np(g1)
+    equal = bool(np.array_equal(got["Z"], st1.Z[0].bool().cpu().numpy())
+                 and all(np.array_equal(got["gs"][k], want[k])
+                         for k in want))
+    if one["backend"] != "nccl" or not equal:
+        raise AssertionError(f"NCCL world of one ({one['backend']}): not "
+                             f"bitwise equal to the vmap layout at P=1")
+    res["nccl_one"] = dict(backend=one["backend"], bitwise_equal=equal,
+                           seconds=one["staged"]["steps"][0]["seconds"],
+                           spawn_seconds=t_one)
+    res["cli"] = run_cli_shardmap(tmp, "cuda:0")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -2442,6 +2955,67 @@ def main() -> int:
             f"({v['bound_by']}), launches a call {v['launches_per_call']}")
     log(f"[12] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 13: the data-parallel layout on P ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        shard, shard_counts = run_shardmap(Path(tmpdir), data, phase5, dev)
+    log(f"[13] shardmap: {json.dumps(shard)}")
+    log(f"[13] launches of every rank, summed {shard_counts}")
+    sw = shard["sweep"]
+    log(f"[13] {shard['P']} ranks on cuda:0 over gloo, spawned and run in "
+        f"{shard['spawn_seconds']:.1f} s; the first sweep as one call vs "
+        f"each rank's block: {sw['decisions_differing']} decisions differ, "
+        f"{sw['boundary_events']} boundary events")
+    for sync in ("staged", "fused"):
+        v = shard[sync]
+        c = v["vs_vmap"]
+        log(f"[13] {sync}: {v['seconds_per_iteration']:.4f} s/iteration "
+            f"({[round(t, 4) for t in v['iterations']]}; phase 5: "
+            f"{full['seconds_per_iteration']:.4f}), collectives an "
+            f"iteration {v['collectives_per_iteration']} taking "
+            f"{v['collective_host_seconds_per_iteration']:.4f} s of host "
+            f"time a rank (the wait for p′'s tail included), p' "
+            f"{v['p_prime']}, K+ {v['K']}, sigma_x "
+            f"{v['sigma_x']:.4f}")
+        log(f"[13] {sync} launches a rank in iteration 1: "
+            f"{v['launches_per_rank']}")
+        log(f"[13] {sync} first iteration vs vmap: {c['z_bits_differing']} "
+            f"Z bits differ, A max |diff| {c['A_max_abs_diff']:.3g} "
+            f"({c['A_rel_max']:.3g} of max |A|), sigma_x {c['sigma_x']}, p' "
+            f"{c['p_prime']} equal")
+        c = v["replay"]
+        log(f"[13] {sync} master replayed on the ranks' Z: A max |diff| "
+            f"{c['A_max_abs_diff']:.3g} ({c['A_rel_max']:.3g} of max |A|, "
+            f"limit {SHARDMAP['A_rtol']}), sigma_x {c['sigma_x']:.7g} "
+            f"({c['sigma_x_rel']:.3g}, limit {SHARDMAP['sx_rtol']}), K+ "
+            f"{c['K']}, p' equal")
+    c = shard["fused_vs_staged"]
+    log(f"[13] fused vs staged first iteration: {c['z_bits_differing']} Z "
+        f"bits differ, A max |diff| {c['A_max_abs_diff']:.3g} "
+        f"({c['A_rel_max']:.3g} of max |A|), sigma_x {c['sigma_x']}")
+    v = shard["sse"]
+    log(f"[13] SSE on the fused run's last state: identity "
+        f"{v['identity']:.6g}, gaussian_sse {v['kernel']:.6g}, relative gap "
+        f"{v['rel_gap']:.3g} (limit {SHARDMAP['sse_rtol']})")
+    for name, v in shard["kernels"].items():
+        log(f"[13] {name} {v['shape']}: ms={v['ms']:.4f} "
+            f"call_ms={v['call_ms']:.4f} bound_ms={v['bound_ms']:.5f} "
+            f"({v['bound_by']}) plain_ms={v['plain_ms']:.4f} library_ms="
+            f"{v['library_ms']} max_abs_err={v['max_abs_err']:.3g}")
+    log(f"[13] one all-reduce of n floats on the {shard['P']} ranks, the "
+        f"device idle before it (ms, median of 10, the slowest rank): "
+        f"{shard['all_reduce_ms']}")
+    v = shard["stale"]
+    log(f"[13] stale pass: {v['seconds']:.4f} s, collectives "
+        f"{v['collectives']}, p' {v['p_prime']}")
+    v = shard["nccl_one"]
+    log(f"[13] NCCL world of one rank (P=1): {v['backend']}, one iteration "
+        f"{v['seconds']:.4f} s, bitwise equal to the vmap layout at P=1: "
+        f"{v['bitwise_equal']}")
+    for line in shard["cli"]["lines"]:
+        log(f"[13] CLI ({SHARDMAP['cli_ranks']} ranks, fused): {line}")
+    log(f"[13] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -2466,19 +3040,27 @@ def main() -> int:
             raise AssertionError(
                 f"{name} was not launched by phase 12's multichain run "
                 f"({multi_counts})")
-    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11 and 12 "
+    for name in MAIN_PATH:
+        if shard_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by phase 13's ranks "
+                f"({shard_counts})")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11, 12 and 13 "
         f"(gibbs_flip {serving['naive']['naive_gibbs_flip_launches']} "
         f"times by the naive scorer; collapsed_scan once a sub-iteration "
         f"for all {MULTI['C']} chains in phase 12); "
         f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10")
 
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
-                            *serving["gibbs_flip_naive"]],
+                            *serving["gibbs_flip_naive"],
+                            shard["kernels"]["gibbs_flip"]],
              "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
                                 *packed["holds"], *multi["holds"],
                                 *multi["timing"]],
-             "feature_stats": [grown["feature_stats"], *coll["stats"]],
-             "gaussian_sse": [grown["gaussian_sse"]]}
+             "feature_stats": [grown["feature_stats"], *coll["stats"],
+                               shard["kernels"]["feature_stats"]],
+             "gaussian_sse": [grown["gaussian_sse"],
+                              shard["kernels"]["gaussian_sse"]]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -2503,6 +3085,7 @@ def main() -> int:
             launches_serving=serving_counts.get(name, 0),
             launches_multichain=multi_counts.get(name, 0),
             launches_stale=stale_counts.get(name, 0),
+            launches_shardmap=shard_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -1,34 +1,45 @@
 """Sampler API: ``SamplerSpec`` + ``build_sampler``.
 
-Port of ``repro/core/ibp/api.py`` for the single-device layouts
-(``chains="none"`` or ``"vmap"`` x ``data="vmap"``: P shards simulated
-on one device, and with ``chains="vmap"`` C independent chains):
+Port of ``repro/core/ibp/api.py``:
 
     s = build_sampler(SamplerSpec(P=4, K_max=16, L=5), IBPHypers(), X)
     gs, ss = s.init()
     gs, ss = s.step(gs, ss)          # one full hybrid iteration
     gs, ss = s.stale(gs, ss)         # bounded-staleness pass (non-exact)
     ss = s.to_canonical(ss)          # HybridShard, (C?, P, N_p, K) layout
-    ss = s.from_canonical(ss)        # back onto the sampler's device
+    ss = s.from_canonical(ss)        # back into the sampler's layout
 
 Parallelism is two axes, ``chains`` ("none" | "vmap" | "mesh") x
 ``data`` ("vmap" | "shardmap"); the historical driver names are points
 of that grid (``DRIVERS``). The spec keeps the reference's field names
-and validation. The mesh layouts (``data="shardmap"``,
-``chains="mesh"``) need several devices and raise
-``NotImplementedError`` naming the ROADMAP item that brings them. The
-kernel choice follows the device (CUDA kernels on a GPU, their plain
-versions on the CPU), so the reference's ``backend`` is not a knob here.
-``collapsed_backend`` selects the tail's row step: ``"fast"`` (the
-default, as in the reference) runs the carried scan with the rss flip
-and the carried G = HHᵀ, ``"pallas"`` the carried scan with the
-mean-form flip (on the card each is one ``collapsed_scan`` launch),
-``"ref"`` the O(K^3) oracle. ``k_live_buckets`` ("on" by default, as in
-the reference) is validated and kept for parity with the reference's
-spec, and read by nothing: in the reference it switches the tail's
-carried G on, which the port's ``"fast"`` tail carries at either value
-(``collapsed`` module docstring). The serial ``collapsed_sweep`` takes
-its own ``k_live_buckets``, where it selects the packed path.
+and validation.
+
+* ``data="vmap"``: P shards simulated on one device, and with
+  ``chains="vmap"`` C independent chains.
+* ``data="shardmap"`` (``chains="none"``): P processes, rank p holding
+  shard p on its own device, joined by ``repro_torch.parallel``
+  (``torch.distributed.run --nproc-per-node P``, or
+  ``parallel.spawn``). ``build_sampler`` refuses it unless this process
+  is a rank of a group of exactly P. A rank keeps its rows of X and Z;
+  ``to_canonical`` gathers every rank's rows, ``from_canonical`` takes
+  the rank's block. ``sync`` selects the master sync: "staged" (three
+  all-reduces) or "fused" (one).
+* ``chains="mesh"`` raises ``NotImplementedError`` naming the ROADMAP
+  item that brings it.
+
+The kernel choice follows the device (CUDA kernels on a GPU, their plain
+versions on the CPU). So ``backend`` ("jnp" or "pallas", the reference's
+sweep implementation) is validated as the reference does and kept for
+parity, and read by nothing. ``collapsed_backend`` selects the tail's
+row step: ``"fast"`` (the default, as in the reference) runs the
+carried scan with the rss flip and the carried G = HHᵀ, ``"pallas"`` the
+carried scan with the mean-form flip (on the card each is one
+``collapsed_scan`` launch), ``"ref"`` the O(K^3) oracle.
+``k_live_buckets`` ("on" by default, as in the reference) is validated
+and kept likewise, and read by nothing: in the reference it switches the
+tail's carried G on, which the port's ``"fast"`` tail carries at either
+value (``collapsed`` module docstring). The serial ``collapsed_sweep``
+takes its own ``k_live_buckets``, where it selects the packed path.
 """
 from __future__ import annotations
 
@@ -40,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch import prng
+from repro_torch import parallel, prng
 from repro_torch.kernels.gibbs_flip import gibbs_flip_max_k
 
 from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH, K_LIVE_MODES
@@ -56,6 +67,7 @@ from .state import IBPHypers
 CHAIN_MODES = ("none", "vmap", "mesh")
 DATA_MODES = ("vmap", "shardmap")
 SYNC_MODES = ("staged", "fused")
+SWEEP_BACKENDS = ("jnp", "pallas")
 
 # historical driver names -> (chains, data) axis modes
 DRIVERS = {
@@ -66,7 +78,7 @@ DRIVERS = {
 }
 
 def _not_yet(field: str, value) -> None:
-    """A mesh layout: several devices, not ported yet."""
+    """The chains x data mesh: not ported yet."""
     raise NotImplementedError(
         f"SamplerSpec: {field}={value!r} is not ported yet; it comes with "
         f"ROADMAP queue 1 item 8b (the torch.distributed layouts)"
@@ -87,12 +99,13 @@ class SamplerSpec:
     sigma_a: float = 1.0
     # ---- kernel dispatch
     L: int = 5                 # sub-iterations per master sync
+    backend: str = "jnp"       # validated; inert here (module docstring)
     collapsed_backend: str = "fast"  # tail row step: "ref"|"fast"|"pallas"
     chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
     k_live_buckets: str = "on"  # validated; inert here (module docstring)
     # ---- parallelism layout (axes, not an enum)
     chains: str = "none"       # "none" | "vmap" ("mesh": item 8b)
-    data: str = "vmap"         # "vmap" ("shardmap": item 8b)
+    data: str = "vmap"         # "vmap" | "shardmap" (P ranks)
     n_chains: int = 1          # C (chain axis size; 1 when chains="none")
     sync: str = "staged"       # "staged" | "fused" master sync (shardmap)
     stale_sync: int = 0        # bounded-staleness passes/iter (non-exact)
@@ -137,6 +150,8 @@ class SamplerSpec:
         if self.sync == "fused" and self.data != "shardmap":
             bad(f"sync='fused' is a collective schedule; data="
                 f"{self.data!r} has no collectives (use data='shardmap')")
+        if self.backend not in SWEEP_BACKENDS:
+            bad(f"backend={self.backend!r} not in {SWEEP_BACKENDS}")
         if self.collapsed_backend not in COLLAPSED_BACKENDS:
             bad(f"collapsed_backend={self.collapsed_backend!r} not in "
                 f"{COLLAPSED_BACKENDS}")
@@ -177,8 +192,6 @@ class SamplerSpec:
                 f"burn fraction of the run, not an iteration count")
         if self.chains == "mesh":
             _not_yet("chains", self.chains)
-        if self.data == "shardmap":
-            _not_yet("data", self.data)
 
     # ---- derived views ----------------------------------------------------
     @property
@@ -215,8 +228,9 @@ class SamplerSpec:
 
 
 class Sampler:
-    """A built sampler on one device: init/step/stale/canonicalize over
-    the single-device layouts. Construct via ``build_sampler``."""
+    """A built sampler: init/step/stale/canonicalize over the spec's
+    layout, on one device (the rank's, under data="shardmap"). Construct
+    via ``build_sampler``."""
 
     def __init__(self, spec: SamplerSpec, hyp: IBPHypers, X: Any,
                  device: torch.device):
@@ -232,17 +246,23 @@ class Sampler:
         _check_capacity(spec, device)
         self.X_global = X[:N]
         self.N, self.D = N, X.shape[1]
-        self.Xs = torch.as_tensor(
-            self.X_global.reshape(spec.P, N // spec.P, self.D)).to(device)
+        Xs = self.X_global.reshape(spec.P, N // spec.P, self.D)
+        # under shardmap the device holds only this rank's rows
+        self.rank = (parallel.world().rank if spec.data == "shardmap"
+                     else None)
+        if self.rank is not None:
+            Xs = Xs[self.rank:self.rank + 1]
+        self.Xs = torch.as_tensor(Xs).to(device)
         self._fns = build_hybrid_fns(spec, hyp, N_global=N)
 
     def with_spec(self, spec: SamplerSpec) -> "Sampler":
-        """This sampler under another ``spec`` of the same P, sharing the
-        device copy of X (a K_tail growth rebuilds the sampler without
-        copying the data to the device again)."""
-        if spec.P != self.spec.P:
-            raise ValueError(f"with_spec: P={spec.P} differs from this "
-                             f"sampler's P={self.spec.P}")
+        """This sampler under another ``spec`` of the same P and layout,
+        sharing the device copy of X (a K_tail growth rebuilds the sampler
+        without copying the data to the device again)."""
+        if (spec.P, spec.data) != (self.spec.P, self.spec.data):
+            raise ValueError(
+                f"with_spec: P={spec.P}, data={spec.data!r} differ from this "
+                f"sampler's P={self.spec.P}, data={self.spec.data!r}")
         _check_capacity(spec, self.device)
         out = copy.copy(self)
         out.spec = spec
@@ -251,7 +271,9 @@ class Sampler:
 
     def init(self, key: torch.Tensor | None = None):
         """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``.
-        With a chain axis, chain c starts from ``prng.split(key, C)[c]``."""
+        With a chain axis, chain c starts from ``prng.split(key, C)[c]``.
+        Under shardmap every rank draws the canonical state the vmap
+        layout draws on its device, and keeps its block."""
         spec = self.spec
         if key is None:
             key = prng.key(spec.seed)
@@ -260,6 +282,11 @@ class Sampler:
         if spec.chain_axis:
             return init_multichain(key, self.Xs, spec.n_chains, spec.K_max,
                                    **kw)
+        if self.rank is not None:
+            X_host = torch.as_tensor(self.X_global).view(spec.P, -1, self.D)
+            gs, ss = init_hybrid(key, X_host, spec.K_max, device=self.device,
+                                 **kw)
+            return gs, self.from_canonical(ss)
         return init_hybrid(key, self.Xs, spec.K_max, **kw)
 
     def step(self, gs: HybridGlobal, ss: HybridShard):
@@ -271,14 +298,45 @@ class Sampler:
         return self._fns.stale(self.Xs, gs, ss)
 
     def to_canonical(self, ss: HybridShard) -> HybridShard:
-        """Native state -> canonical (C?, P, N_p, K) HybridShard (the same
-        on the single-device layouts)."""
-        return ss
+        """Native state -> canonical (C?, P, N_p, K) HybridShard: the same
+        on the single-device layouts; under shardmap every rank's rows,
+        gathered (a collective: every rank calls it)."""
+        if self.rank is None:
+            return ss
+        return HybridShard(*(parallel.all_gather_rows(t) for t in
+                             (ss.Z, ss.Z_tail, ss.tail_active)))
 
     def from_canonical(self, ss: HybridShard) -> HybridShard:
-        """Canonical HybridShard -> state on the sampler's device."""
-        return HybridShard(*(t.to(self.device) for t in
-                             (ss.Z, ss.Z_tail, ss.tail_active)))
+        """Canonical HybridShard -> state on the sampler's device (under
+        shardmap, the rank's block)."""
+        leaves = (ss.Z, ss.Z_tail, ss.tail_active)
+        if self.rank is not None:
+            r = self.rank
+            return HybridShard(*(t[r:r + 1].to(self.device).clone()
+                                 for t in leaves))
+        return HybridShard(*(t.to(self.device) for t in leaves))
+
+
+def _shardmap_device(spec: SamplerSpec, device) -> torch.device:
+    """data="shardmap": this process must be a rank of a group of exactly
+    P (the reference's device-count check); its device is the rank's."""
+    w = parallel.world()
+    size = 0 if w is None else w.size
+    if size != spec.P:
+        raise ValueError(
+            f"data='shardmap' with P={spec.P} needs a torch.distributed group "
+            f"of {spec.P} ranks, one a shard; this process "
+            + ("is in no group (0 ranks)" if w is None else
+               f"is in a group of {size} ranks")
+            + f" (run under torch.distributed.run --nproc-per-node {spec.P}, "
+              f"or repro_torch.parallel.spawn)")
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != w.device.type or dev.index not in (None,
+                                                           w.device.index):
+            raise ValueError(f"device={dev} is not this rank's device "
+                             f"{w.device}")
+    return _device.resolve(w.device)
 
 
 def _check_capacity(spec: SamplerSpec, device: torch.device) -> None:
@@ -294,7 +352,11 @@ def build_sampler(spec: SamplerSpec, hyp: IBPHypers | None = None,
                   ) -> Sampler:
     """Validated spec + hypers + data -> Sampler on ``device`` (default
     ``cuda``; raises when no GPU is visible — pass ``device="cpu"`` for
-    the plain PyTorch path)."""
+    the plain PyTorch path). Under data="shardmap" the device is the
+    rank's (``parallel.init_group``); ``device``, if given, must name
+    it."""
     if X is None:
         raise ValueError("build_sampler needs the data matrix X")
-    return Sampler(spec, hyp or IBPHypers(), X, _device.resolve(device))
+    dev = (_shardmap_device(spec, device) if spec.data == "shardmap"
+           else _device.resolve(device))
+    return Sampler(spec, hyp or IBPHypers(), X, dev)

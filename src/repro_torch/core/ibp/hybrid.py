@@ -1,10 +1,12 @@
-"""The paper's hybrid parallel MCMC sampler for the IBP, on one device.
+"""The paper's hybrid parallel MCMC sampler for the IBP.
 
-Port of the single-device layouts of ``repro/core/ibp/hybrid.py``
+Port of ``repro/core/ibp/hybrid.py``: the single-device layouts
 (``_hybrid_iteration_body``: P shards simulated on one device; with
 chains="vmap", C independent chains: ``init_multichain``, the iteration
-under ``jax.vmap``, and the bounded-staleness pass). One global
-iteration (paper Sec. 3):
+under ``jax.vmap``, and the bounded-staleness pass), and the data axis
+of ``_build_mesh_fns`` (data="shardmap": one shard a process, the
+master sync's reductions as all-reduces, "staged" or "fused"). One
+global iteration (paper Sec. 3):
 
   for l = 1..L sub-iterations:
       every shard p:   uncollapsed Gibbs sweep of Z over the K+ instantiated
@@ -22,14 +24,17 @@ iteration (paper Sec. 3):
 
 Where the port differs in form, not in algorithm:
 
-* Rows are independent and A, pi are shared, so each sub-iteration sweeps
-  the rows of ALL P shards in one ``gibbs_flip`` launch on (P·N_p, D);
-  the reference vmaps the sweep over shards.
+* Rows are independent and A, pi are shared, so under vmap each
+  sub-iteration sweeps the rows of ALL P shards in one ``gibbs_flip``
+  launch on (P·N_p, D); the reference vmaps the sweep over shards. Each
+  shard's uniforms come from its own key, as in the reference, so a
+  shard draws the same numbers under either layout.
 * The tail runs on p' only. The reference computes every shard's tail
   under vmap and keeps p''s (a ``lax.cond`` on the shard index).
-* The sync's reductions are the ``feature_stats`` and ``gaussian_sse``
-  kernels over all rows at once (the reference sums per-shard jnp
-  reductions).
+* Under vmap the sync's reductions are the ``feature_stats`` and
+  ``gaussian_sse`` kernels over all rows at once (the reference sums
+  per-shard jnp reductions); under shardmap each rank runs them on its
+  rows and ``parallel.all_reduce_sum`` sums them.
 * ``key``, ``p_prime`` and ``it`` live on the host: they steer host
   control flow (which shard runs the tail, which generator draws what),
   and keeping them there means an iteration never waits on the device.
@@ -51,7 +56,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import prng
+from repro_torch import parallel, prng
 from repro_torch.kernels.feature_stats import feature_stats
 from repro_torch.kernels.gaussian_sse import gaussian_sse
 
@@ -60,9 +65,6 @@ from .collapsed import DEFAULT_REFRESH, collapsed_row_scan, draw_scan
 from .sweeps import uncollapsed_sweep
 
 Tensor = torch.Tensor
-
-_ALL_SHARDS = 0xFFFFFFFF  # fold-in tag of the all-shard sweep (shards < P)
-
 
 @dataclasses.dataclass
 class HybridGlobal:
@@ -120,9 +122,15 @@ def init_hybrid(
     sigma_a: float = 1.0,
     K_init: int = 4,
     init_from_data: bool = True,
+    device: torch.device | None = None,
 ) -> tuple[HybridGlobal, HybridShard]:
+    """The canonical start: every shard's Z (P, N_p, K_max), drawn on
+    ``device`` (default X_shards' device: a shardmap rank passes its
+    host copy of the data and its own device, and so draws the state the
+    vmap layout draws on that device)."""
     P_, N_p, D = X_shards.shape
-    dev, dt = X_shards.device, X_shards.dtype
+    dev = X_shards.device if device is None else device
+    dt = X_shards.dtype
     K_init = min(K_init, K_max)
     k0, k1, k2 = prng.split(key, 3)
     Z = torch.zeros((P_, N_p, K_max), dtype=dt, device=dev)
@@ -137,7 +145,7 @@ def init_hybrid(
             # avoids the all-features-die nucleation trap at cold start
             flat = X_shards.reshape(-1, D)
             stride = max(1, flat.shape[0] // K_init)
-            seeds = flat[::stride][:K_init]
+            seeds = flat[::stride][:K_init].to(dev)
             A[:K_init] = seeds + 0.1 * torch.randn(
                 seeds.shape, generator=g1, dtype=dt, device=dev)
         else:
@@ -258,52 +266,63 @@ def shard_sub_iterations(
     L: int,
     chol_refresh: int = DEFAULT_REFRESH,
     collapsed_backend: str = "fast",
+    shards: tuple[int, ...] | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """L sub-iterations of the paper's inner loop on all P shards of C
-    chains: Z (C, P, N_p, K_max), Z_tail (C, P, N_p, K_tail),
-    tail_active (C, P, K_tail), ``gs`` chain-batched.
+    """L sub-iterations of the paper's inner loop on the shards this
+    process holds, for C chains: X_shards (S, N_p, D), Z (C, S, N_p,
+    K_max), Z_tail (C, S, N_p, K_tail), tail_active (C, S, K_tail),
+    ``gs`` chain-batched. ``shards`` gives the global index of each held
+    shard: 0..P-1 under vmap (the default), the rank under shardmap.
 
-    Each sub-iteration sweeps every shard's rows of a chain in one
-    ``gibbs_flip`` call (C calls: each chain has its own A, π, active and
-    σ_x), then gathers each chain's tail on its own p′ into (C, N_p, ·)
-    buffers, runs the C tails as one chained scan and scatters them
-    back. Chain c's keys are derived from its key row exactly as a
-    single chain's. Returns (Z, Z_tail, tail_active, n_sat (C,)).
+    Shard p's keys are the reference's: ``key_shard = fold_in(key, p)``,
+    then ``ku, kt = split(fold_in(key_shard, l))``; its sweep uniforms
+    come from ``generator(ku)``, and the tail of p′ from
+    ``generator(kt)``, so a shard draws the same numbers whichever
+    process holds it. Each sub-iteration sweeps every held shard's rows
+    of a chain in one ``gibbs_flip`` call (each chain has its own A, π,
+    active and σ_x); then, where p′ is held, it gathers each chain's tail
+    into (C, N_p, ·) buffers, runs the C tails as one chained scan and
+    scatters them back. Returns (Z, Z_tail, tail_active, n_sat (C,)).
     """
     C = Z.shape[0]
-    P_, N_p, D = X_shards.shape
+    S, N_p, D = X_shards.shape
+    shards = tuple(range(S)) if shards is None else tuple(shards)
     dev = X_shards.device
-    pps = [int(p) for p in gs.p_prime.tolist()]
-    Xf = X_shards.reshape(P_ * N_p, D)
-    Zf = [Z[c].reshape(P_ * N_p, -1) for c in range(C)]
+    Xf = X_shards.reshape(S * N_p, D)
+    Zf = [Z[c].reshape(S * N_p, -1) for c in range(C)]
     Z_tail, tail_active = Z_tail.clone(), tail_active.clone()
     n_sat = torch.zeros((C,), dtype=torch.int32, device=dev)
-    k_all = prng.fold_in(gs.key, _ALL_SHARDS)
-    k_pp = torch.stack([prng.fold_in(gs.key[c], pp)
-                        for c, pp in enumerate(pps)])
+    # local index of each chain's p′; every chain's p′ is held (vmap) or
+    # none is (a shardmap rank other than the one chain's p′)
+    pps = [shards.index(p) for p in gs.p_prime.tolist() if p in shards]
+    k_shard = [[prng.fold_in(gs.key[c], p) for p in shards]
+               for c in range(C)]
     for l in range(L):
-        ku, _ = prng.split(prng.fold_in(k_all, l), 2)
-        _, kt = prng.split(prng.fold_in(k_pp, l), 2)
+        kl = [[prng.split(prng.fold_in(k, l), 2) for k in ks]
+              for ks in k_shard]
         for c in range(C):
-            Zf[c] = uncollapsed_sweep(Xf, Zf[c], gs.A[c], gs.pi[c],
-                                      gs.active[c], gs.sigma_x[c],
-                                      prng.generator(ku[c], dev))
+            Zf[c] = uncollapsed_sweep(
+                Xf, Zf[c], gs.A[c], gs.pi[c], gs.active[c], gs.sigma_x[c],
+                [prng.generator(ku, dev) for ku, _ in kl[c]])
+        if not pps:
+            continue
         # gathered and scattered by host indices (views and copies on
         # the device), so no index tensor is copied to the device
         Zt, ta, sat = _chain_tails(
-            torch.stack([X_shards[pp] for pp in pps]),
-            torch.stack([Zf[c].view(P_, N_p, -1)[pp]
-                         for c, pp in enumerate(pps)]),
-            torch.stack([Z_tail[c, pp] for c, pp in enumerate(pps)]),
-            torch.stack([tail_active[c, pp] for c, pp in enumerate(pps)]),
-            gs, N_global, [prng.generator(k, dev) for k in kt],
+            torch.stack([X_shards[i] for i in pps]),
+            torch.stack([Zf[c].view(S, N_p, -1)[i]
+                         for c, i in enumerate(pps)]),
+            torch.stack([Z_tail[c, i] for c, i in enumerate(pps)]),
+            torch.stack([tail_active[c, i] for c, i in enumerate(pps)]),
+            gs, N_global,
+            [prng.generator(kl[c][i][1], dev) for c, i in enumerate(pps)],
             chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
         )
-        for c, pp in enumerate(pps):
-            Z_tail[c, pp] = Zt[c]
-            tail_active[c, pp] = ta[c]
+        for c, i in enumerate(pps):
+            Z_tail[c, i] = Zt[c]
+            tail_active[c, i] = ta[c]
         n_sat = n_sat + sat
-    return (torch.stack([z.view(P_, N_p, -1) for z in Zf]), Z_tail,
+    return (torch.stack([z.view(S, N_p, -1) for z in Zf]), Z_tail,
             tail_active, n_sat)
 
 
@@ -410,28 +429,26 @@ def master_step2(
                             dtype=torch.int32)
     return sigma_x, sigma_a, alpha, p_prime
 
-def _master_sync(
-    X_shards: Tensor,
+def _finish_sync(
     gs: HybridGlobal,
     Z: Tensor,
     Z_tail: Tensor,
     tail_active: Tensor,
+    A: Tensor,
+    pi: Tensor,
+    active: Tensor,
+    sse: Tensor,
+    n_drop: Tensor,
     n_sat: Tensor,
     hyp,
     N_g: float,
+    P_: int,
 ) -> tuple[HybridGlobal, HybridShard]:
-    """One chain's master sync after its sub-iterations (chainless
-    arguments): promote p′'s tail, the statistics, A and π, the SSE, σ,
-    α and the next p′; the tails are cleared."""
-    P_, N_p, D = X_shards.shape
-    tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero
-    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
-    stats = local_stats(X_shards, Z)
-    A, pi, active, _ = master_step1(stats, active_new, gs, N_g, D)
-    Z = Z * active[None, None, :]
-    sse = local_sse(X_shards, Z, A, active)
+    """The sync's last step, the same in every layout: σ, α and the next
+    p′ (``master_step2``), the new HybridGlobal, and the shards with
+    their tails cleared."""
     sigma_x, sigma_a, alpha, p_prime = master_step2(
-        sse, A, active, gs, hyp, N_g, D, P_
+        sse, A, active, gs, hyp, N_g, A.shape[1], P_
     )
     gs_new = HybridGlobal(
         A=A, pi=pi, active=active, alpha=alpha,
@@ -447,6 +464,31 @@ def _master_sync(
         tail_active=torch.zeros_like(tail_active),
     )
     return gs_new, ss_new
+
+
+def _master_sync(
+    X_shards: Tensor,
+    gs: HybridGlobal,
+    Z: Tensor,
+    Z_tail: Tensor,
+    tail_active: Tensor,
+    n_sat: Tensor,
+    hyp,
+    N_g: float,
+) -> tuple[HybridGlobal, HybridShard]:
+    """One chain's master sync after its sub-iterations on all P shards
+    of one device (chainless arguments): promote p′'s tail, the
+    statistics, A and π, the SSE, σ, α and the next p′; the tails are
+    cleared."""
+    P_, N_p, D = X_shards.shape
+    tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero
+    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+    stats = local_stats(X_shards, Z)
+    A, pi, active, _ = master_step1(stats, active_new, gs, N_g, D)
+    Z = Z * active[None, None, :]
+    sse = local_sse(X_shards, Z, A, active)
+    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                        n_drop, n_sat, hyp, N_g, P_)
 
 
 def _chain_iteration_body(
@@ -588,10 +630,116 @@ def _build_vmap_fns(spec, hyp, N_g: float) -> HybridFns:
     return HybridFns(step=step, stale=stale_pass)
 
 
+# --------------------------------------------------------------------------
+# data="shardmap": a shard a process, the collectives of ``parallel``
+# --------------------------------------------------------------------------
+
+
+def _rank_sub_iterations(
+    X_p: Tensor,
+    gs: HybridGlobal,
+    ss: HybridShard,
+    rank: int,
+    L: int,
+    N_g: float,
+    chol_refresh: int,
+    collapsed_backend: str,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """``shard_sub_iterations`` on this rank's shard (global index
+    ``rank``): X_p (1, N_p, D), ``ss`` leaves (1, ...), ``gs`` chainless.
+    Returns (Z, Z_tail, tail_active, n_sat ())."""
+    Z, Z_tail, tail_active, n_sat = shard_sub_iterations(
+        X_p, ss.Z[None], ss.Z_tail[None], ss.tail_active[None],
+        stack_chains([gs]), N_g, L, chol_refresh, collapsed_backend,
+        shards=(rank,))
+    return Z[0], Z_tail[0], tail_active[0], n_sat[0]
+
+
+def sse_identity(xx: Tensor, ZtZ: Tensor, ZtX: Tensor, A: Tensor,
+                 active: Tensor) -> Tensor:
+    """‖X − (Z∘active)A‖² from the statistics: tr(XᵀX) − 2⟨A, ZᵀX⟩ +
+    ⟨A, (ZᵀZ) A⟩ over the active columns, in float32 as the reference."""
+    ZtXm = ZtX * active[:, None]
+    ZtZm = ZtZ * ibm.mask_outer(active)
+    return xx - 2.0 * torch.sum(A * ZtXm) + torch.sum(A * (ZtZm @ A))
+
+
+def _staged_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_):
+    """The reference's ``block_staged``: three all-reduces, (1) the tail
+    mask and the saturation count, (2) (m, ZᵀZ, ZᵀX) of this rank's rows
+    after the promotion, (3) this rank's SSE."""
+    D = X_p.shape[-1]
+    tail_g, sat = parallel.all_reduce_sum(                          # AR 1
+        tail_active[0], n_sat.to(tail_active.dtype)[None])
+    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+    s = local_stats(X_p, Z)
+    ZtZ, ZtX, m = parallel.all_reduce_sum(                          # AR 2
+        s["ZtZ"], s["ZtX"], s["m"])
+    A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
+                                    active_new, gs, N_g, D)
+    Z = Z * active[None, None, :]
+    sse = parallel.all_reduce_sum(local_sse(X_p, Z, A, active))     # AR 3
+    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                        n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
+
+
+def fused_payload(X_p, active, Z, Z_tail, tail_active, n_sat
+                  ) -> tuple[Tensor, ...]:
+    """This rank's part of the fused sync's one all-reduce, in the
+    reference's order: ZᵀZ, ZᵀX, m (taken with the rank's own tail
+    pre-scattered: zero columns but on p′, which uses the slot assignment
+    every rank derives after the reduce), the tail mask, ΣX², and n_sat
+    as a float."""
+    Z_stats, _, _ = promote_tail(Z, Z_tail, tail_active[0], active)
+    s = local_stats(X_p, Z_stats)
+    return (s["ZtZ"], s["ZtX"], s["m"], tail_active[0],
+            torch.sum(X_p * X_p)[None], n_sat.to(X_p.dtype)[None])
+
+
+def _fused_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_):
+    """The reference's ``block_fused``: ONE all-reduce of
+    ``fused_payload``; the SSE comes from the reduced statistics
+    (``sse_identity``), so no ``gaussian_sse`` runs."""
+    ZtZ, ZtX, m, tail_g, xx, sat = parallel.all_reduce_sum(        # AR
+        *fused_payload(X_p, gs.active, Z, Z_tail, tail_active, n_sat))
+    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+    A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
+                                    active_new, gs, N_g, X_p.shape[-1])
+    Z = Z * active[None, None, :]
+    sse = sse_identity(xx[0], ZtZ, ZtX, A, active)
+    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                        n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
+
+
 def _build_mesh_fns(spec, hyp, N_g: float) -> HybridFns:
-    """The mesh layouts (data="shardmap", chains="mesh") need several
-    devices and ``torch.distributed``; they are not ported."""
-    raise NotImplementedError(
-        f"layout chains={spec.chains!r} x data={spec.data!r} is not ported "
-        f"yet; it comes with ROADMAP queue 1 item 8b (the torch.distributed "
-        f"layouts)")
+    """data="shardmap", chains="none": this process is rank p of the P
+    ranks of ``parallel.world()`` and holds shard p (X_p (1, N_p, D),
+    HybridShard leaves (1, ...)). The HybridGlobal is replicated: every
+    rank draws the master's parameters itself from the same keys and
+    reduced statistics. ``step`` runs the sub-iterations on the rank's
+    rows (the tail on p′'s rank only), then the ``spec.sync`` schedule,
+    "staged" (3 all-reduces) or "fused" (1). ``stale`` makes no
+    collective: the fold-13 sweep key, the fold-14 key handed on, as
+    ``_chain_stale_body``. chains="mesh" is not ported."""
+    if spec.chains == "mesh":
+        raise NotImplementedError(
+            f"layout chains={spec.chains!r} x data={spec.data!r} is not "
+            f"ported yet; it comes with ROADMAP queue 1 item 8b (the "
+            f"torch.distributed layouts)")
+    rank = parallel.world().rank
+    L, cb, cr, P_ = spec.L, spec.collapsed_backend, spec.chol_refresh, spec.P
+    sync = _fused_sync if spec.sync == "fused" else _staged_sync
+
+    def step(X_p, gs, ss):
+        out = _rank_sub_iterations(X_p, gs, ss, rank, L, N_g, cr, cb)
+        return sync(X_p, gs, *out, hyp, N_g, P_)
+
+    def stale_pass(X_p, gs, ss):
+        gs_sweep = dataclasses.replace(gs, key=prng.fold_in(gs.key, 13))
+        Z, Z_tail, tail_active, _ = _rank_sub_iterations(
+            X_p, gs_sweep, ss, rank, L, N_g, cr, cb)
+        gs_out = dataclasses.replace(gs, key=prng.fold_in(gs.key, 14))
+        return gs_out, HybridShard(Z=Z, Z_tail=Z_tail,
+                                   tail_active=tail_active)
+
+    return HybridFns(step=step, stale=stale_pass)

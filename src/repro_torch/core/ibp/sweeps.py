@@ -27,15 +27,22 @@ def _logit(p: Tensor) -> Tensor:
 
 def uncollapsed_sweep(X: Tensor, Z: Tensor, A: Tensor, pi: Tensor,
                       active: Tensor, sigma_x: Tensor,
-                      gen: torch.Generator) -> Tensor:
+                      gen: torch.Generator | list[torch.Generator]
+                      ) -> Tensor:
     """One full Gibbs sweep of Z | pi, A over active columns. Returns new Z.
 
     Rows are independent, so any number of shards' rows can go through
-    one call (the hybrid sampler sweeps all P shards at once).
+    one call (the hybrid sampler sweeps all its shards at once). ``gen``
+    is one generator, or a list of them: one per equal block of rows (a
+    shard each), block i's uniforms drawn from ``gen[i]``, so a shard's
+    draws do not depend on which other shards share the call.
     """
     # pre-drawn uniforms, in logit space so the accept test is logit > u
-    u = _logit(torch.rand(Z.shape, generator=gen, dtype=X.dtype,
-                          device=X.device))
+    gens = gen if isinstance(gen, (list, tuple)) else [gen]
+    shape = (Z.shape[0] // len(gens), Z.shape[1])
+    draws = [torch.rand(shape, generator=g, dtype=X.dtype, device=X.device)
+             for g in gens]
+    u = _logit(draws[0] if len(draws) == 1 else torch.cat(draws))
     inv2s2 = 0.5 / (sigma_x**2)
     return gibbs_flip_core(X, Z, A, _logit(pi), active, u, inv2s2)
 

@@ -1,10 +1,13 @@
-"""IBP hybrid-MCMC launcher of the port, end to end on one device.
+"""IBP hybrid-MCMC launcher of the port.
 
 The CLI builds a ``SamplerSpec`` and hands it to ``MCMCDriver``, as
 ``repro.launch.mcmc`` does, with the reference's flags plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain PyTorch versions of the
-kernels). ``--driver shardmap`` and ``mesh`` need several devices and
-are not ported (ROADMAP item 8b).
+(default ``cuda``; ``cuda:<i>`` names a card; ``cpu`` runs the plain
+PyTorch versions of the kernels). ``--driver shardmap`` runs when every
+process is a rank of a group of P: started by ``torch.distributed.run``
+(the group is joined here, on ``--device``), or inside
+``repro_torch.parallel.spawn``. Only rank 0 prints and writes ``--out``.
+``--driver mesh`` is not ported (ROADMAP item 8b).
 
 Usage:
   python -m repro_torch.launch.mcmc --N 1000 --P 5 --iters 1000 --L 5
@@ -12,6 +15,10 @@ Usage:
   # C chains on one device (R-hat / ESS columns), bounded staleness
   python -m repro_torch.launch.mcmc --driver multichain --chains 4 \
       --stale-sync 1 ...
+  # P=4 ranks, one shard each; --device cuda:0 puts the 4 on one card
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.mcmc --driver shardmap --P 4 --sync fused \
+      --device cpu ...
 
 Posterior-predictive harvest:
 
@@ -29,8 +36,9 @@ import json
 import math
 import os
 
+from repro_torch import parallel
 from repro_torch.core.ibp import IBPHypers, SamplerSpec
-from repro_torch.core.ibp.api import DRIVERS
+from repro_torch.core.ibp.api import DRIVERS, SWEEP_BACKENDS
 from repro_torch.core.ibp.collapsed import DEFAULT_REFRESH
 from repro_torch.data import cambridge_data, train_eval_split
 from repro_torch.runtime import MCMCDriver
@@ -58,15 +66,21 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=20)
     ap.add_argument("--driver", default="vmap", choices=sorted(DRIVERS),
                     help="parallelism layout: vmap (single device), "
-                         "multichain (C chains vmapped), shardmap (P-device "
-                         "data mesh), mesh (C chains x P data shards on a "
-                         "2-D mesh; needs C*P devices)")
+                         "multichain (C chains on one device), shardmap (P "
+                         "ranks, one data shard each: run under "
+                         "torch.distributed.run --nproc-per-node P), mesh "
+                         "(C chains x P data shards; not ported)")
     ap.add_argument("--chains", type=int, default=None,
                     help="chain count for --driver multichain/mesh "
                          "(default 4 / 2); values > 1 require a chainful "
                          "driver")
     ap.add_argument("--sync", default="staged", choices=["staged", "fused"],
-                    help="master-sync schedule for --driver shardmap/mesh")
+                    help="master-sync schedule for --driver shardmap: "
+                         "staged (3 all-reduces an iteration) or fused (1)")
+    ap.add_argument("--backend", default="jnp", choices=SWEEP_BACKENDS,
+                    help="the reference's sweep implementation; kept in "
+                         "the spec for parity and inert here: the device "
+                         "chooses the kernel")
     ap.add_argument("--stale-sync", type=int, default=0,
                     help="bounded-staleness passes per iteration (non-exact)")
     ap.add_argument("--collapsed-backend", default="fast",
@@ -87,9 +101,12 @@ def main(argv=None):
     ap.add_argument("--chol-refresh", type=int, default=DEFAULT_REFRESH,
                     help="exact-refactorization cadence of the tail's "
                          "collapsed carry (rows between refreshes)")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda (default) runs the CUDA kernels and raises "
-                         "without a GPU; cpu runs their plain versions")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; a rank's own card under "
+                         "shardmap) runs the CUDA kernels and raises "
+                         "without a GPU; cuda:<i> names the card (several "
+                         "ranks on one card); cpu runs their plain "
+                         "versions")
     ap.add_argument("--harvest-every", type=int, default=0,
                     help="SampleBank harvest cadence in iterations "
                          "(0 = off)")
@@ -101,7 +118,19 @@ def main(argv=None):
                          "<ckpt-dir>/bank.npz)")
     ap.add_argument("--out", default="artifacts/mcmc_history.json")
     args = ap.parse_args(argv)
+    # a process started by torch.distributed.run joins its group here
+    joined = args.driver == "shardmap" and parallel.world() is None
+    if joined:
+        parallel.init_group(device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            parallel.destroy_group()
 
+
+def _run(args):
+    rank0 = parallel.world() is None or parallel.world().rank == 0
     X, _, _ = cambridge_data(N=args.N, sigma_n=args.sigma_n, seed=args.seed)
     X_train, X_eval = train_eval_split(X, eval_frac=0.1, seed=args.seed)
     # explicit --chains passes through so spec validation can reject it
@@ -110,7 +139,7 @@ def main(argv=None):
     spec = SamplerSpec.for_driver(
         args.driver,
         n_chains=(args.chains if args.chains is not None else default_chains),
-        sync=args.sync, stale_sync=args.stale_sync,
+        sync=args.sync, stale_sync=args.stale_sync, backend=args.backend,
         P=args.P, K_max=args.K_max, K_tail=args.K_tail, L=args.L,
         n_iters=args.iters, eval_every=args.eval_every,
         ckpt_dir=args.ckpt_dir, seed=args.seed,
@@ -137,7 +166,9 @@ def main(argv=None):
                      f" ess(sx)={r['sigma_x_ess']:.0f}")
         print(line, flush=True)
 
-    drv.run(on_eval=show)
+    drv.run(on_eval=show if rank0 else None)
+    if not rank0:
+        return drv
 
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -1,9 +1,10 @@
 """MCMC driver: run loop, checkpoint/restart, capacity restarts, adaptive
 K_tail, eval records — over a ``Sampler`` built by ``build_sampler``.
 
-Port of ``repro/runtime/driver.py`` for the single-device layouts
-(``driver="vmap"``: one chain; ``driver="multichain"``: C chains, every
-state leaf with a leading chain axis):
+Port of ``repro/runtime/driver.py`` for ``driver="vmap"`` (one chain
+on one device), ``driver="multichain"`` (C chains on one device, every
+state leaf with a leading chain axis) and ``driver="shardmap"`` (P
+ranks, one shard each; every rank runs the driver):
 
 * every ``ckpt_every`` iterations the full sampler state (global params,
   Z in global (N, K) layout, the PRNG key) is written atomically in the
@@ -34,6 +35,12 @@ state leaf with a leading chain axis):
   ``SampleBank`` is saved (``bank_path``) before each checkpoint, and a
   restart extends the builder from the saved bank and drops the samples
   past the restored step, so each draw is in the bank once.
+* shardmap: the checkpoint's ``Z_global`` (N, K) is gathered from every
+  rank; only rank 0 writes the checkpoint and the bank, then every rank
+  waits at a barrier. Every rank restores the same file and takes its
+  block, so a checkpoint of either layout resumes under the other and
+  under another P. The eval record's ``joint_ll_train`` is the sum over
+  ranks of each rank's part.
 """
 from __future__ import annotations
 
@@ -46,11 +53,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import prng
+from repro_torch import parallel, prng
 from repro_torch.checkpoint import restore, save_pytree
 from repro_torch.core.ibp import convergence
-from repro_torch.core.ibp.api import DRIVERS, SYNC_MODES, SamplerSpec, \
-    build_sampler
+from repro_torch.core.ibp.api import (
+    DRIVERS,
+    SWEEP_BACKENDS,
+    SYNC_MODES,
+    SamplerSpec,
+    build_sampler,
+)
 from repro_torch.core.ibp.collapsed import (
     COLLAPSED_BACKENDS,
     DEFAULT_REFRESH,
@@ -66,20 +78,17 @@ from repro_torch.core.ibp.predict import (
 from repro_torch.core.ibp.state import IBPHypers
 
 
-SWEEP_BACKENDS = ("jnp", "pallas")
-
-
 @dataclasses.dataclass
 class DriverConfig:
     """The reference's older construction surface, mapped onto a
     ``SamplerSpec`` by ``to_spec``; it keeps the reference's fields and
     defaults, so ``DriverConfig()`` builds.
 
-    Accepted and not passed on: ``backend`` ("jnp" or "pallas": the
-    device chooses the kernels). ``driver`` maps onto the spec's
-    ``chains`` x ``data`` axes (``DRIVERS``); the mesh layouts raise
-    ``NotImplementedError`` naming their ROADMAP item, and a value the
-    reference rejects raises ``ValueError``.
+    ``driver`` maps onto the spec's ``chains`` x ``data`` axes
+    (``DRIVERS``); ``driver="mesh"`` raises ``NotImplementedError``
+    naming its ROADMAP item, and a value the reference rejects raises
+    ``ValueError``. ``backend`` passes on to the spec, where it is
+    inert (the device chooses the kernels).
     """
 
     P: int = 4
@@ -126,7 +135,7 @@ class DriverConfig:
         return SamplerSpec.for_driver(
             self.driver, P=self.P, K_max=self.K_max, K_tail=self.K_tail,
             K_init=self.K_init, alpha=self.alpha, sigma_x=self.sigma_x,
-            sigma_a=self.sigma_a, L=self.L,
+            sigma_a=self.sigma_a, L=self.L, backend=self.backend,
             collapsed_backend=self.collapsed_backend,
             chol_refresh=self.chol_refresh,
             k_live_buckets=self.k_live_buckets, n_chains=self.n_chains,
@@ -181,6 +190,19 @@ class MCMCDriver:
         *lead, P, N_p, K = ss.Z.shape
         return {"gs": gs, "Z_global": ss.Z.reshape(*lead, P * N_p, K),
                 "meta": {"it": gs.it}}
+
+    def _save(self, gs: HybridGlobal, ss: HybridShard, step: int) -> None:
+        """The bank, then the checkpoint of the canonical state: a crash
+        between the two writes rewinds to the older checkpoint, whose
+        re-run harvests again. Under shardmap every rank gathers Z, rank
+        0 alone writes, and every rank waits for the write."""
+        ss = self.sampler.to_canonical(ss)
+        if self.sampler.rank in (None, 0):
+            if self.bank_builder is not None and len(self.bank_builder):
+                self.save_bank()
+            save_pytree(self.spec.ckpt_dir, self._to_ckpt(gs, ss), step)
+        if self.sampler.rank is not None:
+            parallel.barrier()
 
     def _shrink_features(self, gs: HybridGlobal, Zg: torch.Tensor,
                          K_new: int) -> tuple[HybridGlobal, torch.Tensor]:
@@ -335,6 +357,7 @@ class MCMCDriver:
         b = self.bank_builder
         if restored is not None:
             gs, ss = self._from_ckpt(restored[0])
+            ss = sampler.from_canonical(ss)
             start = int(restored[1])
             # a restart continues the harvest from the saved bank, less
             # the samples past the restored step: those iterations re-run
@@ -375,11 +398,7 @@ class MCMCDriver:
                 if on_eval:
                     on_eval(rec)
             if need_ckpt or overflowed:
-                # the bank first: a crash between the two writes rewinds to
-                # the older checkpoint, whose re-run harvests again
-                if b is not None and len(b):
-                    self.save_bank()
-                save_pytree(spec.ckpt_dir, self._to_ckpt(gs, ss), it + 1)
+                self._save(gs, ss, it + 1)
             # adaptive K_tail rides the checkpoint boundary, where tails are
             # empty; the checkpoint just written stays valid (tails are not
             # serialized)
@@ -422,18 +441,21 @@ class MCMCDriver:
 
     def evaluate(self, gs: HybridGlobal, ss: HybridShard, it: int,
                  elapsed: float) -> dict[str, Any]:
-        X = self.sampler.Xs.reshape(self.N, -1)
+        # this rank's rows under shardmap, else all N
+        X = self.sampler.Xs.reshape(-1, self.sampler.D)
         if self.spec.chain_axis:
             return self._evaluate_chains(X, gs, ss, it, elapsed)
-        Z = ss.Z.reshape(self.N, -1)
+        ll = train_joint_loglik(X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi,
+                                gs.active, gs.sigma_x)
+        if self.sampler.rank is not None:
+            ll = parallel.all_reduce_sum(ll)
         rec: dict[str, Any] = {
             "it": it,
             "t": elapsed,
             "K": int(torch.sum(gs.active)),
             "alpha": float(gs.alpha),
             "sigma_x": float(gs.sigma_x),
-            "joint_ll_train": float(train_joint_loglik(
-                X, Z, gs.A, gs.pi, gs.active, gs.sigma_x)),
+            "joint_ll_train": float(ll),
             "K_tail": int(self.spec.K_tail),
             "tail_sat": int(gs.tail_sat),
         }

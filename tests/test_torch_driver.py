@@ -8,6 +8,10 @@
   driver checkpoint and raise.
 * Device: without ``device="cpu"`` the entry points want a GPU and raise
   when there is none; they never carry on on the CPU.
+* Layouts and knobs: ``chains="mesh"`` is refused with its ROADMAP item,
+  ``data="shardmap"`` outside a group of P ranks with both numbers; the
+  CLI runs ``--driver shardmap`` on 4 gloo ranks; ``backend`` takes the
+  reference's values and refuses others with its message.
 * Imports: ``src/repro_torch`` and ``chip_smoke.py`` import no JAX and
   nothing of the reference package.
 """
@@ -19,6 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import _torch_shardmap_ranks as shardmap_ranks
 import jax
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from repro.checkpoint import load_pytree as jax_load_pytree
 from repro.core.ibp import SamplerSpec as JSpec
 from repro.data import cambridge_data
 from repro.runtime import MCMCDriver as JDriver
+from repro_torch import parallel
 from repro_torch.core.ibp import SamplerSpec, build_sampler
 from repro_torch.launch import mcmc
 from repro_torch.runtime import DriverConfig, MCMCDriver
@@ -127,6 +133,29 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "it=    4" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("sync", ["staged", "fused"])
+def test_cli_runs_shardmap_on_ranks(tmp_path, sync):
+    """--driver shardmap in each of 4 gloo ranks (parallel.spawn): the
+    same records on every rank, and rank 0 alone writes --out."""
+    out = tmp_path / "hist.json"
+    argv = ["--device", "cpu", "--driver", "shardmap", "--sync", sync,
+            "--N", "60", "--P", "4", "--iters", "4", "--eval-every", "2",
+            "--K-max", "8", "--L", "2", "--ckpt-dir", str(tmp_path / "ck"),
+            "--out", str(out)]
+    res = parallel.spawn(shardmap_ranks.cli, 4, argv, device="cpu",
+                         timeout_s=300)
+    assert [r["spec"] for r in res] == [("shardmap", sync)] * 4
+    assert {r["backend"] for r in res} == {"gloo"}
+    hist = json.loads(out.read_text())
+    assert [r["it"] for r in hist] == [2, 4]
+    for r in res:
+        assert [h["joint_ll_train"] for h in r["history"]] == [
+            h["joint_ll_train"] for h in hist]
+    for r in hist:
+        assert np.isfinite(r["joint_ll_eval"]) and 1 <= r["K"] <= 8
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_000000004.npz"]
+
+
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, tmp_path, X):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -140,14 +169,49 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, tmp_path, X):
     assert not (tmp_path / "ck").exists()
 
 
-@pytest.mark.parametrize("make", [
-    lambda: SamplerSpec(data="shardmap"),
-    lambda: SamplerSpec(chains="mesh", n_chains=2),
-    lambda: SamplerSpec(chains="mesh", data="shardmap", n_chains=2),
-    lambda: DriverConfig(driver="shardmap").to_spec()])
-def test_spec_rejects_what_is_not_ported(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8b"):
-        make()
+# chains="mesh" is not ported; data="shardmap" builds only in a process
+# that is a rank of a group of P (here there is no group)
+NO_GROUP = r"P=4 needs a torch.distributed group of 4 ranks.*no group"
+
+
+@pytest.mark.parametrize("make,exc,words", [
+    (lambda X: build_sampler(SamplerSpec(data="shardmap"), X=X,
+                             device="cpu"), ValueError, NO_GROUP),
+    (lambda X: SamplerSpec(chains="mesh", n_chains=2), NotImplementedError,
+     "ROADMAP queue 1 item 8b"),
+    (lambda X: SamplerSpec(chains="mesh", data="shardmap", n_chains=2),
+     NotImplementedError, "ROADMAP queue 1 item 8b"),
+    (lambda X: MCMCDriver(X, DriverConfig(driver="shardmap"), device="cpu"),
+     ValueError, NO_GROUP)], ids=[f"<lambda>{i}" for i in range(4)])
+def test_spec_rejects_what_is_not_ported(make, exc, words, X):
+    with pytest.raises(exc, match=words):
+        make(X)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_spec_config_and_cli_take_the_reference_backend(backend, tmp_path):
+    assert SamplerSpec(backend=backend).backend == backend
+    assert DriverConfig(backend=backend).to_spec().backend == backend
+    assert JSpec(backend=backend).backend == backend
+    drv = mcmc.main(["--device", "cpu", "--N", "20", "--P", "2", "--iters",
+                     "1", "--K-max", "8", "--backend", backend,
+                     "--ckpt-dir", str(tmp_path / "ck"),
+                     "--out", str(tmp_path / "h.json")])
+    assert drv.spec.backend == backend
+
+
+def test_spec_config_and_cli_refuse_another_backend(tmp_path, capsys):
+    for make in (lambda: SamplerSpec(backend="cuda"),
+                 lambda: JSpec(backend="cuda")):
+        with pytest.raises(ValueError,
+                           match=r"backend='cuda' not in \('jnp', 'pallas'\)"):
+            make()
+    with pytest.raises(ValueError, match="DriverConfig: backend='cuda'"):
+        DriverConfig(backend="cuda").to_spec()
+    with pytest.raises(SystemExit):
+        mcmc.main(["--device", "cpu", "--backend", "cuda",
+                   "--ckpt-dir", str(tmp_path / "ck")])
+    assert "invalid choice: 'cuda'" in capsys.readouterr().err
 
 
 def test_spec_keeps_reference_validation():

@@ -294,18 +294,29 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     assert drv.cfg is drv.spec and drv.spec.K_max == 8
 
 
-# the mesh layouts need several devices: every driver value that selects
-# one is refused with the item that brings them
+# driver="mesh" is refused with the item that brings it; "shardmap" maps
+# onto its spec and is refused by the driver in a process that is not a
+# rank of a group of P (here there is no group)
 @pytest.mark.parametrize("kw,item", [
-    (dict(driver="shardmap"), "item 8b"), (dict(driver="mesh"), "item 8b"),
+    (dict(driver="shardmap"), None), (dict(driver="mesh"), "item 8b"),
     (dict(driver="mesh", n_chains=2), "item 8b"),
-    (dict(driver="shardmap", sync="fused"), "item 8b"),
+    (dict(driver="shardmap", sync="fused"), None),
     (dict(driver="mesh", sync="fused", n_chains=4), "item 8b"),
-    (dict(driver="shardmap", stale_sync=1), "item 8b"),
-    (dict(driver="mesh", n_chains=2, stale_sync=1), "item 8b")])
-def test_driver_config_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        DriverConfig(**kw).to_spec()
+    (dict(driver="shardmap", stale_sync=1), None),
+    (dict(driver="mesh", n_chains=2, stale_sync=1), "item 8b")],
+    ids=[f"kw{i}-item 8b" for i in range(7)])
+def test_driver_config_refuses_what_is_not_ported(kw, item, X):
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 {item}"):
+            DriverConfig(**kw).to_spec()
+        return
+    spec = DriverConfig(**kw).to_spec()
+    assert (spec.data, spec.sync, spec.stale_sync, spec.devices_needed) == (
+        "shardmap", kw.get("sync", "staged"), kw.get("stale_sync", 0), 4)
+    with pytest.raises(ValueError, match=r"P=4 needs a torch.distributed "
+                       r"group of 4 ranks.*is in no group \(0 ranks\)"):
+        MCMCDriver(X, DriverConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(driver="bogus"), dict(backend="cuda"),
