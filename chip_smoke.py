@@ -12,7 +12,9 @@ Phases, each of which raises on failure (exit code non-zero):
    N=1024 from Z=0, beside one read of X and the product X A^T alone;
    collapsed_scan: one tail sub-iteration, N_p rows, and 1024 rows at
    the grown K_tail 16 and 32; with Gibbs births, 1024 rows at K=32, 64,
-   16, and 4 with births common; each plain scan runs once, timed;
+   16, and 4 with births common; each plain scan runs once, timed, the
+   tail sub-iteration's on the card and the others, here and in phases
+   9, 10, 12 and 14, on the host, where the row loop is faster;
    gaussian_sse: the sync's N=32768 in float32 and bfloat16, a
    real-valued Z, and the held-out eval's N=1024). Each
    kernel's device time (torch.profiler) and call time (CUDA events) are
@@ -23,12 +25,12 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 13.) The kernel that carries each TPU
+6. (Checked last, after phase 14.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
    inside collapsed_scan) had its launch counter rise in phases 4, 5,
-   11, 12 and 13 (gibbs_flip in 11 also through the naive scorer; in 13
-   on the ranks, which send their counts to this process), and
-   collapsed_scan and feature_stats theirs in phases 9 and 10.
+   11, 12, 13 and 14 (gibbs_flip in 11 also through the naive scorer;
+   in 13 and 14 on the ranks, which send their counts to this process),
+   and collapsed_scan and feature_stats theirs in phases 9 and 10.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
    checkpoint every iteration, run to iteration 6 with tail saturation
@@ -117,6 +119,38 @@ Phases, each of which raises on failure (exit code non-zero):
    host time. One iteration in an NCCL world of one rank, bitwise equal
    to the vmap layout at P=1; the CLI under torch.distributed.run on 4
    ranks of cuda:0 (fused), on Cambridge data.
+14. The chains x data mesh (chains="mesh"): C=2 chains x P=4 shards on 8
+   ranks sharing cuda:0 over gloo, from phase 5's final state (N_p=8192;
+   chain c keyed by fold_in(key, c), p′ = c): 3 iterations under the
+   staged sync (after one untimed) and 3 under the fused, then one stale
+   pass. Each rank's launches an iteration as in phase 13 (collapsed_scan
+   L on each chain's p′ rank only) and no collective over the chain
+   axis; each chain's HybridGlobal bitwise equal on its ranks; each
+   chain's first iteration against the multichain layout's at P=4 from
+   the same state (phase 13's rules: Z bits differing only where a
+   counted boundary event made the rank's sweep differ; A and sigma_x
+   while Z agrees) and the master's draws replayed on the chain's Z;
+   each chain's SSE identity. gibbs_flip, feature_stats and gaussian_sse
+   at a rank's N_p=8192 rows against their plain versions, and the
+   unchained collapsed_scan on a planted p′ tail of 8192 rows at K=8,
+   in the tail's default rss flavor, against the plain scan, each timed
+   beside its bound. The device time
+   of each p′ rank's tails (CUDA events), s/iteration beside phases 5
+   and 13, and whether an
+   MPS daemon serves the card (without it the two chains' tails are
+   time-sliced). make_sharded_scorer over each chain's 4 data ranks on
+   phase 11's bank, 256 held-out rows: rows/s, and every rank's result
+   within 1e-5 of the blocks scored in this process. chains="mesh" x
+   data="vmap" on 2 ranks at phase 5's P=8: 2 iterations (after one
+   untimed), each rank launching L of each sweep and scan, and equal to
+   the multichain layout's first iteration (Z, keys, p′ and counters
+   bitwise; A and sigma_x within phase 13's tolerances), s/iteration
+   beside phase 12's. driver="mesh" with 1 chain x 1 shard through
+   MCMCDriver in an NCCL world of one rank on cuda:0, 8192 rows, 2
+   iterations with an eval each and a checkpoint: the final state, the
+   eval records and the checkpoint bitwise equal to the multichain
+   driver's at C=1 (the chain-axis gathers carry host payloads through
+   the card under nccl).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
@@ -216,6 +250,20 @@ MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=1024, hold_K=(8, 32),
 # torch.distributed.run
 SHARDMAP = dict(iters=3, boundary=1e-4, A_rtol=1e-4, sx_rtol=1e-5,
                 sse_rtol=1e-5, cli_ranks=4, cli_N=1000, cli_iters=20)
+# phase 14: the chains x data mesh: C chains x P shards on C·P ranks of
+# cuda:0 over gloo from phase 5's final state (chain c keyed by
+# fold_in(key, c), p′ = c), iters under each sync after one untimed, then
+# a stale pass; each chain's first iteration held against the multichain
+# layout's at this P as phase 13 holds its ranks against the vmap layout
+# (SHARDMAP's boundary and tolerances); chains="mesh" x data="vmap" on C
+# ranks at phase 5's P, vmap_iters after one untimed, against the
+# multichain layout; make_sharded_scorer over each chain's P data ranks
+# on phase 11's bank: score_rows held-out rows, the median of score_reps
+# timed calls, within score_tol of each block's one-process score; the
+# mesh driver with one chain and one shard in an NCCL world of one rank,
+# one_iters iterations on one_rows of phase 5's rows
+MESH = dict(C=2, P=4, iters=3, vmap_iters=2, score_rows=256, score_reps=5,
+            score_key=97, score_tol=1e-5, one_rows=8192, one_iters=2)
 
 
 def log(msg: str) -> None:
@@ -581,9 +629,13 @@ def once_ms(fn) -> float:
 
 
 def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
-              rest=None, **scan_kw):
+              rest=None, plain_dev="cpu", **scan_kw):
     """The scan kernel against its plain version (the Python row loop) on
-    the same inputs and draws. ``case`` holds numpy arrays: the scan's
+    the same inputs and draws, the plain scan on ``plain_dev``: the host
+    by default, where its row loop runs about 6 times faster than on the
+    card, whose launches and host syncs it waits on a row at a time (the
+    kernel line's own row, phase 3's tail scan, holds and times it on the
+    card). ``case`` holds numpy arrays: the scan's
     state (Z, active, ZtZ, ZtX, m), its rows X and its draws (u_logit, and
     j_prop and log_u_acc, or gumbel and alpha); ``rest`` is as in
     ``scan_divergence``. Two launches must be bitwise equal; the kernel
@@ -608,22 +660,31 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
     refresh = 64  # the sampler's DEFAULT_REFRESH
     per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc", "gumbel")
 
-    def tensors(rows=None):
-        return {k: torch.tensor(v[:rows] if k in per_row else v, device=dev)
+    plain_dev = torch.device(plain_dev)
+
+    def tensors(rows=None, on=dev):
+        return {k: torch.tensor(v[:rows] if k in per_row else v, device=on)
                 for k, v in case.items()}
 
-    sx_t, sa_t = torch.tensor(sx, device=dev), torch.tensor(sa, device=dev)
-
     def run(fn, t):
+        on = t["X"].device
         return fn(t["Z"], t["active"], t["ZtZ"], t["ZtX"], t["m"], t["X"],
-                  t["u_logit"], t.get("j_prop"), t.get("log_u_acc"), sx_t,
-                  sa_t, N=N, refresh_every=refresh, drift_tol=1e-2,
+                  t["u_logit"], t.get("j_prop"), t.get("log_u_acc"),
+                  torch.tensor(sx, device=on), torch.tensor(sa, device=on),
+                  N=N, refresh_every=refresh, drift_tol=1e-2,
                   gumbel=t.get("gumbel"), alpha=t.get("alpha"), **scan_kw)
 
-    got_t, again_t, want_t = tensors(), tensors(), tensors()
+    got_t, again_t = tensors(), tensors()
+    want_t = tensors(on=plain_dev)
     cg, ca = run(collapsed_scan, got_t), run(collapsed_scan, again_t)
     cw = []
-    plain_ms = once_ms(lambda: cw.append(run(collapsed_scan_ref, want_t)))
+    if plain_dev.type == "cuda":
+        plain_ms = once_ms(lambda: cw.append(run(collapsed_scan_ref,
+                                                 want_t)))
+    else:
+        t0 = time.perf_counter()
+        cw.append(run(collapsed_scan_ref, want_t))
+        plain_ms = (time.perf_counter() - t0) * 1e3
     cw = cw[0]
     got = {k: got_t[k].cpu().numpy() for k in ("Z", "active", "ZtZ", "ZtX",
                                                  "m")}
@@ -633,7 +694,7 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
         raise AssertionError(f"{tag}: two launches differ")
 
     def state_at(n):  # (active, m) entering row n, from the plain scan
-        t = tensors(n)
+        t = tensors(n, plain_dev)
         run(collapsed_scan_ref, t)
         return t["active"].cpu().numpy(), t["m"].cpu().numpy()
 
@@ -662,13 +723,15 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
         counts_equal=bool((cg.cpu() == cw.cpu()).all()),
         born=int((want["Z"][:, case["active"] < 0.5].sum(0) > 0).sum()),
         k_live=float(want["active"].sum()), plain_ms=plain_ms,
-        Z=got["Z"])
+        plain_device=str(plain_dev), Z=got["Z"])
     return report, run, tensors
 
 
 def scan_variant(dev, n_rows: int, K: int, D: int, seed: int,
-                 alpha: float | None = None) -> dict:
-    """``hold_scan`` on a planted case: one tail sub-iteration of
+                 alpha: float | None = None, plain_dev="cpu",
+                 flavor: str = "pallas") -> dict:
+    """``hold_scan`` on a planted case (the plain scan on ``plain_dev``,
+    both scans in the flip ``flavor``): one tail sub-iteration of
     ``n_rows`` rows, K tail columns, D wide, with MH births; or, with
     ``alpha``, ``n_rows`` rows of the serial sweep's scan with Gibbs
     births; then the kernel's times beside its bound."""
@@ -682,9 +745,11 @@ def scan_variant(dev, n_rows: int, K: int, D: int, seed: int,
     case = scan_case(n_rows, K, D, seed=seed, lam=0.01, alpha=alpha)
     gibbs = alpha is not None
     tag = f"collapsed_scan K={K}{' gibbs' if gibbs else ''}"
-    rep, run, tensors = hold_scan(dev, case, sx, sa, N, tag)
+    rep, run, tensors = hold_scan(dev, case, sx, sa, N, tag,
+                                  plain_dev=plain_dev, flavor=flavor)
     del rep["Z"]
-    b, by = scan_bound_ms(n_rows, K, D, rep["k_live"], gibbs)
+    b, by = scan_bound_ms(n_rows, K, D, rep["k_live"], gibbs,
+                          fast=flavor == "fast")
     t = tensors()  # the kernel is timed scanning on from its own output
     out = dict(
         shape=f"rows={n_rows} K={K} D={D}" + (
@@ -707,7 +772,8 @@ def check_collapsed_scan(dev) -> dict:
     fill every free column, so that the capacity mask (j <= the free
     columns) binds."""
     n_rows, K, D = FULL["N"] // FULL["P"], FULL["K_tail"], FULL["D"]
-    main = dict(name="collapsed_scan", **scan_variant(dev, n_rows, K, D, 31),
+    main = dict(name="collapsed_scan",
+                **scan_variant(dev, n_rows, K, D, 31, plain_dev=dev),
                 library_ms=None, library_call=None)
     main["variants"] = [scan_variant(dev, 1024, k, D, 31 + k)
                         for k in GROWTH["K_tails"][1:]]
@@ -1968,9 +2034,9 @@ def run_cli_serving(tmp: Path) -> dict:
     return dict(lines=outs, seconds=time.perf_counter() - t0)
 
 
-def run_serving(dev, data: tuple) -> tuple[dict, dict]:
+def run_serving(dev, data: tuple) -> tuple[dict, dict, object]:
     """Phase 11. Returns (results, kernel launches of the harvest run and
-    the naive scorer's calls)."""
+    the naive scorer's calls, the harvested bank)."""
     import numpy as np
 
     from repro_torch.launch import serve_ibp
@@ -2002,7 +2068,7 @@ def run_serving(dev, data: tuple) -> tuple[dict, dict]:
         counts[k] = (counts.get(k, 0) + naive_counts.get(k, 0)
                      + planted_counts.get(k, 0))
     out["gibbs_flip_naive"] = [sweep, planted_sweep]
-    return out, counts
+    return out, counts, bank
 
 
 # --------------------------------------------------------------------------
@@ -2153,6 +2219,7 @@ def hold_chained(dev, n_rows: int, K: int, D: int, C: int, seed: int
         counts_equal=all(r["counts_equal"] for r in reps),
         chains_equal_single_launch=True,
         plain_ms=sum(r["plain_ms"] for r in reps),
+        plain_device=reps[0]["plain_device"],
         k_live=[r["k_live"] for r in reps],
         n_refresh=[r["n_refresh"] for r in reps],
         n_sat=[r["n_sat"] for r in reps],
@@ -2224,20 +2291,26 @@ def state_np(gs) -> dict:
 
 def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
                     syncs: tuple[str, ...], iters: int, stale: bool,
-                    warm: bool) -> dict:
-    """Phase 13 on one rank of the group (``parallel.spawn``): from the
-    canonical state (Z of ``z_path`` reshaped to kw["P"] shards, empty
-    tails, ``gs_np``), ``iters`` iterations under each sync of ``syncs``,
-    each with its time, its launches and its collectives; the state after
-    the first; under "fused", the SSE identity beside gaussian_sse on the
-    last state, then one stale pass when ``stale``. With ``warm``, one
-    untimed iteration first (its result dropped): a process's first
+                    warm: bool, score: dict | None = None) -> dict:
+    """Phases 13 and 14 on one rank of the group (``parallel.spawn``),
+    under ``SamplerSpec(**kw)`` (a distributed layout): from the canonical
+    state (Z of ``z_path`` reshaped to kw["P"] shards, and for each chain
+    of a chains="mesh" layout the same, empty tails, ``gs_np``, chain-
+    batched under the mesh), ``iters`` iterations under each sync of
+    ``syncs``, each with its time, its launches, its collectives (in all
+    and over the chain axis) and the device time of its tail (CUDA events
+    around each tail sub-iteration, where this rank runs one); the state
+    after the first; under "fused", the SSE identity beside gaussian_sse
+    on the last state, then one stale pass when ``stale``. With ``warm``,
+    one untimed iteration first (its result dropped): a process's first
     iteration loads the kernel libraries and creates its library
-    handles."""
+    handles. With ``score`` (phase 14), ``make_sharded_scorer`` over the
+    data axis on the bank at score["bank"]: the scores of score["X"]
+    under score["key"] and the median time of score["reps"] calls."""
     import numpy as np
     import torch
 
-    from repro_torch import parallel
+    from repro_torch import parallel, prng
     from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
     from repro_torch.core.ibp import hybrid as thy
     from repro_torch.interop import from_reference
@@ -2248,52 +2321,76 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
     Zc = np.load(z_path)
     Zc = Zc.reshape(kw["P"], -1, Zc.shape[-1])
     P, N_p, _ = Zc.shape
-    ss_np = dict(Z=Zc, Z_tail=np.zeros((P, N_p, kw["K_tail"]), np.float32),
-                 tail_active=np.zeros((P, kw["K_tail"]), np.float32))
+    lead = (kw["n_chains"],) if kw.get("chains") == "mesh" else ()
+    ss_np = dict(Z=np.broadcast_to(Zc, lead + Zc.shape),
+                 Z_tail=np.zeros(lead + (P, N_p, kw["K_tail"]), np.float32),
+                 tail_active=np.zeros(lead + (P, kw["K_tail"]), np.float32))
 
     def wait():
         if w.device.type == "cuda":
             torch.cuda.synchronize(w.device)
 
+    # the device time of each tail sub-iteration this rank runs
+    tails = []
+    chain_tails = thy._chain_tails
+
+    def timed_tails(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = chain_tails(*a, **k)
+        ev[1].record()
+        tails.append(ev)
+        return out
+
+    if w.device.type == "cuda":
+        thy._chain_tails = timed_tails
+
     def timed_call(fn):
         wait()
         reset_launch_counts()
         parallel.reset_collective_counts()
+        tails.clear()
         t0 = time.perf_counter()
         out = fn()
         wait()
         return out, dict(seconds=time.perf_counter() - t0,
                          launches=launch_counts(),
                          collectives=parallel.collective_counts(),
+                         collectives_chains=parallel.collective_counts(
+                             "chains"),
                          collective_seconds=sum(
-                             parallel.collective_seconds().values()))
+                             parallel.collective_seconds().values()),
+                         tail_ms=sum(a.elapsed_time(b) for a, b in tails))
 
     out = dict(rank=w.rank, backend=w.backend, device=str(w.device))
 
-    def all_reduce_ms(n: int) -> float:
-        """One all-reduce of n floats with the device idle and every rank
-        at a barrier before it: the collective's own cost (median of
-        10, after one)."""
+    def all_reduce_ms(n: int, group) -> float:
+        """One all-reduce of n floats over the data axis with the device
+        idle and every rank at a barrier before it: the collective's own
+        cost (median of 10, after one)."""
         t = torch.zeros((n,), device=w.device)
         times = []
         for _ in range(11):
             wait()
             parallel.barrier()
             t0 = time.perf_counter()
-            parallel.all_reduce_sum(t)
+            parallel.all_reduce_sum(t, group=group)
             wait()
             times.append(time.perf_counter() - t0)
         return statistics.median(times[1:]) * 1e3
 
-    # the fused payload's size, and one float
-    K, Kt = kw["K_max"], kw["K_tail"]
-    out["all_reduce_ms"] = {
-        n: all_reduce_ms(n) for n in (K * K + K * X.shape[1] + K + Kt + 2, 1)}
     for sync in syncs:
-        s = build_sampler(SamplerSpec(data="shardmap", sync=sync, **kw),
-                          IBPHypers(), X)
+        s = build_sampler(SamplerSpec(sync=sync, **kw), IBPHypers(), X)
+        out.update(chain=s.chain, shard=s.shard)
         gs, ss = from_reference(gs_np, ss_np, device=w.device)
-        ss = s.from_canonical(ss)
+        gs, ss = s.from_canonical_global(gs), s.from_canonical(ss)
+        data = None if s.shard is None else s.mesh.group("data")
+        if sync == syncs[0] and data is not None:
+            # the fused payload's size, and one float
+            K, Kt = kw["K_max"], kw["K_tail"]
+            out["all_reduce_ms"] = {
+                n: all_reduce_ms(n, data)
+                for n in (K * K + K * X.shape[1] + K + Kt + 2, 1)}
         if warm and sync == syncs[0]:
             s.step(gs, ss)
             wait()
@@ -2303,21 +2400,41 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
             (gs, ss), rec = timed_call(lambda: s.step(gs, ss))
             steps.append(dict(rec, p_prime=pp))
             if i == 0:
-                first = dict(Z=ss.Z[0].bool().cpu().numpy(), gs=state_np(gs))
+                first = dict(Z=ss.Z.reshape(-1, ss.Z.shape[-1]).bool()
+                             .cpu().numpy(), gs=state_np(gs))
         run = dict(steps=steps, first=first, last=state_np(gs))
         if sync == "fused":
             st = thy.local_stats(s.Xs, ss.Z)
             ZtZ, ZtX, xx = parallel.all_reduce_sum(
-                st["ZtZ"], st["ZtX"], torch.sum(s.Xs * s.Xs)[None])
+                st["ZtZ"], st["ZtX"], torch.sum(s.Xs * s.Xs)[None],
+                group=data)
             run["sse_identity"] = float(thy.sse_identity(
                 xx[0], ZtZ, ZtX, gs.A, gs.active))
             run["sse_kernel"] = float(parallel.all_reduce_sum(
-                thy.local_sse(s.Xs, ss.Z, gs.A, gs.active)))
+                thy.local_sse(s.Xs, ss.Z, gs.A, gs.active), group=data))
             if stale:
                 pp = int(gs.p_prime)
                 _, rec = timed_call(lambda: s.stale(gs, ss))
                 run["stale"] = dict(rec, p_prime=pp)
         out[sync] = run
+    if score is not None:
+        from repro_torch.core.ibp import SampleBank, make_sharded_scorer
+
+        fn = make_sharded_scorer(SampleBank.load(score["bank"], w.device),
+                                 s.mesh, axis="data",
+                                 n_sweeps=score["n_sweeps"])
+        key = prng.key(score["key"])
+        got = fn(score["X"], key)  # the first call: the scorer's warm-up
+        times = []
+        for _ in range(score["reps"]):
+            wait()
+            parallel.barrier()
+            t0 = time.perf_counter()
+            fn(score["X"], key)
+            wait()
+            times.append(time.perf_counter() - t0)
+        out["score"] = dict(scores=got.cpu().numpy(),
+                            seconds=statistics.median(times))
     return out
 
 
@@ -2462,18 +2579,18 @@ def compare_first(tag: str, Z_got, gs_got: dict, Z_want, gs_want: dict,
     return out
 
 
-def rank_kernels(sampler, gs, ss) -> dict:
+def rank_kernels(sampler, gs, ss, phase: int) -> dict:
     """gibbs_flip, feature_stats and gaussian_sse at a rank's shape: shard
-    0's N_p rows of phase 5's final state, the first sweep's inputs on
-    rank 0 (its uniforms included), each against its plain version with
-    its times, bound and library call."""
+    0's N_p rows of phase 5's final state under ``sampler``'s P, the
+    first sweep's inputs on rank 0 (its uniforms included), each against
+    its plain version with its times, bound and library call."""
     import torch
 
     from repro_torch.core.ibp.sweeps import _logit
 
     Xp, Zp = sampler.Xs[0], ss.Z[0]
     u = shard_uniforms(gs, 0, tuple(Zp.shape), Xp.device)
-    tag = " a rank's N_p rows (phase 13)"
+    tag = f" a rank's N_p rows (phase {phase})"
     return dict(
         gibbs_flip=dict(gibbs_variant(Xp, Zp, gs.A, _logit(gs.pi),
                                       gs.active, u, 0.5 / gs.sigma_x**2,
@@ -2484,41 +2601,45 @@ def rank_kernels(sampler, gs, ss) -> dict:
 
 
 def check_rank_launches(ranks: list, sync: str, L: int) -> None:
-    """Each iteration on each rank: gibbs_flip L, collapsed_scan L on p′'s
-    rank and 0 elsewhere, feature_stats 1, gaussian_sse 1 under staged
-    and 0 under fused; 3 all-reduces under staged, 1 under fused; the
-    stale pass: the sweeps and p′'s tail, no collective."""
+    """Each iteration on each rank: gibbs_flip L, collapsed_scan L on its
+    chain's p′'s rank (the rank's data coordinate is p′) and 0 elsewhere,
+    feature_stats 1, gaussian_sse 1 under staged and 0 under fused; 3
+    all-reduces under staged, 1 under fused, none over the chain axis;
+    the stale pass: the sweeps and p′'s tail, no collective."""
     for r in ranks:
         run = r[sync]
         for i, st in enumerate(run["steps"]):
-            pp = st["p_prime"] == r["rank"]
+            pp = st["p_prime"] == r["shard"]
             want = dict(gibbs_flip=L, collapsed_scan=L if pp else 0,
                         feature_stats=1,
                         gaussian_sse=1 if sync == "staged" else 0)
             want_c = dict(all_reduce_sum=3 if sync == "staged" else 1,
                           all_gather_rows=0)
             got = {k: st["launches"].get(k, 0) for k in want}
-            if got != want or st["collectives"] != want_c:
+            if (got != want or st["collectives"] != want_c
+                    or any(st["collectives_chains"].values())):
                 raise AssertionError(
-                    f"shardmap {sync} rank {r['rank']} iteration {i}: "
-                    f"launches {got}, collectives {st['collectives']}; "
-                    f"expected {want}, {want_c}")
+                    f"{sync} rank {r['rank']} iteration {i}: launches "
+                    f"{got}, collectives {st['collectives']} (over the "
+                    f"chain axis {st['collectives_chains']}); expected "
+                    f"{want}, {want_c} (none)")
         if "stale" in run:
             st = run["stale"]
-            pp = st["p_prime"] == r["rank"]
+            pp = st["p_prime"] == r["shard"]
             want = dict(gibbs_flip=L, collapsed_scan=L if pp else 0,
                         feature_stats=0, gaussian_sse=0)
             got = {k: st["launches"].get(k, 0) for k in want}
             if got != want or any(st["collectives"].values()):
                 raise AssertionError(
-                    f"shardmap stale pass rank {r['rank']}: launches {got}, "
+                    f"stale pass rank {r['rank']}: launches {got}, "
                     f"collectives {st['collectives']}; expected {want}, "
                     f"none")
 
 
 def check_replicated(ranks: list, sync: str) -> None:
-    """Every rank's HybridGlobal equals rank 0's bitwise, after the first
-    iteration and after the last."""
+    """Every rank's HybridGlobal equals the first rank's of ``ranks``
+    bitwise (one chain's ranks), after the first iteration and after the
+    last."""
     import numpy as np
 
     for r in ranks[1:]:
@@ -2529,8 +2650,8 @@ def check_replicated(ranks: list, sync: str) -> None:
             for f in want:
                 if not np.array_equal(got[f], want[f]):
                     raise AssertionError(
-                        f"shardmap {sync}: rank {r['rank']}'s {f} differs "
-                        f"from rank 0's after the {which} iteration")
+                        f"{sync}: rank {r['rank']}'s {f} differs from rank "
+                        f"{ranks[0]['rank']}'s after the {which} iteration")
 
 
 def run_cli_shardmap(tmp: Path, device: str) -> dict:
@@ -2585,7 +2706,8 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
     f, sm = FULL, SHARDMAP
     sampler, gs, ss = phase5
     P, L = f["P"], f["L"]
-    kw = dict(P=P, K_max=f["K_max"], K_tail=f["K_tail"], L=L)
+    kw = dict(P=P, K_max=f["K_max"], K_tail=f["K_tail"], L=L,
+              data="shardmap")
     x_path, z_path = tmp / "shard_x.npy", tmp / "shard_z.npy"
     np.save(x_path, np.ascontiguousarray(data[0][:f["N"]]))
     np.save(z_path, ss.Z.cpu().numpy())
@@ -2645,7 +2767,7 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
         raise AssertionError(f"shardmap: the SSE identity is "
                              f"{res['sse']['rel_gap']:.3g} off gaussian_sse "
                              f"(limit {sm['sse_rtol']})")
-    res["kernels"] = rank_kernels(sampler, gs, ss)
+    res["kernels"] = rank_kernels(sampler, gs, ss, 13)
     res["all_reduce_ms"] = {  # the slowest rank's median
         str(n): max(r["all_reduce_ms"][n] for r in ranks)
         for n in ranks[0]["all_reduce_ms"]}
@@ -2653,13 +2775,7 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
         seconds=max(r["fused"]["stale"]["seconds"] for r in ranks),
         collectives=ranks[0]["fused"]["stale"]["collectives"],
         p_prime=ranks[0]["fused"]["stale"]["p_prime"])
-    counts: dict[str, int] = {}
-    for r in ranks:
-        for sync in ("staged", "fused"):
-            recs = r[sync]["steps"] + [r[sync].get("stale", {})]
-            for rec in recs:
-                for k, v in rec.get("launches", {}).items():
-                    counts[k] = counts.get(k, 0) + v
+    counts = launches_of(ranks, ("staged", "fused"))
 
     # one iteration in an NCCL world of one rank against the vmap layout
     # at P=1, from phase 5's state with all rows on the one shard
@@ -2670,8 +2786,8 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
                          gs1_np, kw1, ("staged",), 1, False, False,
                          device="cuda:0", timeout_s=600)[0]
     t_one = time.perf_counter() - t0
-    s1 = build_sampler(SamplerSpec(**kw1), IBPHypers(), data[0][:f["N"]],
-                       device=dev)
+    s1 = build_sampler(SamplerSpec(**dict(kw1, data="vmap")), IBPHypers(),
+                       data[0][:f["N"]], device=dev)
     z1 = ss.Z.cpu().numpy().reshape(1, f["N"], -1)
     g1, st1 = from_reference(gs1_np, dict(
         Z=z1, Z_tail=np.zeros((1, f["N"], f["K_tail"]), np.float32),
@@ -2688,6 +2804,351 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
                            seconds=one["staged"]["steps"][0]["seconds"],
                            spawn_seconds=t_one)
     res["cli"] = run_cli_shardmap(tmp, "cuda:0")
+    return res, counts
+
+
+# --------------------------------------------------------------------------
+# phase 14: the chains x data mesh on C·P ranks
+# --------------------------------------------------------------------------
+
+
+def mesh_state(gs, C: int) -> dict:
+    """Phase 5's final HybridGlobal as C chains (numpy, chain-batched):
+    chain c keyed by fold_in(key, c), with p′ = c."""
+    import numpy as np
+
+    from repro_torch import prng
+
+    out = {k: np.stack([v] * C) for k, v in state_np(gs).items()}
+    out["key"] = np.stack([prng.fold_in(gs.key, c).numpy()
+                           for c in range(C)])
+    out["p_prime"] = np.arange(C, dtype=np.int32)
+    return out
+
+
+def canonical_np(Z, C: int, P: int, K_tail: int) -> dict:
+    """Phase 5's final Z (N, K) as every chain's canonical HybridShard at
+    P shards, tails empty (numpy)."""
+    import numpy as np
+
+    Zc = np.asarray(Z).reshape(P, -1, Z.shape[-1])
+    N_p = Zc.shape[1]
+    return dict(Z=np.stack([Zc] * C),
+                Z_tail=np.zeros((C, P, N_p, K_tail), np.float32),
+                tail_active=np.zeros((C, P, K_tail), np.float32))
+
+
+def mps_state() -> dict:
+    """Whether an MPS daemon serves the card: its control pipe (in
+    CUDA_MPS_PIPE_DIRECTORY, else the default directory), and the card's
+    compute mode. Without MPS the ranks' kernels are time-sliced."""
+    import os
+
+    q = subprocess.run(["nvidia-smi", "-i", "0", "-q", "-d", "COMPUTE"],
+                       capture_output=True, text=True, timeout=60).stdout
+    mode = next((ln.split(":", 1)[1].strip() for ln in q.splitlines()
+                 if "Compute Mode" in ln), None)
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY")
+    control = Path(pipe or "/tmp/nvidia-mps") / "control"
+    return dict(active=control.exists(), control_pipe=str(control),
+                pipe_directory_env=pipe, compute_mode=mode)
+
+
+def drive_mesh(x_path: str, xe_path: str, cfg_kw: dict) -> dict:
+    """``MCMCDriver`` under driver="mesh" on this rank (``parallel.spawn``):
+    its canonical final state, its eval records, its kernel launches and
+    its collectives, in all and over the chain axis."""
+    import numpy as np
+
+    from repro_torch import parallel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import DriverConfig, MCMCDriver
+
+    drv = MCMCDriver(np.load(x_path), DriverConfig(driver="mesh", **cfg_kw),
+                     X_eval=np.load(xe_path))
+    reset_launch_counts()
+    parallel.reset_collective_counts()
+    gs, ss = drv.run()
+    return dict(backend=parallel.world().backend, gs=state_np(gs),
+                Z=ss.Z.cpu().numpy(), history=drv.history,
+                launches=launch_counts(),
+                collectives=parallel.collective_counts(),
+                collectives_chains=parallel.collective_counts("chains"))
+
+
+def run_mesh_one(tmp: Path, data: tuple, dev) -> tuple[dict, dict]:
+    """driver="mesh" with one chain and one shard in an NCCL world of one
+    rank on cuda:0 (gather_global and over_chains send their host
+    payloads through the card), with an eval each iteration and a
+    checkpoint, against the multichain driver at C=1, P=1 in this
+    process on the same rows: the final state, the eval records (their
+    clocks aside) and the checkpoint files bitwise. Returns (results,
+    the rank's launches)."""
+    import numpy as np
+
+    from repro_torch import parallel
+    from repro_torch.runtime import DriverConfig, MCMCDriver
+
+    f, m = FULL, MESH
+    rows, iters = m["one_rows"], m["one_iters"]
+    X = np.ascontiguousarray(data[0][:rows])
+    x_path, xe_path = tmp / "mesh_one_x.npy", tmp / "mesh_one_eval.npy"
+    np.save(x_path, X)
+    np.save(xe_path, np.ascontiguousarray(data[1]))
+    cfg = dict(K_max=f["K_max"], K_tail=f["K_tail"], L=f["L"], n_chains=1,
+               P=1, n_iters=iters, eval_every=1, ckpt_every=iters)
+    t0 = time.perf_counter()
+    got = parallel.spawn(drive_mesh, 1, str(x_path), str(xe_path),
+                         dict(cfg, ckpt_dir=str(tmp / "mesh_one_ckpt")),
+                         device="cuda:0", timeout_s=600)[0]
+    t_spawn = time.perf_counter() - t0
+    drv = MCMCDriver(X, DriverConfig(driver="multichain", **dict(
+        cfg, ckpt_dir=str(tmp / "multi_one_ckpt"))), X_eval=data[1],
+        device=dev)
+    gs, ss = drv.run()
+    want = state_np(gs)
+    fields = [k for k in want if not np.array_equal(got["gs"][k], want[k])]
+    z_equal = bool(np.array_equal(got["Z"], ss.Z.cpu().numpy()))
+    recs_equal = len({json.dumps([{k: v for k, v in r.items() if k != "t"}
+                                  for r in h], sort_keys=True)
+                      for h in (got["history"], drv.history)}) == 1
+    step = f"step_{iters:09d}.npz"
+    a, b = (np.load(tmp / d / step) for d in ("mesh_one_ckpt",
+                                              "multi_one_ckpt"))
+    ckpt_equal = sorted(a.files) == sorted(b.files) and all(
+        np.array_equal(a[k], b[k]) for k in a.files)
+    gathers = got["collectives_chains"]["all_gather_rows"]
+    if (got["backend"] != "nccl" or fields or not z_equal or not recs_equal
+            or not ckpt_equal or gathers < 1):
+        raise AssertionError(
+            f"mesh driver in an NCCL world of one ({got['backend']}) vs the "
+            f"multichain driver at C=1: fields {fields} differ, Z equal "
+            f"{z_equal}, eval records equal {recs_equal}, checkpoints "
+            f"equal {ckpt_equal}; {gathers} gathers over the chain axis")
+    return dict(backend=got["backend"], rows=rows, iters=iters,
+                bitwise_equal=True, records=len(got["history"]),
+                collectives=got["collectives"],
+                collectives_chains=got["collectives_chains"],
+                joint_ll_eval=got["history"][-1]["joint_ll_eval"],
+                spawn_seconds=t_spawn), got["launches"]
+
+
+def launches_of(ranks: list, runs: tuple[str, ...]) -> dict:
+    """The kernel launches of every rank in the driven iterations and stale
+    passes of ``runs``, summed."""
+    counts: dict[str, int] = {}
+    for r in ranks:
+        for run in runs:
+            for rec in r[run]["steps"] + [r[run].get("stale", {})]:
+                for k, v in rec.get("launches", {}).items():
+                    counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
+             ) -> tuple[dict, dict]:
+    """Phase 14: phase 5's final state as C chains on a C x P mesh of
+    ranks of cuda:0 (gloo), against the multichain layout's first
+    iteration at P and the master's draws replayed on each chain's Z;
+    the kernels at a rank's shape against their plain versions; the
+    sharded scorer on phase 11's bank; chains="mesh" x data="vmap" on C
+    ranks against the multichain layout at phase 5's P; the mesh driver
+    in an NCCL world of one rank against the multichain driver. Returns
+    (results, launches of every rank in the driven iterations and
+    runs, summed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel, prng
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+    from repro_torch.core.ibp import hybrid as thy
+    from repro_torch.core.ibp.predict import predictive_loglik
+    from repro_torch.interop import from_reference
+
+    f, m, sm = FULL, MESH, SHARDMAP
+    _, gs5, ss5 = phase5
+    C, P, L = m["C"], m["P"], f["L"]
+    X = data[0][:f["N"]]
+    x_path, z_path = tmp / "mesh_x.npy", tmp / "mesh_z.npy"
+    bank_path = tmp / "mesh_bank.npz"
+    np.save(x_path, np.ascontiguousarray(X))
+    Z5 = ss5.Z.cpu().numpy().reshape(f["N"], -1)
+    np.save(z_path, Z5)
+    bank.save(str(bank_path))
+    gs_np = mesh_state(gs5, C)
+    X_score = np.ascontiguousarray(data[1][:m["score_rows"]])
+    widths = dict(K_max=f["K_max"], K_tail=f["K_tail"], L=L)
+    kw = dict(widths, chains="mesh", data="shardmap", n_chains=C, P=P)
+    score = dict(bank=str(bank_path), X=X_score, key=m["score_key"],
+                 n_sweeps=SERVING["n_sweeps"], reps=m["score_reps"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(rank_iterations, C * P, str(x_path), str(z_path),
+                           gs_np, kw, ("staged", "fused"), m["iters"], True,
+                           True, score, device="cuda:0", timeout_s=900)
+    t_spawn = time.perf_counter() - t0
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"mesh ranks on one card ran "
+                             f"{[r['backend'] for r in ranks]}, not gloo")
+    coords = [(r["chain"], r["shard"]) for r in ranks]
+    if coords != [divmod(i, P) for i in range(C * P)]:
+        raise AssertionError(f"mesh ranks at {coords}, not row-major")
+    by_chain = [ranks[c * P:(c + 1) * P] for c in range(C)]
+
+    # the multichain layout's first iteration at P from the same state,
+    # and a one-chain sampler at P for the sweep check and the replay
+    mc = build_sampler(SamplerSpec(chains="vmap", n_chains=C, P=P, **widths),
+                       IBPHypers(), X, device=dev)
+    one = build_sampler(SamplerSpec(P=P, **widths), IBPHypers(), X,
+                        device=dev)
+    gsC, ssC = from_reference(gs_np, canonical_np(Z5, C, P, f["K_tail"]),
+                              device=dev)
+    g_mc, s_mc = mc.step(gsC, ssC)
+    sweeps = [sweep_blocks(one, thy.chain_of(gsC, c), thy.chain_of(ssC, c))
+              for c in range(C)]
+    res = dict(C=C, P=P, N=f["N"], N_p=f["N"] // P, D=f["D"],
+               K_max=f["K_max"], L=L, iters=m["iters"],
+               spawn_seconds=t_spawn, mps=mps_state())
+    for sync in ("staged", "fused"):
+        check_rank_launches(ranks, sync, L)
+        chains = []
+        for c, rs in enumerate(by_chain):
+            check_replicated(rs, sync)
+            Z_got = np.stack([r[sync]["first"]["Z"] for r in rs])
+            g_got = rs[0][sync]["first"]["gs"]
+            tag = f"mesh {sync} chain {c}"
+            steps = rs[0][sync]["steps"]
+            chains.append(dict(
+                vs_multichain=compare_first(
+                    f"{tag} vs multichain", Z_got, g_got,
+                    s_mc.Z[c].bool().cpu().numpy(),
+                    state_np(thy.chain_of(g_mc, c)), sweeps[c]),
+                replay=master_replay(tag, one, thy.chain_of(gsC, c), Z_got,
+                                     g_got),
+                sweep=sweeps[c],
+                p_prime=[st["p_prime"] for st in steps],
+                # the device time of the tails of each iteration, on that
+                # iteration's p′ rank
+                tail_ms=[max(r[sync]["steps"][i]["tail_ms"] for r in rs)
+                         for i in range(m["iters"])],
+                K=int(rs[0][sync]["last"]["active"].sum()),
+                sigma_x=float(rs[0][sync]["last"]["sigma_x"])))
+        steps = [r[sync]["steps"] for r in ranks]
+        per_it = [max(st[i]["seconds"] for st in steps)
+                  for i in range(m["iters"])]
+        res[sync] = dict(
+            iterations=per_it, seconds_per_iteration=sum(per_it) / len(per_it),
+            collectives_per_iteration=steps[0][0]["collectives"],
+            collectives_chains_per_iteration=steps[0][0][
+                "collectives_chains"],
+            collective_host_seconds_per_iteration=statistics.mean(
+                st[i]["collective_seconds"] for st in steps
+                for i in range(m["iters"])),
+            launches_per_rank=[st[0]["launches"] for st in steps],
+            chains=chains)
+    res["sse"] = []
+    for rs in by_chain:
+        fu = rs[0]["fused"]
+        gap = abs(fu["sse_identity"] - fu["sse_kernel"]) / fu["sse_kernel"]
+        if not gap <= sm["sse_rtol"]:
+            raise AssertionError(f"mesh: a chain's SSE identity is {gap:.3g}"
+                                 f" off gaussian_sse (limit {sm['sse_rtol']})")
+        res["sse"].append(gap)
+    res["stale"] = dict(
+        seconds=max(r["fused"]["stale"]["seconds"] for r in ranks),
+        collectives=ranks[0]["fused"]["stale"]["collectives"],
+        tail_ms=[max(r["fused"]["stale"]["tail_ms"] for r in rs)
+                 for rs in by_chain])
+    res["all_reduce_ms"] = {  # the slowest rank's median, a data group
+        str(n): max(r["all_reduce_ms"][n] for r in ranks)
+        for n in ranks[0]["all_reduce_ms"]}
+    counts = launches_of(ranks, ("staged", "fused"))
+    # the kernels at a rank's shape against their plain versions: N_p
+    # rows of phase 5's final state, and a p′ rank's scan (N_p rows at
+    # K_tail, the unchained instance in the tail's default rss flavor)
+    # on a planted case, timed alone
+    res["kernels"] = rank_kernels(one, thy.chain_of(gsC, 0),
+                                  thy.chain_of(ssC, 0), 14)
+    res["scan"] = dict(scan_variant(dev, f["N"] // P, f["K_tail"], f["D"],
+                                    700, flavor="fast"), library_ms=None)
+    res["scan"]["shape"] += " fast (a p′ rank's tail, phase 14)"
+
+    # the sharded scorer: each chain's P data ranks score the batch; each
+    # rank's result against the blocks scored in this process
+    b = m["score_rows"] // P
+    key = prng.key(m["score_key"])
+    want = torch.cat([predictive_loglik(
+        bank, X_score[i * b:(i + 1) * b], prng.fold_in(key, i),
+        n_sweeps=SERVING["n_sweeps"]) for i in range(P)]).cpu().numpy()
+    diff = max(float(np.abs(r["score"]["scores"] - want).max())
+               for r in ranks)
+    if not diff <= m["score_tol"]:
+        raise AssertionError(f"sharded scorer: {diff} from the one-process "
+                             f"blocks (limit {m['score_tol']})")
+    Xs_dev = torch.as_tensor(X_score, device=dev)
+    t_one = time_ms(lambda: predictive_loglik(
+        bank, Xs_dev, key, n_sweeps=SERVING["n_sweeps"]),
+        reps=m["score_reps"]) / 1e3
+    t_sharded = max(r["score"]["seconds"] for r in ranks)
+    res["scorer"] = dict(
+        rows=m["score_rows"], S=bank.S, K_bucket=bank.K, ranks=P,
+        groups=C, max_abs_diff=diff, seconds=t_sharded,
+        rows_per_s=m["score_rows"] / t_sharded,
+        one_process_seconds=t_one,
+        one_process_rows_per_s=m["score_rows"] / t_one)
+
+    # chains="mesh" x data="vmap": a chain a rank, phase 5's P shards
+    # simulated on it, against the multichain layout at phase 5's P
+    kwv = dict(widths, chains="mesh", data="vmap", n_chains=C, P=f["P"])
+    t0 = time.perf_counter()
+    ranks_v = parallel.spawn(rank_iterations, C, str(x_path), str(z_path),
+                             gs_np, kwv, ("staged",), m["vmap_iters"], False,
+                             True, None, device="cuda:0", timeout_s=600)
+    t_spawn_v = time.perf_counter() - t0
+    mc8 = build_sampler(SamplerSpec(chains="vmap", n_chains=C, P=f["P"],
+                                    **widths), IBPHypers(), X, device=dev)
+    g8, s8 = mc8.step(*from_reference(
+        gs_np, canonical_np(Z5, C, f["P"], f["K_tail"]), device=dev))
+    vm = dict(chains=[])
+    for c, r in enumerate(ranks_v):
+        for i, st in enumerate(r["staged"]["steps"]):
+            want_l = dict(gibbs_flip=L, collapsed_scan=L, feature_stats=1,
+                          gaussian_sse=1)
+            got_l = {k: st["launches"].get(k, 0) for k in want_l}
+            if got_l != want_l or any(st["collectives"].values()):
+                raise AssertionError(
+                    f"mesh x vmap rank {c} iteration {i}: launches {got_l},"
+                    f" collectives {st['collectives']}; expected {want_l}, "
+                    f"none")
+        got, want_g = r["staged"]["first"], state_np(thy.chain_of(g8, c))
+        n_bits = int((got["Z"] != s8.Z[c].reshape(f["N"], -1).bool()
+                      .cpu().numpy()).sum())
+        ints = [k for k in ("key", "p_prime", "it", "active", "overflow",
+                            "tail_sat")
+                if not np.array_equal(got["gs"][k], want_g[k])]
+        if n_bits or ints:
+            raise AssertionError(f"mesh x vmap chain {c} vs multichain: "
+                                 f"{n_bits} Z bits, fields {ints} differ")
+        dA, rel = rel_A(f"mesh x vmap chain {c}", got["gs"]["A"],
+                        want_g["A"])
+        vm["chains"].append(dict(
+            z_bits_differing=n_bits, A_max_abs_diff=dA, A_rel_max=rel,
+            sigma_x_rel=rel_sigma_x(f"mesh x vmap chain {c}",
+                                    got["gs"]["sigma_x"],
+                                    want_g["sigma_x"]),
+            bitwise_equal=all(np.array_equal(got["gs"][k], want_g[k])
+                              for k in want_g),
+            tail_ms=[st["tail_ms"] for st in r["staged"]["steps"]]))
+    per_it = [max(r["staged"]["steps"][i]["seconds"] for r in ranks_v)
+              for i in range(m["vmap_iters"])]
+    vm.update(P=f["P"], iters=m["vmap_iters"], iterations=per_it,
+              seconds_per_iteration=sum(per_it) / len(per_it),
+              spawn_seconds=t_spawn_v)
+    res["mesh_vmap"] = vm
+    res["nccl_one"], one_counts = run_mesh_one(tmp, data, dev)
+    for c in (launches_of(ranks_v, ("staged",)), one_counts):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
     return res, counts
 
 
@@ -2808,7 +3269,8 @@ def main() -> int:
     log(f"[9] collapsed_scan {pre['shape']} against the plain scan: "
         f"{pre['decisions_differing']} decisions differ, boundary event "
         f"{pre['boundary_event']}, counts equal {pre['counts_equal']}, Z equal "
-        f"to the sweep's own rows; plain_ms={pre['plain_ms']:.1f}, "
+        f"to the sweep's own rows; plain_ms={pre['plain_ms']:.1f} (on "
+        f"{pre['plain_device']}), "
         f"{pre['seconds']:.1f} s")
     for v in coll["stats"]:
         log(f"[9] feature_stats {v['shape']}: ms={v['ms']:.4f} "
@@ -2839,7 +3301,7 @@ def main() -> int:
             f"{v['k_live']:.0f} live after; ms={v.get('ms', float('nan')):.3f}"
             f" ms/row={v.get('ms_per_row', float('nan')):.5f} "
             f"bound_ms={v.get('bound_ms', float('nan')):.5f} "
-            f"plain_ms={v['plain_ms']:.1f}")
+            f"plain_ms={v['plain_ms']:.1f} (on {v['plain_device']})")
     for backend, v in packed["sweeps"].items():
         log(f"[10] {backend}, k_live_buckets=on, K_max={packed['K_max']}: "
             f"warm sweep {v['warm'][0]['seconds']:.4f} s, seg_log "
@@ -2869,7 +3331,7 @@ def main() -> int:
 
     # phase 11: posterior-predictive serving
     t0 = time.perf_counter()
-    serving, serving_counts = run_serving(dev, data)
+    serving, serving_counts, bank = run_serving(dev, data)
     log(f"[11] serving: {json.dumps(serving)}")
     h = serving["harvest"]
     log(f"[11] harvest: S={h['S']} samples at iterations {h['its']}, K "
@@ -2947,7 +3409,8 @@ def main() -> int:
             f"scan: {v['decisions_differing']} decisions differ, boundary "
             f"events {v['boundary_events']}, counts equal "
             f"{v['counts_equal']}; each chain bitwise equal to its "
-            f"single-chain launch; plain_ms={v['plain_ms']:.1f}")
+            f"single-chain launch; plain_ms={v['plain_ms']:.1f} (on "
+            f"{v['plain_device']})")
     for v in multi["timing"]:
         log(f"[12] chained collapsed_scan {v['shape']}: ms={v['ms']:.3f} "
             f"call_ms={v['call_ms']:.3f} ({v['timing']}) "
@@ -3016,6 +3479,88 @@ def main() -> int:
         log(f"[13] CLI ({SHARDMAP['cli_ranks']} ranks, fused): {line}")
     log(f"[13] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 14: the chains x data mesh on C·P ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        mesh, mesh_counts = run_mesh(Path(tmpdir), data, phase5, bank, dev)
+    log(f"[14] mesh: {json.dumps(mesh)}")
+    log(f"[14] launches of every rank, summed {mesh_counts}")
+    mp = mesh["mps"]
+    log(f"[14] {mesh['C']} chains x {mesh['P']} shards = "
+        f"{mesh['C'] * mesh['P']} ranks on cuda:0 over gloo (N_p={mesh['N_p']}), spawned and run in "
+        f"{mesh['spawn_seconds']:.1f} s; MPS "
+        f"{'active' if mp['active'] else 'not active'} (control pipe "
+        f"{mp['control_pipe']} {'found' if mp['active'] else 'absent'}, "
+        f"compute mode {mp['compute_mode']}): without it the ranks' kernels "
+        f"are time-sliced on the card")
+    for sync in ("staged", "fused"):
+        v = mesh[sync]
+        log(f"[14] {sync}: {v['seconds_per_iteration']:.4f} s/iteration "
+            f"({[round(t, 4) for t in v['iterations']]}; phase 5: "
+            f"{full['seconds_per_iteration']:.4f}, phase 13: "
+            f"{shard[sync]['seconds_per_iteration']:.4f}), collectives an "
+            f"iteration {v['collectives_per_iteration']}, over the chain "
+            f"axis {v['collectives_chains_per_iteration']}, "
+            f"{v['collective_host_seconds_per_iteration']:.4f} s of host "
+            f"time a rank")
+        log(f"[14] {sync} launches a rank in iteration 1: "
+            f"{v['launches_per_rank']}")
+        for c, ch in enumerate(v["chains"]):
+            cm, rp = ch["vs_multichain"], ch["replay"]
+            log(f"[14] {sync} chain {c}: p' {ch['p_prime']}, p′ rank's tail "
+                f"device ms {[round(t, 2) for t in ch['tail_ms']]} "
+                f"({mesh['N_p']} rows x L={mesh['L']}); first iteration vs "
+                f"multichain at P={mesh['P']}: {cm['z_bits_differing']} Z "
+                f"bits differ (shards {cm['shards_differing']}), A max "
+                f"|diff| {cm.get('A_max_abs_diff', float('nan')):.3g}; "
+                f"master replayed: A {rp['A_rel_max']:.3g} of max |A|, "
+                f"sigma_x {rp['sigma_x_rel']:.3g}; K+ {ch['K']}, sigma_x "
+                f"{ch['sigma_x']:.4f}")
+    v = mesh["stale"]
+    log(f"[14] stale pass: {v['seconds']:.4f} s, collectives "
+        f"{v['collectives']}, tails' device ms {v['tail_ms']}; SSE identity "
+        f"gaps {mesh['sse']}; one all-reduce over a data group (ms) "
+        f"{mesh['all_reduce_ms']}")
+    v = mesh["scan"]
+    log(f"[14] collapsed_scan {v['shape']} against the plain scan: "
+        f"{v['decisions_differing']} decisions differ, boundary event "
+        f"{v['boundary_event']}, counts equal {v['counts_equal']}; alone: "
+        f"ms={v['ms']:.3f} call_ms={v['call_ms']:.3f} ({v['timing']}) "
+        f"ms/row={v['ms_per_row']:.5f} bound_ms={v['bound_ms']:.5f} "
+        f"({v['bound_by']}) plain_ms={v['plain_ms']:.1f} (on "
+        f"{v['plain_device']})")
+    for name, v in mesh["kernels"].items():
+        log(f"[14] {name} {v['shape']}: ms={v['ms']:.4f} "
+            f"call_ms={v['call_ms']:.4f} bound_ms={v['bound_ms']:.5f} "
+            f"({v['bound_by']}) plain_ms={v['plain_ms']:.4f} library_ms="
+            f"{v['library_ms']} max_abs_err={v['max_abs_err']:.3g}")
+    v = mesh["scorer"]
+    log(f"[14] make_sharded_scorer, {v['ranks']} data ranks x {v['groups']} "
+        f"groups on one card, {v['rows']} rows, S={v['S']}: "
+        f"{v['rows_per_s']:.0f} rows/s a group ({v['seconds']:.4f} s), one "
+        f"process {v['one_process_rows_per_s']:.0f} rows/s; max |diff| "
+        f"from the one-process blocks {v['max_abs_diff']:.3g} (limit "
+        f"{MESH['score_tol']})")
+    v = mesh["mesh_vmap"]
+    log(f"[14] chains=mesh x data=vmap, {mesh['C']} ranks at P={v['P']}: "
+        f"{v['seconds_per_iteration']:.4f} s/iteration "
+        f"({[round(t, 4) for t in v['iterations']]}; phase 12, "
+        f"C={MULTI['C']} in one process: "
+        f"{multi['drive']['seconds_per_iteration']:.4f}); vs multichain: "
+        + "; ".join(f"chain {c} {ch['z_bits_differing']} Z bits, A "
+                    f"{ch['A_rel_max']:.3g}, bitwise {ch['bitwise_equal']}, "
+                    f"tail ms {[round(t, 2) for t in ch['tail_ms']]}"
+                    for c, ch in enumerate(v["chains"])))
+    v = mesh["nccl_one"]
+    log(f"[14] driver=mesh, 1 chain x 1 shard in an NCCL world of one rank "
+        f"({v['backend']}), {v['rows']} rows, {v['iters']} iterations, "
+        f"{v['records']} evals and a checkpoint: bitwise equal to the "
+        f"multichain driver at C=1 (state, eval records, checkpoint) "
+        f"{v['bitwise_equal']}; collectives {v['collectives']}, over the "
+        f"chain axis {v['collectives_chains']}; spawned and run in "
+        f"{v['spawn_seconds']:.1f} s")
+    log(f"[14] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -3045,7 +3590,12 @@ def main() -> int:
             raise AssertionError(
                 f"{name} was not launched by phase 13's ranks "
                 f"({shard_counts})")
-    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11, 12 and 13 "
+    for name in MAIN_PATH:
+        if mesh_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by phase 14's ranks "
+                f"({mesh_counts})")
+    log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11-14 "
         f"(gibbs_flip {serving['naive']['naive_gibbs_flip_launches']} "
         f"times by the naive scorer; collapsed_scan once a sub-iteration "
         f"for all {MULTI['C']} chains in phase 12); "
@@ -3053,14 +3603,17 @@ def main() -> int:
 
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
                             *serving["gibbs_flip_naive"],
-                            shard["kernels"]["gibbs_flip"]],
+                            shard["kernels"]["gibbs_flip"],
+                            mesh["kernels"]["gibbs_flip"]],
              "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
                                 *packed["holds"], *multi["holds"],
-                                *multi["timing"]],
+                                *multi["timing"], mesh["scan"]],
              "feature_stats": [grown["feature_stats"], *coll["stats"],
-                               shard["kernels"]["feature_stats"]],
+                               shard["kernels"]["feature_stats"],
+                               mesh["kernels"]["feature_stats"]],
              "gaussian_sse": [grown["gaussian_sse"],
-                              shard["kernels"]["gaussian_sse"]]}
+                              shard["kernels"]["gaussian_sse"],
+                              mesh["kernels"]["gaussian_sse"]]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -3086,6 +3639,7 @@ def main() -> int:
             launches_multichain=multi_counts.get(name, 0),
             launches_stale=stale_counts.get(name, 0),
             launches_shardmap=shard_counts.get(name, 0),
+            launches_mesh=mesh_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

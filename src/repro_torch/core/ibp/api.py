@@ -16,16 +16,31 @@ and validation.
 
 * ``data="vmap"``: P shards simulated on one device, and with
   ``chains="vmap"`` C independent chains.
-* ``data="shardmap"`` (``chains="none"``): P processes, rank p holding
-  shard p on its own device, joined by ``repro_torch.parallel``
-  (``torch.distributed.run --nproc-per-node P``, or
-  ``parallel.spawn``). ``build_sampler`` refuses it unless this process
-  is a rank of a group of exactly P. A rank keeps its rows of X and Z;
-  ``to_canonical`` gathers every rank's rows, ``from_canonical`` takes
-  the rank's block. ``sync`` selects the master sync: "staged" (three
-  all-reduces) or "fused" (one).
-* ``chains="mesh"`` raises ``NotImplementedError`` naming the ROADMAP
-  item that brings it.
+* The distributed layouts run one process a device of the reference's
+  mesh, joined by ``repro_torch.parallel`` (``torch.distributed.run
+  --nproc-per-node N``, or ``parallel.spawn``). ``build_sampler``
+  refuses them unless this process is a rank of a group of exactly
+  ``devices_needed`` ranks, and lays the ranks out with
+  ``parallel.make_mesh``:
+
+  - ``data="shardmap"`` (``chains="none"``): P ranks, a ("data",) mesh;
+    rank p holds shard p.
+  - ``chains="mesh"`` x ``data="shardmap"``: C·P ranks, a ("chains",
+    "data") mesh; rank (c, p) = divmod(rank, P) holds chain c's rows of
+    shard p.
+  - ``chains="mesh"`` x ``data="vmap"``: C ranks, a ("chains",) mesh;
+    rank c holds all of chain c, its P shards simulated.
+
+  A rank keeps its rows of X and its block of the state: a HybridGlobal
+  (chain c's under ``chains="mesh"``, replicated over the data axis) and
+  a HybridShard of leaves (1, N_p, ·) (``data="shardmap"``) or (P, N_p,
+  ·). ``to_canonical`` gathers every rank's block, ``from_canonical``
+  takes the rank's; ``to_canonical_global`` gathers the C chains'
+  HybridGlobals into the chain-batched form and
+  ``from_canonical_global`` takes chain c's (each a collective, at
+  cadence only: no collective crosses the chain axis in ``step`` or
+  ``stale``). ``sync`` selects the master sync: "staged" (three
+  all-reduces over the data axis) or "fused" (one).
 
 The kernel choice follows the device (CUDA kernels on a GPU, their plain
 versions on the CPU). So ``backend`` ("jnp" or "pallas", the reference's
@@ -77,14 +92,6 @@ DRIVERS = {
     "mesh": ("mesh", "shardmap"),
 }
 
-def _not_yet(field: str, value) -> None:
-    """The chains x data mesh: not ported yet."""
-    raise NotImplementedError(
-        f"SamplerSpec: {field}={value!r} is not ported yet; it comes with "
-        f"ROADMAP queue 1 item 8b (the torch.distributed layouts)"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
     """All sampler knobs in one frozen, validated place."""
@@ -104,7 +111,7 @@ class SamplerSpec:
     chol_refresh: int = DEFAULT_REFRESH  # tail carry refactor cadence
     k_live_buckets: str = "on"  # validated; inert here (module docstring)
     # ---- parallelism layout (axes, not an enum)
-    chains: str = "none"       # "none" | "vmap" ("mesh": item 8b)
+    chains: str = "none"       # "none" | "vmap" | "mesh" (C ranks)
     data: str = "vmap"         # "vmap" | "shardmap" (P ranks)
     n_chains: int = 1          # C (chain axis size; 1 when chains="none")
     sync: str = "staged"       # "staged" | "fused" master sync (shardmap)
@@ -190,8 +197,6 @@ class SamplerSpec:
         if not 0.0 <= self.harvest_burn < 1.0:
             bad(f"harvest_burn={self.harvest_burn} must be in [0, 1) — a "
                 f"burn fraction of the run, not an iteration count")
-        if self.chains == "mesh":
-            _not_yet("chains", self.chains)
 
     # ---- derived views ----------------------------------------------------
     @property
@@ -229,14 +234,15 @@ class SamplerSpec:
 
 class Sampler:
     """A built sampler: init/step/stale/canonicalize over the spec's
-    layout, on one device (the rank's, under data="shardmap"). Construct
-    via ``build_sampler``."""
+    layout, on one device (the rank's, under a distributed layout, with
+    its place in ``mesh``). Construct via ``build_sampler``."""
 
     def __init__(self, spec: SamplerSpec, hyp: IBPHypers, X: Any,
-                 device: torch.device):
+                 device: torch.device, mesh: parallel.Mesh | None = None):
         self.spec = spec
         self.hyp = hyp
         self.device = device
+        self.mesh = mesh
         X = np.asarray(X, np.float32)
         N = (X.shape[0] // spec.P) * spec.P
         if N == 0:
@@ -247,46 +253,60 @@ class Sampler:
         self.X_global = X[:N]
         self.N, self.D = N, X.shape[1]
         Xs = self.X_global.reshape(spec.P, N // spec.P, self.D)
-        # under shardmap the device holds only this rank's rows
-        self.rank = (parallel.world().rank if spec.data == "shardmap"
-                     else None)
-        if self.rank is not None:
-            Xs = Xs[self.rank:self.rank + 1]
+        # the rank's coordinates: its chain c (chains="mesh") and its
+        # shard p (data="shardmap"), whose rows alone are on the device
+        self.chain = _coord(mesh, "chains")
+        self.shard = _coord(mesh, "data")
+        if self.shard is not None:
+            Xs = Xs[self.shard:self.shard + 1]
         self.Xs = torch.as_tensor(Xs).to(device)
-        self._fns = build_hybrid_fns(spec, hyp, N_global=N)
+        self._fns = build_hybrid_fns(spec, hyp, N_global=N, mesh=mesh)
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a
+        distributed layout, or the one process."""
+        return self.mesh is None or parallel.world().rank == 0
 
     def with_spec(self, spec: SamplerSpec) -> "Sampler":
-        """This sampler under another ``spec`` of the same P and layout,
-        sharing the device copy of X (a K_tail growth rebuilds the sampler
-        without copying the data to the device again)."""
-        if (spec.P, spec.data) != (self.spec.P, self.spec.data):
-            raise ValueError(
-                f"with_spec: P={spec.P}, data={spec.data!r} differ from this "
-                f"sampler's P={self.spec.P}, data={self.spec.data!r}")
+        """This sampler under another ``spec`` of the same layout, sharing
+        the device copy of X and the mesh (a K_tail growth rebuilds the
+        sampler without copying the data to the device again)."""
+        def layout(sp: SamplerSpec) -> str:
+            return ", ".join(f"{f}={getattr(sp, f)!r}"
+                             for f in ("P", "data", "chains", "n_chains"))
+
+        if layout(spec) != layout(self.spec):
+            raise ValueError(f"with_spec: {layout(spec)} differ from this "
+                             f"sampler's {layout(self.spec)}")
         _check_capacity(spec, self.device)
         out = copy.copy(self)
         out.spec = spec
-        out._fns = build_hybrid_fns(spec, self.hyp, N_global=self.N)
+        out._fns = build_hybrid_fns(spec, self.hyp, N_global=self.N,
+                                    mesh=self.mesh)
         return out
 
     def init(self, key: torch.Tensor | None = None):
         """Fresh (gs, ss); ``key`` defaults to ``prng.key(spec.seed)``.
         With a chain axis, chain c starts from ``prng.split(key, C)[c]``.
-        Under shardmap every rank draws the canonical state the vmap
-        layout draws on its device, and keeps its block."""
+        A rank of a distributed layout draws its chain's canonical state
+        as the single-device layouts draw it on its device, and keeps its
+        block."""
         spec = self.spec
         if key is None:
             key = prng.key(spec.seed)
         kw = dict(K_tail=spec.K_tail, alpha=spec.alpha, sigma_x=spec.sigma_x,
                   sigma_a=spec.sigma_a, K_init=spec.K_init)
-        if spec.chain_axis:
+        if self.chain is not None:
+            key = prng.split(key, spec.n_chains)[self.chain]
+        elif spec.chain_axis:
             return init_multichain(key, self.Xs, spec.n_chains, spec.K_max,
                                    **kw)
-        if self.rank is not None:
+        if self.shard is not None:
             X_host = torch.as_tensor(self.X_global).view(spec.P, -1, self.D)
             gs, ss = init_hybrid(key, X_host, spec.K_max, device=self.device,
                                  **kw)
-            return gs, self.from_canonical(ss)
+            return gs, self._block(ss, chained=False)
         return init_hybrid(key, self.Xs, spec.K_max, **kw)
 
     def step(self, gs: HybridGlobal, ss: HybridShard):
@@ -299,36 +319,143 @@ class Sampler:
 
     def to_canonical(self, ss: HybridShard) -> HybridShard:
         """Native state -> canonical (C?, P, N_p, K) HybridShard: the same
-        on the single-device layouts; under shardmap every rank's rows,
-        gathered (a collective: every rank calls it)."""
-        if self.rank is None:
+        on the single-device layouts; under a distributed layout every
+        rank's block, gathered over the world in rank order, which is the
+        mesh's (c, p) order (a collective: every rank calls it)."""
+        if self.mesh is None:
             return ss
-        return HybridShard(*(parallel.all_gather_rows(t) for t in
-                             (ss.Z, ss.Z_tail, ss.tail_active)))
+        out = [parallel.all_gather_rows(t)
+               for t in (ss.Z, ss.Z_tail, ss.tail_active)]
+        if self.chain is not None:
+            C = self.spec.n_chains
+            out = [t.view(C, -1, *t.shape[1:]) for t in out]
+        return HybridShard(*out)
 
     def from_canonical(self, ss: HybridShard) -> HybridShard:
-        """Canonical HybridShard -> state on the sampler's device (under
-        shardmap, the rank's block)."""
-        leaves = (ss.Z, ss.Z_tail, ss.tail_active)
-        if self.rank is not None:
-            r = self.rank
-            return HybridShard(*(t[r:r + 1].to(self.device).clone()
-                                 for t in leaves))
-        return HybridShard(*(t.to(self.device) for t in leaves))
+        """Canonical HybridShard -> state on the sampler's device (under a
+        distributed layout, the rank's block)."""
+        if self.mesh is None:
+            return HybridShard(*(t.to(self.device) for t in
+                                 (ss.Z, ss.Z_tail, ss.tail_active)))
+        return self._block(ss, chained=self.chain is not None)
+
+    def _block(self, ss: HybridShard, chained: bool) -> HybridShard:
+        """The rank's block of a canonical HybridShard (``chained``: with
+        its chain axis), a copy on the rank's device."""
+        def take(t: torch.Tensor) -> torch.Tensor:
+            if chained:
+                t = t[self.chain]
+            if self.shard is not None:
+                t = t[self.shard:self.shard + 1]
+            return t.to(self.device).clone()
+
+        return HybridShard(*(take(t) for t in
+                             (ss.Z, ss.Z_tail, ss.tail_active)))
+
+    def to_canonical_global(self, gs: HybridGlobal) -> HybridGlobal:
+        """Native HybridGlobal -> canonical: under chains="mesh" every
+        chain's, gathered over the chain axis into the chain-batched form
+        (a collective of every rank); elsewhere ``gs`` itself."""
+        if self.chain is None:
+            return gs
+        return gather_global(gs, self.mesh.group("chains"))
+
+    def from_canonical_global(self, gs: HybridGlobal) -> HybridGlobal:
+        """Canonical HybridGlobal -> native: under chains="mesh" chain c's
+        (a copy); elsewhere ``gs`` itself."""
+        if self.chain is None:
+            return gs
+        return dataclasses.replace(gs, **{
+            f.name: getattr(gs, f.name)[self.chain].clone()
+            for f in dataclasses.fields(gs)})
+
+    def sum_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axis's ranks under data="shardmap";
+        ``t`` itself elsewhere (the rank holds every row)."""
+        if self.shard is None:
+            return t
+        return parallel.all_reduce_sum(t, group=self.mesh.group("data"))
+
+    def over_chains(self, t: torch.Tensor) -> torch.Tensor:
+        """Rows of a per-chain value, one a chain this rank holds (dim 0),
+        for every chain: under chains="mesh" the chain axis's ranks' rows
+        gathered in chain order; elsewhere ``t`` itself (every chain is
+        here)."""
+        if self.chain is None:
+            return t
+        return parallel.all_gather_rows(t, group=self.mesh.group("chains"))
 
 
-def _shardmap_device(spec: SamplerSpec, device) -> torch.device:
-    """data="shardmap": this process must be a rank of a group of exactly
-    P (the reference's device-count check); its device is the rank's."""
+def _coord(mesh: parallel.Mesh | None, axis: str) -> int | None:
+    if mesh is None or axis not in mesh.axis_names:
+        return None
+    return mesh.axis_index(axis)
+
+
+def _as_f64(t: torch.Tensor) -> torch.Tensor:
+    """A field's values as float64 on the host, exactly (float32, int32
+    and the uint32 keys by their int32 bits)."""
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    return t.reshape(-1).cpu().to(torch.float64)
+
+
+def _from_f64(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.uint32:
+        return t.to(torch.int32).view(torch.uint32)
+    return t.to(dtype)
+
+
+def gather_global(gs: HybridGlobal, group: parallel.Group) -> HybridGlobal:
+    """The HybridGlobals of ``group``'s ranks stacked on a leading axis in
+    the group's order, in ONE gather: every field as float64 on the host
+    (exact), each back in its dtype and on its device."""
+    names = [f.name for f in dataclasses.fields(gs)]
+    vals = [getattr(gs, n) for n in names]
+    rows = parallel.all_gather_rows(
+        torch.cat([_as_f64(v) for v in vals])[None], group=group)
+    out, i = {}, 0
+    for n, v in zip(names, vals):
+        col = rows[:, i:i + v.numel()].reshape(-1, *v.shape)
+        out[n] = _from_f64(col, v.dtype).to(v.device)
+        i += v.numel()
+    return HybridGlobal(**out)
+
+
+def layout_mesh(spec: SamplerSpec) -> parallel.Mesh:
+    """The reference's mesh of a distributed layout over the world's
+    ranks: ("chains", "data") of C x P, ("chains",) of C, or ("data",)
+    of P."""
+    if spec.chains == "mesh" and spec.data == "shardmap":
+        return parallel.make_mesh((spec.n_chains, spec.P),
+                                  ("chains", "data"))
+    if spec.chains == "mesh":
+        return parallel.make_mesh((spec.n_chains,), ("chains",))
+    return parallel.make_mesh((spec.P,), ("data",))
+
+
+def _group_device(spec: SamplerSpec, device) -> torch.device:
+    """A distributed layout: this process must be a rank of a group of
+    exactly ``devices_needed`` (the reference's device-count check); its
+    device is the rank's."""
     w = parallel.world()
     size = 0 if w is None else w.size
-    if size != spec.P:
+    need = spec.devices_needed
+    C = spec.n_chains if spec.chains == "mesh" else 1
+    P = spec.P if spec.data == "shardmap" else 1
+    if spec.chains != "mesh":
+        layout = f"data={spec.data!r} with P={spec.P}"
+    else:
+        layout = (f"chains='mesh' x data={spec.data!r} with n_chains={C}"
+                  + (f", P={P}" if spec.data == "shardmap" else ""))
+    if size != need:
         raise ValueError(
-            f"data='shardmap' with P={spec.P} needs a torch.distributed group "
-            f"of {spec.P} ranks, one a shard; this process "
+            f"{layout} needs a torch.distributed group of {need} ranks: "
+            f"driver={spec.driver!r} needs {need} devices ({C} chains x {P} "
+            f"data shards), one a rank; this process "
             + ("is in no group (0 ranks)" if w is None else
                f"is in a group of {size} ranks")
-            + f" (run under torch.distributed.run --nproc-per-node {spec.P}, "
+            + f" (run under torch.distributed.run --nproc-per-node {need}, "
               f"or repro_torch.parallel.spawn)")
     if device is not None:
         dev = torch.device(device)
@@ -352,11 +479,13 @@ def build_sampler(spec: SamplerSpec, hyp: IBPHypers | None = None,
                   ) -> Sampler:
     """Validated spec + hypers + data -> Sampler on ``device`` (default
     ``cuda``; raises when no GPU is visible — pass ``device="cpu"`` for
-    the plain PyTorch path). Under data="shardmap" the device is the
-    rank's (``parallel.init_group``); ``device``, if given, must name
-    it."""
+    the plain PyTorch path). Under a distributed layout (data="shardmap"
+    or chains="mesh") the device is the rank's (``parallel.init_group``;
+    ``device``, if given, must name it), and every rank of the group
+    calls this, in one order (it makes the mesh's groups)."""
     if X is None:
         raise ValueError("build_sampler needs the data matrix X")
-    dev = (_shardmap_device(spec, device) if spec.data == "shardmap"
-           else _device.resolve(device))
-    return Sampler(spec, hyp or IBPHypers(), X, dev)
+    if spec.data == "shardmap" or spec.chains == "mesh":
+        dev = _group_device(spec, device)
+        return Sampler(spec, hyp or IBPHypers(), X, dev, layout_mesh(spec))
+    return Sampler(spec, hyp or IBPHypers(), X, _device.resolve(device))

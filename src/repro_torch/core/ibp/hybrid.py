@@ -3,9 +3,12 @@
 Port of ``repro/core/ibp/hybrid.py``: the single-device layouts
 (``_hybrid_iteration_body``: P shards simulated on one device; with
 chains="vmap", C independent chains: ``init_multichain``, the iteration
-under ``jax.vmap``, and the bounded-staleness pass), and the data axis
-of ``_build_mesh_fns`` (data="shardmap": one shard a process, the
-master sync's reductions as all-reduces, "staged" or "fused"). One
+under ``jax.vmap``, and the bounded-staleness pass), and the distributed
+layouts of ``_build_mesh_fns``, one process a device of the reference's
+mesh (``parallel.Mesh``): data="shardmap" (one shard a process, the
+master sync's reductions as all-reduces over the data axis, "staged" or
+"fused"), and chains="mesh" (one chain a process row: C independent
+copies of either data layout, no collective across the chain axis). One
 global iteration (paper Sec. 3):
 
   for l = 1..L sub-iterations:
@@ -34,7 +37,7 @@ Where the port differs in form, not in algorithm:
 * Under vmap the sync's reductions are the ``feature_stats`` and
   ``gaussian_sse`` kernels over all rows at once (the reference sums
   per-shard jnp reductions); under shardmap each rank runs them on its
-  rows and ``parallel.all_reduce_sum`` sums them.
+  rows and ``parallel.all_reduce_sum`` sums them over its data group.
 * ``key``, ``p_prime`` and ``it`` live on the host: they steer host
   control flow (which shard runs the tail, which generator draws what),
   and keeping them there means an iteration never waits on the device.
@@ -272,7 +275,8 @@ def shard_sub_iterations(
     process holds, for C chains: X_shards (S, N_p, D), Z (C, S, N_p,
     K_max), Z_tail (C, S, N_p, K_tail), tail_active (C, S, K_tail),
     ``gs`` chain-batched. ``shards`` gives the global index of each held
-    shard: 0..P-1 under vmap (the default), the rank under shardmap.
+    shard: 0..P-1 under vmap (the default), the rank's data coordinate
+    under shardmap.
 
     Shard p's keys are the reference's: ``key_shard = fold_in(key, p)``,
     then ``ku, kt = split(fold_in(key_shard, l))``; its sweep uniforms
@@ -599,22 +603,24 @@ class HybridFns:
     stale: Any
 
 
-def build_hybrid_fns(spec, hyp, *, N_global: int) -> HybridFns:
+def build_hybrid_fns(spec, hyp, *, N_global: int, mesh=None) -> HybridFns:
     """Build the hybrid iteration for ``spec``'s parallelism layout: the
     kernel knobs (``L``, ``collapsed_backend``, ``chol_refresh``) and the
     layout (``chains`` x ``data``) are read off ``spec`` (a
-    ``SamplerSpec`` or anything with those attributes)."""
+    ``SamplerSpec`` or anything with those attributes); a distributed
+    layout runs as this process's rank of ``mesh``."""
     N_g = float(N_global)
-    if spec.chains in ("none", "vmap") and spec.data == "vmap":
+    if spec.data == "vmap":  # under chains="mesh", the rank's one chain
         return _build_vmap_fns(spec, hyp, N_g)
-    return _build_mesh_fns(spec, hyp, N_g)
+    return _build_mesh_fns(spec, hyp, N_g, mesh)
 
 
 def _build_vmap_fns(spec, hyp, N_g: float) -> HybridFns:
-    """Single-device layouts: P shards as a batch axis, and with
-    chains="vmap" C chains as a leading axis of every state leaf (the
-    reference vmaps the iteration over it; here the C tails share one
-    chained scan)."""
+    """The iteration of the chains on one device, P shards as a batch
+    axis: with chains="vmap" C chains as a leading axis of every state
+    leaf (the reference vmaps the iteration over it; here the C tails
+    share one chained scan), else one chain (under chains="mesh" x
+    data="vmap", the rank's chain c: no collective)."""
     L, cb, cr = spec.L, spec.collapsed_backend, spec.chol_refresh
     if spec.chains == "vmap":
         body, stale = _chain_iteration_body, _chain_stale_body
@@ -639,19 +645,19 @@ def _rank_sub_iterations(
     X_p: Tensor,
     gs: HybridGlobal,
     ss: HybridShard,
-    rank: int,
+    p: int,
     L: int,
     N_g: float,
     chol_refresh: int,
     collapsed_backend: str,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """``shard_sub_iterations`` on this rank's shard (global index
-    ``rank``): X_p (1, N_p, D), ``ss`` leaves (1, ...), ``gs`` chainless.
-    Returns (Z, Z_tail, tail_active, n_sat ())."""
+    """``shard_sub_iterations`` on this rank's shard (global index ``p``,
+    the rank's data coordinate): X_p (1, N_p, D), ``ss`` leaves (1, ...),
+    ``gs`` chainless. Returns (Z, Z_tail, tail_active, n_sat ())."""
     Z, Z_tail, tail_active, n_sat = shard_sub_iterations(
         X_p, ss.Z[None], ss.Z_tail[None], ss.tail_active[None],
         stack_chains([gs]), N_g, L, chol_refresh, collapsed_backend,
-        shards=(rank,))
+        shards=(p,))
     return Z[0], Z_tail[0], tail_active[0], n_sat[0]
 
 
@@ -664,21 +670,24 @@ def sse_identity(xx: Tensor, ZtZ: Tensor, ZtX: Tensor, A: Tensor,
     return xx - 2.0 * torch.sum(A * ZtXm) + torch.sum(A * (ZtZm @ A))
 
 
-def _staged_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_):
-    """The reference's ``block_staged``: three all-reduces, (1) the tail
-    mask and the saturation count, (2) (m, ZᵀZ, ZᵀX) of this rank's rows
-    after the promotion, (3) this rank's SSE."""
+def _staged_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_,
+                 group=None):
+    """The reference's ``block_staged``: three all-reduces over the data
+    axis's ``group``, (1) the tail mask and the saturation count, (2) (m,
+    ZᵀZ, ZᵀX) of this rank's rows after the promotion, (3) this rank's
+    SSE."""
     D = X_p.shape[-1]
     tail_g, sat = parallel.all_reduce_sum(                          # AR 1
-        tail_active[0], n_sat.to(tail_active.dtype)[None])
+        tail_active[0], n_sat.to(tail_active.dtype)[None], group=group)
     Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
     s = local_stats(X_p, Z)
     ZtZ, ZtX, m = parallel.all_reduce_sum(                          # AR 2
-        s["ZtZ"], s["ZtX"], s["m"])
+        s["ZtZ"], s["ZtX"], s["m"], group=group)
     A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
                                     active_new, gs, N_g, D)
     Z = Z * active[None, None, :]
-    sse = parallel.all_reduce_sum(local_sse(X_p, Z, A, active))     # AR 3
+    sse = parallel.all_reduce_sum(local_sse(X_p, Z, A, active),     # AR 3
+                                  group=group)
     return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
                         n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
 
@@ -696,12 +705,15 @@ def fused_payload(X_p, active, Z, Z_tail, tail_active, n_sat
             torch.sum(X_p * X_p)[None], n_sat.to(X_p.dtype)[None])
 
 
-def _fused_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_):
+def _fused_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_,
+                group=None):
     """The reference's ``block_fused``: ONE all-reduce of
-    ``fused_payload``; the SSE comes from the reduced statistics
-    (``sse_identity``), so no ``gaussian_sse`` runs."""
+    ``fused_payload`` over the data axis's ``group``; the SSE comes from
+    the reduced statistics (``sse_identity``), so no ``gaussian_sse``
+    runs."""
     ZtZ, ZtX, m, tail_g, xx, sat = parallel.all_reduce_sum(        # AR
-        *fused_payload(X_p, gs.active, Z, Z_tail, tail_active, n_sat))
+        *fused_payload(X_p, gs.active, Z, Z_tail, tail_active, n_sat),
+        group=group)
     Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
     A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
                                     active_new, gs, N_g, X_p.shape[-1])
@@ -711,33 +723,32 @@ def _fused_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_):
                         n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
 
 
-def _build_mesh_fns(spec, hyp, N_g: float) -> HybridFns:
-    """data="shardmap", chains="none": this process is rank p of the P
-    ranks of ``parallel.world()`` and holds shard p (X_p (1, N_p, D),
-    HybridShard leaves (1, ...)). The HybridGlobal is replicated: every
-    rank draws the master's parameters itself from the same keys and
-    reduced statistics. ``step`` runs the sub-iterations on the rank's
-    rows (the tail on p′'s rank only), then the ``spec.sync`` schedule,
-    "staged" (3 all-reduces) or "fused" (1). ``stale`` makes no
-    collective: the fold-13 sweep key, the fold-14 key handed on, as
-    ``_chain_stale_body``. chains="mesh" is not ported."""
-    if spec.chains == "mesh":
-        raise NotImplementedError(
-            f"layout chains={spec.chains!r} x data={spec.data!r} is not "
-            f"ported yet; it comes with ROADMAP queue 1 item 8b (the "
-            f"torch.distributed layouts)")
-    rank = parallel.world().rank
+def _build_mesh_fns(spec, hyp, N_g: float, mesh) -> HybridFns:
+    """data="shardmap": this process is a rank of ``mesh``
+    (``parallel.Mesh``), shard p of its data group (p its "data"
+    coordinate; under chains="mesh" the P ranks of its chain c), and
+    holds shard p of one chain (X_p (1, N_p, D), HybridShard leaves (1,
+    ...)). The chain's HybridGlobal is replicated over the data group:
+    every rank draws the master's parameters itself from the same keys
+    and reduced statistics. ``step`` runs the sub-iterations on the
+    rank's rows (the tail on p′'s rank only), then the ``spec.sync``
+    schedule over the data group, "staged" (3 all-reduces) or "fused"
+    (1). ``stale`` makes no collective: the fold-13 sweep key, the
+    fold-14 key handed on, as ``_chain_stale_body``. No collective
+    crosses the chain axis: each chain is the data-parallel algorithm
+    on its own state."""
     L, cb, cr, P_ = spec.L, spec.collapsed_backend, spec.chol_refresh, spec.P
+    p, group = mesh.axis_index("data"), mesh.group("data")
     sync = _fused_sync if spec.sync == "fused" else _staged_sync
 
     def step(X_p, gs, ss):
-        out = _rank_sub_iterations(X_p, gs, ss, rank, L, N_g, cr, cb)
-        return sync(X_p, gs, *out, hyp, N_g, P_)
+        out = _rank_sub_iterations(X_p, gs, ss, p, L, N_g, cr, cb)
+        return sync(X_p, gs, *out, hyp, N_g, P_, group)
 
     def stale_pass(X_p, gs, ss):
         gs_sweep = dataclasses.replace(gs, key=prng.fold_in(gs.key, 13))
         Z, Z_tail, tail_active, _ = _rank_sub_iterations(
-            X_p, gs_sweep, ss, rank, L, N_g, cr, cb)
+            X_p, gs_sweep, ss, p, L, N_g, cr, cb)
         gs_out = dataclasses.replace(gs, key=prng.fold_in(gs.key, 14))
         return gs_out, HybridShard(Z=Z, Z_tail=Z_tail,
                                    tail_active=tail_active)

@@ -28,6 +28,9 @@ port, in plain PyTorch. The scorer takes its uniforms pre-drawn (``u``),
 so the tests feed it the reference's own draws; the public ops draw
 them from ``prng.generator(key, device)``.
 
+``make_sharded_scorer`` scores a batch's rows over a mesh axis's ranks
+(``parallel.Mesh``): the bank replicated, each rank its block of rows.
+
 ``predictive_loglik_naive`` is the un-batched baseline: a Python loop
 over the samples, each running ``n_sweeps`` of ``uncollapsed_sweep``
 (the ``gibbs_flip`` kernel on the card). ``heldout_joint_loglik`` and
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch import prng
+from repro_torch import parallel, prng
 from repro_torch.checkpoint import load_arrays, save_arrays
 from repro_torch.kernels.gaussian_sse import gaussian_sse
 
@@ -396,6 +399,37 @@ def anomaly_score(bank: SampleBank, X, key: Tensor, *, mask=None,
                   n_sweeps: int = DEFAULT_LL_SWEEPS) -> Tensor:
     """Per-row anomaly score: − the mixture predictive log-likelihood."""
     return -predictive_loglik(bank, X, key, mask=mask, n_sweeps=n_sweeps)
+
+
+def make_sharded_scorer(bank: SampleBank, mesh: parallel.Mesh, *,
+                        axis: str = "data",
+                        n_sweeps: int = DEFAULT_LL_SWEEPS):
+    """Row-sharded mixture scoring over the mesh ``axis``'s ranks, the
+    serving counterpart of the sampler's data axis: the bank is
+    replicated, rank i of the axis (``mesh.axis_index(axis)``) scores
+    rows [i·B/n, (i+1)·B/n) of the batch with
+    ``predictive_loglik(bank, X_i, fold_in(key, i), n_sweeps=)``, so the
+    ranks draw independent Gibbs streams, and the blocks are gathered
+    over the axis's group.
+
+    Returns ``score(X, key) -> (B,)``, the whole batch's scores on every
+    rank of the axis (each calls it with the same X and key). B must be
+    a multiple of the axis size n (``ValueError`` otherwise)."""
+    i, n = mesh.axis_index(axis), mesh.axis_size(axis)
+    group = mesh.group(axis)
+
+    def score(X, key: Tensor) -> Tensor:
+        X = _as_rows(bank, X)
+        B = X.shape[0]
+        if B % n:
+            raise ValueError(f"make_sharded_scorer: B={B} rows do not "
+                             f"split over the {n} ranks of axis {axis!r}")
+        b = B // n
+        ll = predictive_loglik(bank, X[i * b:(i + 1) * b],
+                               prng.fold_in(key, i), n_sweeps=n_sweeps)
+        return parallel.all_gather_rows(ll, group=group)
+
+    return score
 
 
 def _naive_sample_rows(A: Tensor, pi: Tensor, active: Tensor,

@@ -4,10 +4,10 @@ The CLI builds a ``SamplerSpec`` and hands it to ``MCMCDriver``, as
 ``repro.launch.mcmc`` does, with the reference's flags plus ``--device``
 (default ``cuda``; ``cuda:<i>`` names a card; ``cpu`` runs the plain
 PyTorch versions of the kernels). ``--driver shardmap`` runs when every
-process is a rank of a group of P: started by ``torch.distributed.run``
-(the group is joined here, on ``--device``), or inside
+process is a rank of a group of P, ``--driver mesh`` (C chains x P data
+shards) of a group of C·P: started by ``torch.distributed.run`` (the
+group is joined here, on ``--device``), or inside
 ``repro_torch.parallel.spawn``. Only rank 0 prints and writes ``--out``.
-``--driver mesh`` is not ported (ROADMAP item 8b).
 
 Usage:
   python -m repro_torch.launch.mcmc --N 1000 --P 5 --iters 1000 --L 5
@@ -18,6 +18,10 @@ Usage:
   # P=4 ranks, one shard each; --device cuda:0 puts the 4 on one card
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.mcmc --driver shardmap --P 4 --sync fused \
+      --device cpu ...
+  # C=2 chains x P=2 shards on 4 ranks (R-hat / ESS columns)
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.mcmc --driver mesh --chains 2 --P 2 \
       --device cpu ...
 
 Posterior-predictive harvest:
@@ -69,14 +73,15 @@ def main(argv=None):
                          "multichain (C chains on one device), shardmap (P "
                          "ranks, one data shard each: run under "
                          "torch.distributed.run --nproc-per-node P), mesh "
-                         "(C chains x P data shards; not ported)")
+                         "(C chains x P data shards: --nproc-per-node C*P)")
     ap.add_argument("--chains", type=int, default=None,
                     help="chain count for --driver multichain/mesh "
                          "(default 4 / 2); values > 1 require a chainful "
                          "driver")
     ap.add_argument("--sync", default="staged", choices=["staged", "fused"],
-                    help="master-sync schedule for --driver shardmap: "
-                         "staged (3 all-reduces an iteration) or fused (1)")
+                    help="master-sync schedule for --driver shardmap and "
+                         "mesh: staged (3 all-reduces over the data axis "
+                         "an iteration) or fused (1)")
     ap.add_argument("--backend", default="jnp", choices=SWEEP_BACKENDS,
                     help="the reference's sweep implementation; kept in "
                          "the spec for parity and inert here: the device "
@@ -119,7 +124,9 @@ def main(argv=None):
     ap.add_argument("--out", default="artifacts/mcmc_history.json")
     args = ap.parse_args(argv)
     # a process started by torch.distributed.run joins its group here
-    joined = args.driver == "shardmap" and parallel.world() is None
+    # (outside one, build_sampler refuses the layout)
+    joined = (args.driver in ("shardmap", "mesh")
+              and parallel.world() is None and "RANK" in os.environ)
     if joined:
         parallel.init_group(device=args.device)
     try:

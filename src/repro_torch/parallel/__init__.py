@@ -1,6 +1,8 @@
-"""Processes of the data-parallel layout: the group, its collectives and
-a spawn helper (``group``)."""
+"""Processes of the distributed layouts: the group, its mesh, its
+collectives and a spawn helper (``group``)."""
 from .group import (
+    Group,
+    Mesh,
     World,
     all_gather_rows,
     all_reduce_sum,
@@ -9,12 +11,15 @@ from .group import (
     collective_seconds,
     destroy_group,
     init_group,
+    make_mesh,
     reset_collective_counts,
     spawn,
     world,
 )
 
 __all__ = [
+    "Group",
+    "Mesh",
     "World",
     "all_gather_rows",
     "all_reduce_sum",
@@ -23,6 +28,7 @@ __all__ = [
     "collective_seconds",
     "destroy_group",
     "init_group",
+    "make_mesh",
     "reset_collective_counts",
     "spawn",
     "world",

@@ -1,8 +1,8 @@
-"""The process-group layer of the data-parallel layout.
+"""The process-group layer of the distributed layouts.
 
-The counterpart, for the data axis, of what ``repro/compat.py`` and the
-mesh construction of ``repro/core/ibp/api.py`` do in the reference: P
-processes, one a shard, joined by ``torch.distributed``.
+The counterpart of what ``repro/compat.py`` and the mesh construction of
+``repro/core/ibp/api.py`` do in the reference: processes joined by
+``torch.distributed``, one a device of the reference's mesh.
 
 * ``init_group`` joins this process to the group, from ``torchrun``'s
   environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
@@ -16,10 +16,18 @@ processes, one a shard, joined by ``torch.distributed``.
   one), ``gloo`` when the caller names one card for several ranks or
   runs on the CPU. A failure never switches the backend.
 * The group has a timeout (``TIMEOUT_S``): a hung collective raises.
-* ``all_reduce_sum`` and ``all_gather_rows`` carry every collective of
-  the sampler, and count their calls and host seconds
-  (``collective_counts``, ``collective_seconds``), as the kernel wrappers
-  count their launches.
+* ``make_mesh(shape, axis_names)`` lays the world's ranks out as the
+  reference's device mesh: rank r sits at ``numpy.unravel_index(r,
+  shape)`` (row-major), and holds one ``Group`` an axis, the ranks that
+  differ from it along that axis only (``Mesh.group``; its coordinate
+  there is ``Mesh.axis_index``). Every rank makes every group, in one
+  order, as ``dist.new_group`` requires; a group of the whole world is
+  the default group.
+* ``all_reduce_sum`` and ``all_gather_rows`` run over a ``Group``
+  (``group=``; default the world). They carry every collective of the
+  sampler, and count their calls and host seconds in all and by group
+  name (``collective_counts``, ``collective_seconds``), as the kernel
+  wrappers count their launches. ``barrier`` waits for the world.
 * ``spawn`` runs a function on every rank of a new group of processes,
   for tests and for ``chip_smoke.py``.
 """
@@ -28,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import math
 import os
 import queue
 import tempfile
@@ -35,6 +44,7 @@ import time
 import traceback
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,9 +65,57 @@ class World:
     backend: str
 
 
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """The ranks along one axis of a mesh: ``name`` (the axis; the
+    counters' key), ``ranks`` (world ranks in axis order) and the process
+    group (None: the default group, when the axis spans the world)."""
+
+    name: str
+    ranks: tuple[int, ...]
+    pg: Any = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a mesh of the world's ranks: the mesh's
+    ``shape`` and ``axis_names``, this rank's ``coords``, and its
+    ``Group`` along each axis."""
+
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+    coords: tuple[int, ...]
+    groups: tuple[Group, ...]
+
+    def _axis(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {name!r}")
+        return self.axis_names.index(name)
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate along axis ``name``."""
+        return self.coords[self._axis(name)]
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self._axis(name)]
+
+    def group(self, name: str) -> Group:
+        """This rank's group along axis ``name``."""
+        return self.groups[self._axis(name)]
+
+
 _WORLD: World | None = None
-_CALLS: dict[str, int] = {"all_reduce_sum": 0, "all_gather_rows": 0}
-_SECONDS: dict[str, float] = {"all_reduce_sum": 0.0, "all_gather_rows": 0.0}
+_MESHES: dict[tuple, Mesh] = {}
+OPS = ("all_reduce_sum", "all_gather_rows")
+_WORLD_NAME = "world"  # the counters' name of the default group
+# calls and host seconds of each collective, in all (key None) and by
+# group name
+_CALLS: dict[str | None, dict[str, int]] = {}
+_SECONDS: dict[str | None, dict[str, float]] = {}
 
 
 def world() -> World | None:
@@ -130,64 +188,118 @@ def destroy_group() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _WORLD = None
+    _MESHES.clear()
 
 
-def _count(name: str, t0: float) -> None:
-    _CALLS[name] += 1
-    _SECONDS[name] += time.perf_counter() - t0
+def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
+    """The world's ranks as a mesh of ``shape`` (its size the world's),
+    rank r at ``unravel_index(r, shape)``, the reference mesh's device
+    order. Every rank calls it with the same arguments (each rank makes
+    every group, in one order); a mesh already made is returned again."""
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if (shape, axis_names) in _MESHES:
+        return _MESHES[(shape, axis_names)]
+    if _WORLD is None:
+        raise RuntimeError("make_mesh: this process is in no group")
+    if len(shape) != len(axis_names) or math.prod(shape) != _WORLD.size:
+        raise ValueError(f"make_mesh: shape {shape} over axes {axis_names} "
+                         f"does not lay out a world of {_WORLD.size} ranks")
+    coords = tuple(int(c) for c in np.unravel_index(_WORLD.rank, shape))
+    grid = np.arange(_WORLD.size).reshape(shape)
+    groups = []
+    for a, name in enumerate(axis_names):
+        mine = None
+        # every line of the grid along axis a, in row-major order of the
+        # other coordinates
+        lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
+        for line in lines:
+            ranks = tuple(int(r) for r in line)
+            if len(ranks) == _WORLD.size:
+                pg = None
+            else:
+                pg = dist.new_group(list(ranks))
+            if _WORLD.rank in ranks:
+                mine = Group(name, ranks, pg)
+        groups.append(mine)
+    mesh = Mesh(shape, axis_names, coords, tuple(groups))
+    _MESHES[(shape, axis_names)] = mesh
+    return mesh
 
 
-def collective_counts() -> dict[str, int]:
-    return dict(_CALLS)
+def _count(name: str, group: Group | None, t0: float) -> None:
+    dt = time.perf_counter() - t0
+    for key in (None, _WORLD_NAME if group is None else group.name):
+        calls = _CALLS.setdefault(key, dict.fromkeys(OPS, 0))
+        secs = _SECONDS.setdefault(key, dict.fromkeys(OPS, 0.0))
+        calls[name] += 1
+        secs[name] += dt
 
 
-def collective_seconds() -> dict[str, float]:
-    """Host seconds spent in each collective since the last reset."""
-    return dict(_SECONDS)
+def collective_counts(group: str | None = None) -> dict[str, int]:
+    """Calls of each collective since the last reset: in all, or over the
+    groups named ``group`` (an axis name, or ``"world"`` for the default
+    group)."""
+    return dict(_CALLS.get(group, dict.fromkeys(OPS, 0)))
+
+
+def collective_seconds(group: str | None = None) -> dict[str, float]:
+    """Host seconds spent in each collective since the last reset (in
+    all, or over the groups named ``group``)."""
+    return dict(_SECONDS.get(group, dict.fromkeys(OPS, 0.0)))
 
 
 def reset_collective_counts() -> None:
-    for k in _CALLS:
-        _CALLS[k] = 0
-        _SECONDS[k] = 0.0
+    _CALLS.clear()
+    _SECONDS.clear()
 
 
-def all_reduce_sum(*tensors: torch.Tensor):
-    """The sum over ranks of each tensor, in ONE collective: the tensors
-    (one dtype) are flattened into one payload in argument order, reduced
-    and split back. Returns one tensor, or a tuple for several."""
+def _pg(group: Group | None):
+    return None if group is None else group.pg
+
+
+def all_reduce_sum(*tensors: torch.Tensor, group: Group | None = None):
+    """The sum over the ranks of ``group`` (default: the world) of each
+    tensor, in ONE collective: the tensors (one dtype) are flattened into
+    one payload in argument order, reduced and split back. Returns one
+    tensor, or a tuple for several."""
     t0 = time.perf_counter()
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_pg(group))
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape))
         i += t.numel()
-    _count("all_reduce_sum", t0)
+    _count("all_reduce_sum", group, t0)
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0 in rank order.
+def all_gather_rows(t: torch.Tensor, group: Group | None = None
+                    ) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (default: the world) concatenated
+    along dim 0 in the group's rank order, on ``t``'s device.
 
     gloo has no all_gather of CUDA tensors, so under gloo a CUDA tensor is
-    gathered through its host copy and the result copied back to its
-    device; nccl gathers on the device.
+    gathered through its host copy; nccl gathers on the device, a host
+    tensor through its copy on the rank's card.
     """
     t0 = time.perf_counter()
     w = _WORLD
     src = t.contiguous()
     if w is not None and w.backend == "gloo" and src.is_cuda:
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, src)
+    elif w is not None and w.backend == "nccl" and not src.is_cuda:
+        src = src.to(w.device)
+    n = dist.get_world_size() if group is None else group.size
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=_pg(group))
     out = torch.cat(parts).to(t.device)
-    _count("all_gather_rows", t0)
+    _count("all_gather_rows", group, t0)
     return out
 
 
 def barrier() -> None:
-    """Wait for every rank (after rank 0 writes a file the others read)."""
+    """Wait for every rank of the world, as after rank 0 writes a file the
+    others read."""
     w = _WORLD
     if w is not None and w.backend == "nccl":
         dist.barrier(device_ids=[w.device.index])

@@ -3,8 +3,9 @@ K_tail, eval records — over a ``Sampler`` built by ``build_sampler``.
 
 Port of ``repro/runtime/driver.py`` for ``driver="vmap"`` (one chain
 on one device), ``driver="multichain"`` (C chains on one device, every
-state leaf with a leading chain axis) and ``driver="shardmap"`` (P
-ranks, one shard each; every rank runs the driver):
+state leaf with a leading chain axis), ``driver="shardmap"`` (P ranks,
+one shard each) and ``driver="mesh"`` (C·P ranks, rank (c, p) chain c's
+rows of shard p); under the last two every rank runs the driver:
 
 * every ``ckpt_every`` iterations the full sampler state (global params,
   Z in global (N, K) layout, the PRNG key) is written atomically in the
@@ -35,12 +36,19 @@ ranks, one shard each; every rank runs the driver):
   ``SampleBank`` is saved (``bank_path``) before each checkpoint, and a
   restart extends the builder from the saved bank and drops the samples
   past the restored step, so each draw is in the bank once.
-* shardmap: the checkpoint's ``Z_global`` (N, K) is gathered from every
-  rank; only rank 0 writes the checkpoint and the bank, then every rank
-  waits at a barrier. Every rank restores the same file and takes its
-  block, so a checkpoint of either layout resumes under the other and
-  under another P. The eval record's ``joint_ll_train`` is the sum over
-  ranks of each rank's part.
+* shardmap and mesh: the checkpoint's ``Z_global`` ((C,) N, K) is
+  gathered from every rank, and under the mesh the chains' HybridGlobals
+  into the chain-batched form; only rank 0 writes the checkpoint and the
+  bank, then every rank waits at a barrier. Every rank restores the same
+  file and takes its block, so a checkpoint resumes under any layout of
+  the same chain axis (shardmap and vmap; mesh and multichain) and under
+  another P. A chain's ``joint_ll_train`` is the sum over its data
+  ranks of each rank's part. Under the mesh, what the driver reads of
+  the chains (the eval record, the traces' R-hat and ESS, overflow,
+  tail saturation, the harvest) is gathered over the chain axis at its
+  cadence; ``step`` and ``stale`` make no collective across it. Only
+  rank 0 keeps the harvest's ``BankBuilder`` (``bank`` is None on the
+  other ranks).
 """
 from __future__ import annotations
 
@@ -85,8 +93,7 @@ class DriverConfig:
     defaults, so ``DriverConfig()`` builds.
 
     ``driver`` maps onto the spec's ``chains`` x ``data`` axes
-    (``DRIVERS``); ``driver="mesh"`` raises ``NotImplementedError``
-    naming its ROADMAP item, and a value the reference rejects raises
+    (``DRIVERS``), and a value the reference rejects raises
     ``ValueError``. ``backend`` passes on to the spec, where it is
     inert (the device chooses the kernels).
     """
@@ -177,10 +184,12 @@ class MCMCDriver:
         # the last checkpoint boundary (growth fires on new saturation only)
         self._tail_growths = 0
         self._sat_mark = 0
-        # the harvest's host-side accumulator; the bank is its own
-        # self-describing file beside the checkpoints
+        # the harvest's host-side accumulator, kept by the process that
+        # writes the files (rank 0 of a distributed layout); the bank is
+        # its own self-describing file beside the checkpoints
         self.bank_builder = (BankBuilder(spec.K_max)
-                             if spec.harvest_every > 0 else None)
+                             if spec.harvest_every > 0
+                             and self.sampler.writes else None)
         self._bank: SampleBank | None = None
 
     # ---- state <-> checkpoint layout (global Z) --------------------------
@@ -194,14 +203,16 @@ class MCMCDriver:
     def _save(self, gs: HybridGlobal, ss: HybridShard, step: int) -> None:
         """The bank, then the checkpoint of the canonical state: a crash
         between the two writes rewinds to the older checkpoint, whose
-        re-run harvests again. Under shardmap every rank gathers Z, rank
-        0 alone writes, and every rank waits for the write."""
-        ss = self.sampler.to_canonical(ss)
-        if self.sampler.rank in (None, 0):
+        re-run harvests again. Under a distributed layout every rank
+        gathers the state, rank 0 alone writes, and every rank waits for
+        the write."""
+        s = self.sampler
+        gs, ss = s.to_canonical_global(gs), s.to_canonical(ss)
+        if s.writes:
             if self.bank_builder is not None and len(self.bank_builder):
                 self.save_bank()
             save_pytree(self.spec.ckpt_dir, self._to_ckpt(gs, ss), step)
-        if self.sampler.rank is not None:
+        if s.mesh is not None:
             parallel.barrier()
 
     def _shrink_features(self, gs: HybridGlobal, Zg: torch.Tensor,
@@ -326,7 +337,7 @@ class MCMCDriver:
         decision sees only post-growth saturation. Reading ``tail_sat``
         waits for the iteration. Returns (gs, ss, grew)."""
         spec = self.spec
-        sat = int(gs.tail_sat.max())
+        sat = int(self.sampler.over_chains(gs.tail_sat.reshape(-1)).max())
         grew = False
         if (self._tail_growths < spec.k_tail_grow
                 and spec.K_tail < spec.K_max and sat > self._sat_mark):
@@ -357,6 +368,7 @@ class MCMCDriver:
         b = self.bank_builder
         if restored is not None:
             gs, ss = self._from_ckpt(restored[0])
+            gs = sampler.from_canonical_global(gs)
             ss = sampler.from_canonical(ss)
             start = int(restored[1])
             # a restart continues the harvest from the saved bank, less
@@ -381,17 +393,21 @@ class MCMCDriver:
             gs, ss = sampler.step(gs, ss)
             self._record_trace(gs)
             last = it == n_iters - 1
-            if (b is not None and (it + 1) > int(spec.harvest_burn * n_iters)
+            if (spec.harvest_every > 0
+                    and (it + 1) > int(spec.harvest_burn * n_iters)
                     and (it + 1) % spec.harvest_every == 0):
-                b.add_state(gs, it=it + 1)
+                g = sampler.to_canonical_global(gs)  # every rank gathers
+                if b is not None:
+                    b.add_state(g, it=it + 1)
             need_eval = (it + 1) % spec.eval_every == 0 or last
             need_ckpt = (it + 1) % spec.ckpt_every == 0 or last
             # reading gs.overflow waits for the whole iteration on the
-            # device, so it is checked at a bounded cadence only
+            # device (and under the mesh gathers the chains'), so it is
+            # checked at a bounded cadence only
             overflowed = (
                 need_eval or need_ckpt
                 or (it + 1) % spec.overflow_every == 0
-            ) and int(gs.overflow.max()) > 0
+            ) and int(sampler.over_chains(gs.overflow.reshape(-1)).max()) > 0
             if need_eval:
                 rec = self.evaluate(gs, ss, it + 1, time.time() - t0)
                 self.history.append(rec)
@@ -412,7 +428,7 @@ class MCMCDriver:
                     f"K_max={spec.K_max} overflow at it={it}; restart with "
                     f"2x K_max"
                 )
-        return gs, sampler.to_canonical(ss)
+        return sampler.to_canonical_global(gs), sampler.to_canonical(ss)
 
     # ---- diagnostics ------------------------------------------------------
     def _record_trace(self, gs: HybridGlobal) -> None:
@@ -424,7 +440,8 @@ class MCMCDriver:
     def diagnostics(self, burn_frac: float = 0.5) -> dict[str, float]:
         """split-R-hat / ESS / MCSE of the monitored scalars over the
         post-burn tail of the per-iteration trace. R-hat is NaN until the
-        trace has enough post-burn draws."""
+        trace has enough post-burn draws. Under the mesh the chains'
+        traces are gathered (a collective of every rank)."""
         out: dict[str, float] = {}
         for name, rows in self.trace.items():
             for i, r in enumerate(rows):
@@ -432,7 +449,8 @@ class MCMCDriver:
                     rows[i] = r.cpu().numpy().astype(np.float64)
             if len(rows) < 8:
                 continue
-            arr = np.stack(rows, axis=1)               # (C, T)
+            arr = self.sampler.over_chains(
+                torch.from_numpy(np.stack(rows, axis=1))).numpy()  # (C, T)
             tail = arr[:, int(burn_frac * arr.shape[1]):]
             s = convergence.summarize(tail, name)
             for k in ("rhat", "ess", "mcse"):
@@ -441,14 +459,13 @@ class MCMCDriver:
 
     def evaluate(self, gs: HybridGlobal, ss: HybridShard, it: int,
                  elapsed: float) -> dict[str, Any]:
-        # this rank's rows under shardmap, else all N
+        # this rank's rows under data="shardmap", else all N
         X = self.sampler.Xs.reshape(-1, self.sampler.D)
         if self.spec.chain_axis:
             return self._evaluate_chains(X, gs, ss, it, elapsed)
-        ll = train_joint_loglik(X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi,
-                                gs.active, gs.sigma_x)
-        if self.sampler.rank is not None:
-            ll = parallel.all_reduce_sum(ll)
+        ll = self.sampler.sum_over_data(train_joint_loglik(
+            X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi, gs.active,
+            gs.sigma_x))
         rec: dict[str, Any] = {
             "it": it,
             "t": elapsed,
@@ -471,11 +488,32 @@ class MCMCDriver:
                          ) -> dict[str, Any]:
         """A chain-batched eval record: the means over chains, the
         per-chain lists, and each chain's held-out log-likelihood under
-        ``fold_in(key_c, 999)`` (the record keeps their mean)."""
-        C = ss.Z.shape[0]
-        lls = torch.stack([train_joint_loglik(
-            X, ss.Z[c].reshape(self.N, -1), gs.A[c], gs.pi[c], gs.active[c],
-            gs.sigma_x[c]) for c in range(C)]).cpu().numpy()
+        ``fold_in(key_c, 999)`` (the record keeps their mean). Under the
+        mesh a rank computes its own chain's values only: the train
+        log-likelihood summed over its data ranks, the held-out one on
+        its replicated master; the chains' values and HybridGlobals are
+        gathered over the chain axis."""
+        s = self.sampler
+        ev = None
+        if s.chain is None:  # every chain on this device, all N rows
+            lls = torch.stack([train_joint_loglik(
+                X, ss.Z[c].reshape(self.N, -1), gs.A[c], gs.pi[c],
+                gs.active[c], gs.sigma_x[c]) for c in range(ss.Z.shape[0])])
+            if self.X_eval is not None:
+                ev = torch.stack([heldout_joint_loglik(
+                    self.X_eval, gs.A[c], gs.pi[c], gs.active[c],
+                    gs.sigma_x[c], prng.fold_in(gs.key[c], 999))
+                    for c in range(gs.A.shape[0])])
+        else:  # chain c, this rank's rows
+            lls = s.over_chains(s.sum_over_data(train_joint_loglik(
+                X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi, gs.active,
+                gs.sigma_x)).reshape(1))
+            if self.X_eval is not None:
+                ev = s.over_chains(heldout_joint_loglik(
+                    self.X_eval, gs.A, gs.pi, gs.active, gs.sigma_x,
+                    prng.fold_in(gs.key, 999)).reshape(1))
+            gs = s.to_canonical_global(gs)
+        lls = lls.cpu().numpy()
         Ks = torch.sum(gs.active, dim=-1).cpu().numpy()
         sx = gs.sigma_x.cpu().numpy()
         sat = gs.tail_sat.cpu().numpy()
@@ -493,10 +531,7 @@ class MCMCDriver:
             "tail_sat": int(sat.max()),
             "tail_sat_chains": [int(v) for v in sat],
         }
-        if self.X_eval is not None:
-            ev = torch.stack([heldout_joint_loglik(
-                self.X_eval, gs.A[c], gs.pi[c], gs.active[c], gs.sigma_x[c],
-                prng.fold_in(gs.key[c], 999)) for c in range(C)])
+        if ev is not None:
             rec["joint_ll_eval"] = float(ev.mean())
         rec.update(self.diagnostics())
         return rec

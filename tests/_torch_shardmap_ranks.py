@@ -124,7 +124,8 @@ def sync_parts(case: dict) -> dict:
 
 def trace(N: int, data_seed: int, spec_kw: dict, burn: int, T: int
           ) -> tuple[np.ndarray, np.ndarray]:
-    """Post-burn K+ and sigma_x traces of one shardmap chain."""
+    """Post-burn K+ and sigma_x traces of one shardmap chain (this rank's
+    chain, with ``spec_kw`` chains="mesh")."""
     X, _, _ = cambridge_data(N=N, sigma_n=0.5, seed=data_seed)
     s = build_sampler(SamplerSpec(data="shardmap", **spec_kw), IBPHypers(),
                       X, device="cpu")
@@ -138,16 +139,21 @@ def trace(N: int, data_seed: int, spec_kw: dict, burn: int, T: int
     return np.array(K), np.array(S)
 
 
-def drive(N: int, data_seed: int, cfg_kw: dict) -> dict:
-    """``MCMCDriver`` under driver="shardmap"; its result on this rank."""
+def drive(N: int, data_seed: int, cfg_kw: dict, eval_N: int = 0) -> dict:
+    """``MCMCDriver`` under driver="shardmap" (or ``cfg_kw``'s driver),
+    with ``eval_N`` held-out rows of seed ``data_seed + 1`` (none at 0);
+    its result on this rank."""
     from repro_torch.runtime import DriverConfig, MCMCDriver
 
     X, _, _ = cambridge_data(N=N, seed=data_seed)
-    drv = MCMCDriver(X, DriverConfig(driver="shardmap", **cfg_kw),
-                     IBPHypers(), device="cpu")
+    X_eval = cambridge_data(N=eval_N, seed=data_seed + 1)[0] if eval_N \
+        else None
+    drv = MCMCDriver(X, DriverConfig(**{"driver": "shardmap", **cfg_kw}),
+                     IBPHypers(), X_eval=X_eval, device="cpu")
     gs, ss = drv.run()
     return {"gs": gs_arrays(gs), "Z_shape": tuple(ss.Z.shape),
-            "Z": ss.Z.numpy(), "history": drv.history}
+            "Z": ss.Z.numpy(), "history": drv.history,
+            "bank_S": 0 if drv.bank is None else drv.bank.S}
 
 
 def cli(argv: list[str]) -> dict:

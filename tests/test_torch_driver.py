@@ -169,18 +169,28 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, tmp_path, X):
     assert not (tmp_path / "ck").exists()
 
 
-# chains="mesh" is not ported; data="shardmap" builds only in a process
-# that is a rank of a group of P (here there is no group)
+# a distributed layout builds only in a process that is a rank of a group
+# of devices_needed ranks (here there is no group): data="shardmap" of P,
+# chains="mesh" of C·P, or of C under data="vmap" (the reference's
+# devices_needed and its wording "needs N devices (C chains x P data
+# shards)")
 NO_GROUP = r"P=4 needs a torch.distributed group of 4 ranks.*no group"
+MESH_NO_GROUP = (r"chains='mesh' x data={data} with n_chains=2{p} needs a "
+                 r"torch.distributed group of {n} ranks: driver='mesh' "
+                 r"needs {n} devices \(2 chains x {P} data shards\).*is "
+                 r"in no group \(0 ranks\)")
 
 
 @pytest.mark.parametrize("make,exc,words", [
     (lambda X: build_sampler(SamplerSpec(data="shardmap"), X=X,
                              device="cpu"), ValueError, NO_GROUP),
-    (lambda X: SamplerSpec(chains="mesh", n_chains=2), NotImplementedError,
-     "ROADMAP queue 1 item 8b"),
-    (lambda X: SamplerSpec(chains="mesh", data="shardmap", n_chains=2),
-     NotImplementedError, "ROADMAP queue 1 item 8b"),
+    (lambda X: build_sampler(SamplerSpec(chains="mesh", n_chains=2), X=X,
+                             device="cpu"), ValueError,
+     MESH_NO_GROUP.format(data="'vmap'", p="", n=2, P=1)),
+    (lambda X: build_sampler(SamplerSpec(chains="mesh", data="shardmap",
+                                         n_chains=2), X=X, device="cpu"),
+     ValueError, MESH_NO_GROUP.format(data="'shardmap'", p=", P=4", n=8,
+                                      P=4)),
     (lambda X: MCMCDriver(X, DriverConfig(driver="shardmap"), device="cpu"),
      ValueError, NO_GROUP)], ids=[f"<lambda>{i}" for i in range(4)])
 def test_spec_rejects_what_is_not_ported(make, exc, words, X):

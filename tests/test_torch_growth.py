@@ -294,28 +294,30 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     assert drv.cfg is drv.spec and drv.spec.K_max == 8
 
 
-# driver="mesh" is refused with the item that brings it; "shardmap" maps
-# onto its spec and is refused by the driver in a process that is not a
-# rank of a group of P (here there is no group)
-@pytest.mark.parametrize("kw,item", [
-    (dict(driver="shardmap"), None), (dict(driver="mesh"), "item 8b"),
-    (dict(driver="mesh", n_chains=2), "item 8b"),
-    (dict(driver="shardmap", sync="fused"), None),
-    (dict(driver="mesh", sync="fused", n_chains=4), "item 8b"),
-    (dict(driver="shardmap", stale_sync=1), None),
-    (dict(driver="mesh", n_chains=2, stale_sync=1), "item 8b")],
+# driver="shardmap" and driver="mesh" map onto the reference's spec
+# (devices_needed P and C·P), and the driver refuses them in a process
+# that is not a rank of a group of that many (here there is no group)
+@pytest.mark.parametrize("kw,chains", [
+    (dict(driver="shardmap"), "none"), (dict(driver="mesh"), "mesh"),
+    (dict(driver="mesh", n_chains=2), "mesh"),
+    (dict(driver="shardmap", sync="fused"), "none"),
+    (dict(driver="mesh", sync="fused", n_chains=4), "mesh"),
+    (dict(driver="shardmap", stale_sync=1), "none"),
+    (dict(driver="mesh", n_chains=2, stale_sync=1), "mesh")],
     ids=[f"kw{i}-item 8b" for i in range(7)])
-def test_driver_config_refuses_what_is_not_ported(kw, item, X):
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 {item}"):
-            DriverConfig(**kw).to_spec()
-        return
-    spec = DriverConfig(**kw).to_spec()
-    assert (spec.data, spec.sync, spec.stale_sync, spec.devices_needed) == (
-        "shardmap", kw.get("sync", "staged"), kw.get("stale_sync", 0), 4)
-    with pytest.raises(ValueError, match=r"P=4 needs a torch.distributed "
-                       r"group of 4 ranks.*is in no group \(0 ranks\)"):
+def test_driver_config_refuses_what_is_not_ported(kw, chains, X):
+    spec, ref = DriverConfig(**kw).to_spec(), JConfig(**kw).to_spec()
+    C = kw.get("n_chains", 1)
+    got = (spec.chains, spec.n_chains, spec.data, spec.sync, spec.stale_sync,
+           spec.devices_needed)
+    assert got == (chains, C, "shardmap", kw.get("sync", "staged"),
+                   kw.get("stale_sync", 0), 4 * C)
+    assert got == (ref.chains, ref.n_chains, ref.data, ref.sync,
+                   ref.stale_sync, ref.devices_needed)
+    with pytest.raises(ValueError, match=(
+            rf"P=4 needs a torch.distributed group of {4 * C} ranks: "
+            rf"driver='{kw['driver']}' needs {4 * C} devices \({C} chains "
+            rf"x 4 data shards\).*is in no group \(0 ranks\)")):
         MCMCDriver(X, DriverConfig(**kw), device="cpu")
 
 

@@ -401,7 +401,11 @@ def test_cli_runs_multichain_with_stale_sync(tmp_path, capsys):
     for r in hist:
         assert len(r["K_chains"]) == 3 and np.isfinite(r["joint_ll_eval"])
     assert "it=    4" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    # --driver mesh (--chains 2 by default) outside torch.distributed.run:
+    # no group of C·P ranks to run on
+    with pytest.raises(ValueError, match=r"n_chains=2, P=2 needs a "
+                       r"torch.distributed group of 4 ranks.*\(2 chains x 2 "
+                       r"data shards\).*no group"):
         mcmc.main(["--device", "cpu", "--driver", "mesh", "--N", "20",
                    "--P", "2", "--iters", "1",
                    "--ckpt-dir", str(tmp_path / "m"),

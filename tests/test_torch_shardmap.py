@@ -12,7 +12,8 @@ plus:
 * replication and collective counts: after every step every rank holds
   the same HybridGlobal bits; staged makes 3 all-reduces an iteration,
   fused 1 (and no SSE reduction), a stale pass 0;
-* statistics: the stationary K+ and sigma_x of shardmap chains against
+* statistics: the stationary K+ and sigma_x of shardmap chains, and of
+  the chains of a 2 x 2 chains="mesh", against
   the reference's chains, |z| < 4 with the MCSE-aware z of
   ``convergence.mean_diff_z``.
 
@@ -266,6 +267,22 @@ def reference_traces():
 def test_shardmap_matches_reference_statistically(sync, reference_traces):
     K_t, S_t = spawn(ranks.trace, 4, 100, 1,
                      dict(P=4, K_max=16, L=2, sync=sync), 50, 250)[0]
+    K_j, S_j = reference_traces
+    assert np.all((K_t >= 1) & (K_t <= 16)) and np.all(np.isfinite(S_t))
+    for name, a, b in (("K+", K_t, K_j), ("sigma_x", S_t, S_j)):
+        z = convergence.mean_diff_z(a, b)
+        assert abs(z) < 4.0, (name, a.mean(), b.mean(), z)
+
+
+def test_mesh_matches_reference_statistically(reference_traces):
+    """2 chains x 2 shards (chains="mesh", fused): the chains' pooled
+    stationary K+ and sigma_x against the reference's, |z| < 4."""
+    res = spawn(ranks.trace, 4, 100, 1,
+                dict(P=2, K_max=16, L=2, chains="mesh", n_chains=2,
+                     sync="fused"), 50, 150)
+    np.testing.assert_array_equal(res[1][0], res[0][0])  # replicated
+    K_t = np.stack([res[0][0], res[2][0]])          # chains 0 and 1
+    S_t = np.stack([res[0][1], res[2][1]])
     K_j, S_j = reference_traces
     assert np.all((K_t >= 1) & (K_t <= 16)) and np.all(np.isfinite(S_t))
     for name, a, b in (("K+", K_t, K_j), ("sigma_x", S_t, S_j)):
