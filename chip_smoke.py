@@ -25,12 +25,13 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 14.) The kernel that carries each TPU
+6. (Checked last, after phase 15.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
    inside collapsed_scan) had its launch counter rise in phases 4, 5,
    11, 12, 13 and 14 (gibbs_flip in 11 also through the naive scorer;
    in 13 and 14 on the ranks, which send their counts to this process),
-   and collapsed_scan and feature_stats theirs in phases 9 and 10.
+   and collapsed_scan and feature_stats theirs in phases 9 and 10, and
+   gibbs_flip and collapsed_scan theirs in phase 15d.
 7. Capacity restarts and adaptive K_tail at full width: phase 5's
    checkpoint restored under K_max=128 with k_tail_grow=2 and a
    checkpoint every iteration, run to iteration 6 with tail saturation
@@ -152,6 +153,24 @@ Phases, each of which raises on failure (exit code non-zero):
    driver's at C=1 (the chain-axis gathers carry host payloads through
    the card under nccl).
 
+15. The LM substrate (repro_torch.models; no kernel of its own): the
+   serving CLI (repro_torch.launch.serve.main) at smollm-135m's full
+   width and defaults (bf16, B=4, a 32-token prompt, 16 new tokens), then
+   the same loop timed (tokens/s with the prompt's steps, wall time, peak
+   device memory, beside the card's name and power limit); one set of
+   float32 weights at full width drawn on the card: 2 x 32 teacher-forced
+   decode steps against the "train" forward (every step's logits within
+   1e-3 of max |logit|, argmaxes equal except near ties, counted), then
+   its first 2 layers on the card against the CPU (1e-3 of max |logit|);
+   minicpm3-4b (MLA) and whisper-large-v3 (encdec) at full width cut to 2
+   layers (encoder 2): the same holds, then a bf16 serve of 8 tokens. One
+   JSON line a model. 15d: examples/ibp_over_lm_features.py with the port:
+   the full-width float32 backbone embeds 128 windows of 32 tokens
+   (SyntheticLM seed 3, step 1), the mean-pooled logits standardised and
+   projected to D=64, then the hybrid sampler (P=4, K_max=16, K_tail=6,
+   K_init=2, L=3) for 40 iterations: K+ >= 1, gibbs_flip and
+   collapsed_scan launched.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
 script's total wall time. Run from the root of a checkout: python3
@@ -264,6 +283,23 @@ SHARDMAP = dict(iters=3, boundary=1e-4, A_rtol=1e-4, sx_rtol=1e-5,
 # one_iters iterations on one_rows of phase 5's rows
 MESH = dict(C=2, P=4, iters=3, vmap_iters=2, score_rows=256, score_reps=5,
             score_key=97, score_tol=1e-5, one_rows=8192, one_iters=2)
+# phase 15: the LM substrate on the card: smollm-135m's serving CLI at its
+# full width and defaults (bf16, serve_B sequences, a serve_prompt-token
+# prompt, serve_new new tokens); at full width in float32, hold_B
+# sequences of hold_steps teacher-forced decode steps against the "train"
+# forward (rel_tol of max |logit|; argmaxes equal unless the top two are
+# within tie_gap), then its first cpu_layers layers on the card against
+# the CPU; the models of `cut` at full width cut to cut_layers layers
+# (encoder too): the same holds, then a bf16 serve of cut_new tokens; and
+# (15d) examples/ibp_over_lm_features.py's composition on the full-width
+# backbone: ibp_N windows of ibp_seq tokens, features projected to ibp_D,
+# the hybrid sampler at ibp_spec for ibp_iters iterations
+LM = dict(arch="smollm-135m", serve_B=4, serve_prompt=32, serve_new=16,
+          hold_B=2, hold_steps=32, rel_tol=1e-3, tie_gap=1e-3, cpu_layers=2,
+          cut=("minicpm3-4b", "whisper-large-v3"), cut_layers=2, cut_new=8,
+          ibp_N=128, ibp_seq=32, ibp_data_seed=3, ibp_data_step=1, ibp_D=64,
+          ibp_proj_seed=7, ibp_iters=40,
+          ibp_spec=dict(P=4, K_max=16, K_tail=6, K_init=2, L=3))
 
 
 def log(msg: str) -> None:
@@ -3152,6 +3188,282 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
     return res, counts
 
 
+# --------------------------------------------------------------------------
+# phase 15: the LM substrate on the card
+# --------------------------------------------------------------------------
+
+
+def lm_decode_hold(model, cfg, dev) -> dict:
+    """The reference's test_decode_matches_prefill_logits at full size:
+    hold_B sequences of hold_steps tokens teacher-forced through the
+    decode step, each step's logits against the "train" forward's at
+    that position (within rel_tol of max |logit|), the argmaxes equal
+    except where the forward's top two logits are within tie_gap. encdec
+    feeds enc_out zeros to both, as the serving CLI does: with another
+    enc_out the decode step ropes the cross-attention query at position 0
+    (the reference's behaviour, ROADMAP §3), so that gap is reported and
+    not held."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_caches, model_apply
+
+    B, S = LM["hold_B"], LM["hold_steps"]
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+
+    def both(extra: dict) -> tuple:
+        fwd = model_apply(model, {"tokens": toks, **extra}, cfg,
+                          mode="train")[0]
+        caches, dec = init_caches(cfg, B, S, dev), []
+        for i in range(S):
+            lg, _, caches = model_apply(
+                model, {"tokens": toks[:, i:i + 1], **extra}, cfg,
+                mode="decode", caches=caches)
+            dec.append(lg[:, 0])
+        return fwd, torch.stack(dec, 1), caches
+
+    extra = {}
+    if cfg.family == "encdec":
+        extra["enc_out"] = torch.zeros((B, cfg.enc_seq, cfg.d_model),
+                                       device=dev)
+    with torch.no_grad():
+        fwd, dec, caches = both(extra)
+    scale = float(fwd.abs().max())
+    err = float((dec - fwd).abs().max())
+    top2 = fwd.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < LM["tie_gap"]
+    differ = dec.argmax(-1) != fwd.argmax(-1)
+    r = dict(positions=B * S, max_abs_err=err, max_abs_logit=scale,
+             limit=LM["rel_tol"] * scale, near_ties=int(near.sum()),
+             argmax_differing=int(differ.sum()),
+             argmax_differing_outside_ties=int((differ & ~near).sum()),
+             cache_length=int(caches[0].length),
+             finite=bool(torch.isfinite(fwd).all() and
+                         torch.isfinite(dec).all()))
+    if not r["finite"] or err > r["limit"] or \
+            r["argmax_differing_outside_ties"] or r["cache_length"] != S:
+        raise AssertionError(f"phase 15: {cfg.name} decode against the "
+                             f"forward: {r}")
+    if cfg.family == "encdec":
+        enc = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(dev)
+        with torch.no_grad():
+            f2, d2, _ = both({"enc_out": enc})
+        r["random_enc_out_gap"] = float((d2 - f2).abs().max())
+    return r
+
+
+def lm_cpu_hold(model, cfg, dev) -> dict:
+    """The first cpu_layers layers of ``model`` (the encoder's too), on
+    the card against the same weights on the CPU: the float32 "train"
+    forward of hold_B x hold_steps tokens (and random frames for encdec),
+    within rel_tol of max |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model_apply, transformer
+
+    n = LM["cpu_layers"]
+    small_cfg = dataclasses.replace(
+        cfg, n_layers=min(n, cfg.n_layers),
+        n_enc_layers=min(n, cfg.n_enc_layers))
+    sd = model.state_dict()
+    card = transformer.LM(small_cfg, dev)
+    host = transformer.LM(small_cfg, "cpu")
+    for m in (card, host):
+        m.load_state_dict({k: sd[k] for k in m.state_dict()})
+    B, S = LM["hold_B"], LM["hold_steps"]
+    rng = np.random.default_rng(16)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model), dtype=np.float32))
+    with torch.no_grad():
+        got = model_apply(card, {k: v.to(dev) for k, v in batch.items()},
+                          small_cfg, mode="train")[0].cpu()
+        want = model_apply(host, batch, small_cfg, mode="train")[0]
+    scale = float(want.abs().max())
+    r = dict(layers=small_cfg.n_layers, enc_layers=small_cfg.n_enc_layers,
+             max_abs_err=float((got - want).abs().max()),
+             max_abs_logit=scale, limit=LM["rel_tol"] * scale)
+    if not torch.isfinite(got).all() or r["max_abs_err"] > r["limit"]:
+        raise AssertionError(f"phase 15: {cfg.name} card against CPU: {r}")
+    return r
+
+
+def lm_serve(cfg, dev, new: int, model=None) -> dict:
+    """serve.generate at the CLI's batch and prompt length: tokens/s with
+    the prompt's teacher-forced steps, the loop's wall time (ended by a
+    device synchronise), the peak device memory (and what earlier phases
+    still held when it was reset), and the generated ids at or past the
+    real vocab (the padded-vocab argmax, ROADMAP §3)."""
+    import torch
+    from repro_torch.launch import serve
+
+    B, S = LM["serve_B"], LM["serve_prompt"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    r = serve.generate(cfg, batch=B, prompt_len=S, new=new, device=dev,
+                       model=model)
+    seq, dt = r["seq"], r["seconds"]
+    out = dict(model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               batch=B, prompt_len=S, new=new, seconds=dt,
+               tokens_per_s=B * (S + new) / dt, new_tokens_per_s=B * new / dt,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               memory_held_before=held,
+               ids_past_vocab=int((seq[:, S:] >= cfg.vocab).sum()),
+               sample=seq[0, -new:].tolist())
+    if seq.shape != (B, S + new) or int(seq.min()) < 0:
+        raise AssertionError(f"phase 15: {cfg.name} serve: {out}")
+    return out
+
+
+def lm_step_profile(cfg, dev, steps: int = 8) -> dict:
+    """Where a bf16 decode step's time goes at the serving CLI's widths:
+    ``steps`` steps after the prompt's 32 (host clock around each, ended
+    by a synchronise) and the same steps under torch.profiler: device
+    kernels a step and their summed device time, so the device's busy
+    share of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_caches, init_model, make_decode_step
+    from repro_torch.models.lm import cast_params
+
+    B, S = LM["serve_B"], LM["serve_prompt"]
+    model = cast_params(init_model(0, cfg, device=dev), cfg)
+    step = make_decode_step(cfg)
+    caches = init_caches(cfg, B, S + 2 * steps, dev)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    for _ in range(S):
+        tok, caches = step(model, {"tokens": tok}, caches)
+        tok = tok[:, None]
+    torch.cuda.synchronize(dev)
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        tok, caches = step(model, {"tokens": tok}, caches)
+        tok = tok[:, None]
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tok, caches = step(model, {"tokens": tok}, caches)
+            tok = tok[:, None]
+        torch.cuda.synchronize(dev)
+    ev = kernel_events(prof)
+    dev_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3 / steps
+    wall_ms = statistics.median(walls) * 1e3
+    return dict(model=cfg.name, dtype=cfg.dtype, batch=B, steps=steps,
+                wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
+                kernels_per_step=len(ev) / steps,
+                busy_share=dev_ms / wall_ms if wall_ms else None)
+
+
+def lm_compose(model, cfg, dev) -> tuple[dict, dict]:
+    """examples/ibp_over_lm_features.py with the port on the card: the
+    full-width backbone's "train" logits of ibp_N windows of ibp_seq
+    tokens (SyntheticLM seed ibp_data_seed, step ibp_data_step),
+    mean-pooled, standardised and projected to ibp_D by a Gaussian matrix
+    from a torch.Generator, then the hybrid sampler for ibp_iters
+    iterations; the kernel counts are set to 0 just before the sampler
+    runs and read just after."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model_apply
+
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=LM["ibp_seq"],
+                       global_batch=LM["ibp_N"], seed=LM["ibp_data_seed"])
+    tokens = torch.from_numpy(
+        data.batch(step=LM["ibp_data_step"])["tokens"]).long().to(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        feats = model_apply(model, {"tokens": tokens}, cfg,
+                            mode="train")[0].mean(dim=1)
+    feats = (feats - feats.mean(0)) / (feats.std(0, unbiased=False) + 1e-6)
+    D = min(LM["ibp_D"], feats.shape[1])
+    g = torch.Generator(device=dev).manual_seed(LM["ibp_proj_seed"])
+    proj = torch.randn((feats.shape[1], D), generator=g, device=dev) \
+        / math.sqrt(feats.shape[1])
+    X = (feats @ proj).cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    spec = SamplerSpec(**LM["ibp_spec"])
+    sampler = build_sampler(spec, IBPHypers(), X, device=dev)
+    gs, ss = sampler.init(prng.key(1))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(LM["ibp_iters"]):
+        gs, ss = sampler.step(gs, ss)
+    K = int(gs.active.sum())
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    r = dict(backbone=cfg.name, N=int(X.shape[0]), D=int(X.shape[1]),
+             embed_seconds=embed_s, iters=LM["ibp_iters"],
+             seconds_per_iteration=seconds / LM["ibp_iters"], K_plus=K,
+             alpha=float(gs.alpha), sigma_x=float(gs.sigma_x),
+             launches={k: counts.get(k, 0) for k in MAIN_PATH},
+             finite=bool(math.isfinite(float(X.sum()))), **LM["ibp_spec"])
+    if K < 1 or not r["finite"] or counts.get("gibbs_flip", 0) < 1 or \
+            counts.get("collapsed_scan", 0) < 1:
+        raise AssertionError(f"phase 15d: IBP over {cfg.name}: {r}")
+    return r, counts
+
+
+def run_lm(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 15: (a) smollm-135m's serving CLI at its full width and
+    defaults, then the same loop timed; (b) one set of float32 weights
+    drawn on the card, decode against the forward and card against CPU;
+    (c) the cut models, their holds and a bf16 serve; (d) the
+    composition with the hybrid sampler on (b)'s weights."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+
+    out: dict = {"gpu": smi}
+    cfg = get_config(LM["arch"])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main([])
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["cli"] = buf.getvalue().strip().splitlines()
+    out["serve"] = lm_serve(cfg, dev, LM["serve_new"])
+    out["step_profile"] = lm_step_profile(cfg, dev)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = init_model(torch.Generator(device=dev).manual_seed(0), cfg32,
+                       device=dev)
+    out["models"] = [dict(model=cfg.name, layers=cfg.n_layers,
+                          decode_vs_forward=lm_decode_hold(model, cfg32, dev),
+                          card_vs_cpu=lm_cpu_hold(model, cfg32, dev),
+                          serve=out["serve"])]
+    out["compose"], counts = lm_compose(model, cfg32, dev)
+    del model
+    for arch in LM["cut"]:
+        full = get_config(arch)
+        cut = dataclasses.replace(
+            full, n_layers=LM["cut_layers"],
+            n_enc_layers=LM["cut_layers"] if full.n_enc_layers else 0)
+        c32 = dataclasses.replace(cut, dtype="float32")
+        m = init_model(torch.Generator(device=dev).manual_seed(0), c32,
+                       device=dev)
+        out["models"].append(dict(
+            model=arch, layers=cut.n_layers, enc_layers=cut.n_enc_layers,
+            decode_vs_forward=lm_decode_hold(m, c32, dev),
+            card_vs_cpu=lm_cpu_hold(m, c32, dev),
+            serve=lm_serve(cut, dev, LM["cut_new"], model=m)))
+        del m
+        torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     import torch
 
@@ -3561,6 +3873,49 @@ def main() -> int:
         f"{v['spawn_seconds']:.1f} s")
     log(f"[14] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phase 15: the LM substrate on the card
+    t0 = time.perf_counter()
+    lm, lm_counts = run_lm(dev, smi)
+    for line in lm["cli"]:
+        log(f"[15] CLI (repro_torch.launch.serve, {LM['arch']}, defaults): "
+            f"{line}")
+    v = lm["serve"]
+    log(f"[15] serve {v['model']} ({v['layers']} layers, {v['dtype']}), "
+        f"B={v['batch']}, prompt {v['prompt_len']}, {v['new']} new: "
+        f"{v['tokens_per_s']:.1f} tok/s inc. prefill "
+        f"({v['new_tokens_per_s']:.1f} new tok/s), wall {v['seconds']:.4f} s, "
+        f"peak device memory {v['max_memory_allocated']} bytes "
+        f"({v['memory_held_before']} held before the loop); the CLI's "
+        f"first run took {lm['cli_seconds']:.2f} s; gpu: {smi}")
+    v = lm["step_profile"]
+    log(f"[15] one bf16 decode step of {v['model']} at B={v['batch']} "
+        f"(median of {v['steps']}): wall {v['wall_ms_per_step']:.3f} ms, "
+        f"{v['kernels_per_step']:.0f} device kernels taking "
+        f"{v['device_ms_per_step']:.3f} ms, device busy "
+        f"{v['busy_share']:.3f}")
+    for m in lm["models"]:
+        log(f"[15] {json.dumps(m)}")
+        h, c, sv = m["decode_vs_forward"], m["card_vs_cpu"], m["serve"]
+        log(f"[15] {m['model']} ({m['layers']} layers): decode vs forward "
+            f"over {h['positions']} positions max |diff| "
+            f"{h['max_abs_err']:.3g} (limit {h['limit']:.3g}), "
+            f"{h['argmax_differing']} argmaxes differ, {h['near_ties']} "
+            f"near ties (top two within {LM['tie_gap']}); card vs CPU at "
+            f"{c['layers']} layers max |diff| {c['max_abs_err']:.3g} (limit "
+            f"{c['limit']:.3g}); bf16 serve {sv['tokens_per_s']:.1f} tok/s "
+            f"inc. prefill, {sv['ids_past_vocab']} ids past the vocab"
+            + (f"; with random enc_out decode differs from the forward by "
+               f"{h['random_enc_out_gap']:.3g} (cross-attention query at "
+               f"position 0)" if "random_enc_out_gap" in h else ""))
+    v = lm["compose"]
+    log(f"[15d] IBP over {v['backbone']} logits: N={v['N']} D={v['D']} "
+        f"(embedded in {v['embed_seconds']:.2f} s), P={v['P']} "
+        f"K_max={v['K_max']} K_tail={v['K_tail']} L={v['L']}, {v['iters']} "
+        f"iterations at {v['seconds_per_iteration']:.4f} s: K+ = "
+        f"{v['K_plus']}, alpha = {v['alpha']:.3f}, sigma_x = "
+        f"{v['sigma_x']:.4f}; launches {v['launches']}")
+    log(f"[15] phase took {time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -3595,11 +3950,17 @@ def main() -> int:
             raise AssertionError(
                 f"{name} was not launched by phase 14's ranks "
                 f"({mesh_counts})")
+    for name in ("gibbs_flip", "collapsed_scan"):
+        if lm_counts.get(name, 0) < 1:
+            raise AssertionError(
+                f"{name} was not launched by phase 15d's sampler "
+                f"({lm_counts})")
     log(f"[6] {', '.join(MAIN_PATH)} launched in phases 4, 5, 11-14 "
         f"(gibbs_flip {serving['naive']['naive_gibbs_flip_launches']} "
         f"times by the naive scorer; collapsed_scan once a sub-iteration "
         f"for all {MULTI['C']} chains in phase 12); "
-        f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10")
+        f"{', '.join(COLLAPSED_PATH)} in phases 9 and 10; gibbs_flip and "
+        f"collapsed_scan in phase 15d")
 
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
                             *serving["gibbs_flip_naive"],
@@ -3640,6 +4001,7 @@ def main() -> int:
             launches_stale=stale_counts.get(name, 0),
             launches_shardmap=shard_counts.get(name, 0),
             launches_mesh=mesh_counts.get(name, 0),
+            launches_lm=lm_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

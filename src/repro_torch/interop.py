@@ -19,6 +19,7 @@ from repro_torch import device as _device
 from repro_torch.core.ibp.hybrid import HybridGlobal, HybridShard
 from repro_torch.core.ibp.predict import SampleBank
 from repro_torch.core.ibp.state import IBPState
+from repro_torch.models.transformer import LM
 
 _HOST_FIELDS = ("key", "p_prime", "it")
 
@@ -57,3 +58,56 @@ def bank_from_reference(fields: dict,
     # all of a bank's fields live on the device, its ``it`` too
     return SampleBank(**{k: _field(k, v, dev).to(dev)
                          for k, v in fields.items()})
+
+
+_STACKED = ("layers", "enc_layers")
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def params_from_reference(params_np: dict, cfg,
+                          device: str | torch.device | None = None) -> LM:
+    """The port's model of ``cfg`` holding the reference's weights.
+
+    ``params_np``: the reference's ``init_model`` param tree as numpy. A
+    leaf under ``layers`` or ``enc_layers`` is stacked (L, ...) and goes
+    to layer i's parameter of the same path; every other leaf to the
+    parameter of its path. The port keeps the reference's (d_in, d_out)
+    layouts, so nothing is transposed. Raises on a leaf no parameter
+    takes, on a parameter no leaf sets, and on a shape that differs.
+    """
+    dev = _device.resolve(device)
+    model = LM(cfg, dev)
+    targets = dict(model.named_parameters())
+    unset = set(targets)
+    for path, a in _flatten(params_np).items():
+        if path[0] in _STACKED:
+            items = [(".".join((path[0], str(i)) + path[1:]), a[i])
+                     for i in range(a.shape[0])]
+        else:
+            items = [(".".join(path), a)]
+        for name, value in items:
+            if name not in targets:
+                raise ValueError(f"params_from_reference: the reference "
+                                 f"leaf {'/'.join(path)} has no parameter "
+                                 f"{name} in the port's {cfg.name}")
+            t = targets[name]
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError(f"params_from_reference: {name} is "
+                                 f"{tuple(t.shape)} in the port, "
+                                 f"{tuple(value.shape)} in the reference")
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(np.array(value)))
+            unset.discard(name)
+    if unset:
+        raise ValueError(f"params_from_reference: no reference leaf sets "
+                         f"{sorted(unset)}")
+    return model
