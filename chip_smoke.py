@@ -25,7 +25,7 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 15.) The kernel that carries each TPU
+6. (Checked last, after phase 16.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
    inside collapsed_scan) had its launch counter rise in phases 4, 5,
    11, 12, 13 and 14 (gibbs_flip in 11 also through the naive scorer;
@@ -171,6 +171,24 @@ Phases, each of which raises on failure (exit code non-zero):
    K_init=2, L=3) for 40 iterations: K+ >= 1, gibbs_flip and
    collapsed_scan launched.
 
+16. The LM's other temporal mixers (repro_torch.models.ssm, rglru, moe;
+   no kernel of their own, and none of the five is launched):
+   falcon-mamba-7b (64 mamba-1 layers, d=4096) and recurrentgemma-2b (8
+   superblocks of rec, rec, local attention and 2 tail rec blocks,
+   d=2560, vocab 256000) at full width and depth through the serving CLI,
+   then the timed serve and a profiled bf16 step on float32 weights drawn
+   on the card, which phase 15's holds take first (2 x 32 decode steps
+   against the forward at full depth; card against CPU at 2 layers, the
+   hybrid at its first superblock); the hybrid's ring cache wrapped: one
+   superblock, 2112 decode steps through its 2048 slots against the
+   forward. phi3.5-moe-42b-a6.6b (2 layers) and deepseek-v2-236b (1
+   layer, MLA, 160 routed experts top-6 and 2 shared) at full width: card
+   against CPU (logits, aux), decode on the card against decode on the
+   CPU (tokens equal outside near ties), decode against the forward at a
+   capacity that drops nothing (held) and at the config's 1.25 (reported:
+   decode's T = B gives C = 1, so routed slots drop), a bf16 serve of 8
+   tokens.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
 script's total wall time. Run from the root of a checkout: python3
@@ -178,6 +196,7 @@ chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -300,6 +319,22 @@ LM = dict(arch="smollm-135m", serve_B=4, serve_prompt=32, serve_new=16,
           ibp_N=128, ibp_seq=32, ibp_data_seed=3, ibp_data_step=1, ibp_D=64,
           ibp_proj_seed=7, ibp_iters=40,
           ibp_spec=dict(P=4, K_max=16, K_tail=6, K_init=2, L=3))
+
+# phase 16: the LM's other temporal mixers: falcon-mamba-7b (ssm) and
+# recurrentgemma-2b (hybrid) at full width and depth through the serving
+# CLI, the timed serve and a profiled bf16 step, then phase 15's holds on
+# their float32 weights (card against CPU at cpu_layers: the hybrid at one
+# superblock, local attention included); the hybrid's ring cache wrapped:
+# one superblock, ring_B sequences of local_window + ring_extra
+# teacher-forced decode steps against the forward; the MoE models at full
+# width cut to moe_layers: card against CPU (logits, aux), decode on the
+# card against decode on the CPU (greedy tokens), decode against the
+# forward at a capacity that drops nothing (held) and at the config's
+# (reported, with the routed slots dropped a step), a bf16 serve of
+# cut_new tokens
+MIXERS = dict(ssm="falcon-mamba-7b", hybrid="recurrentgemma-2b",
+              moe_layers={"phi3.5-moe-42b-a6.6b": 2, "deepseek-v2-236b": 1},
+              ring_B=1, ring_extra=64)
 
 
 def log(msg: str) -> None:
@@ -3193,7 +3228,52 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
 # --------------------------------------------------------------------------
 
 
-def lm_decode_hold(model, cfg, dev) -> dict:
+def decode_logits(model, cfg, toks, dev, extra: dict | None = None
+                  ) -> tuple:
+    """Teacher-forced decode of ``toks`` (B, S) one step a token (``extra``
+    in every step's batch): the logits (B, S, Vp) and the caches."""
+    import torch
+    from repro_torch.models import init_caches, model_apply
+
+    B, S = toks.shape
+    caches, out = init_caches(cfg, B, S, dev), []
+    with torch.no_grad():
+        for i in range(S):
+            lg, _, caches = model_apply(
+                model, {"tokens": toks[:, i:i + 1], **(extra or {})}, cfg,
+                mode="decode", caches=caches)
+            out.append(lg[:, 0])
+    return torch.stack(out, 1), caches
+
+
+def logits_gap(got, want) -> dict:
+    """max |got - want| against rel_tol of max |want|, and the argmaxes
+    that differ where want's top two are more than tie_gap apart."""
+    import torch
+
+    top2 = want.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < LM["tie_gap"]
+    differ = got.argmax(-1) != want.argmax(-1)
+    scale = float(want.abs().max())
+    return dict(positions=int(near.numel()),
+                max_abs_err=float((got - want).abs().max()),
+                max_abs_logit=scale, limit=LM["rel_tol"] * scale,
+                near_ties=int(near.sum()), argmax_differing=int(differ.sum()),
+                argmax_differing_outside_ties=int((differ & ~near).sum()),
+                finite=bool(torch.isfinite(got).all()
+                            and torch.isfinite(want).all()))
+
+
+def held(r: dict, what: str, phase: int = 16, logits: bool = True) -> dict:
+    """Raise unless the argmaxes agree outside near ties and (``logits``)
+    the logits are within their limit."""
+    if not r["finite"] or r["argmax_differing_outside_ties"] or \
+            (logits and r["max_abs_err"] > r["limit"]):
+        raise AssertionError(f"phase {phase}: {what}: {r}")
+    return r
+
+
+def lm_decode_hold(model, cfg, dev, phase: int = 15) -> dict:
     """The reference's test_decode_matches_prefill_logits at full size:
     hold_B sequences of hold_steps tokens teacher-forced through the
     decode step, each step's logits against the "train" forward's at
@@ -3205,64 +3285,47 @@ def lm_decode_hold(model, cfg, dev) -> dict:
     not held."""
     import numpy as np
     import torch
-    from repro_torch.models import init_caches, model_apply
+    from repro_torch.models import model_apply
 
     B, S = LM["hold_B"], LM["hold_steps"]
     rng = np.random.default_rng(15)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
 
     def both(extra: dict) -> tuple:
-        fwd = model_apply(model, {"tokens": toks, **extra}, cfg,
-                          mode="train")[0]
-        caches, dec = init_caches(cfg, B, S, dev), []
-        for i in range(S):
-            lg, _, caches = model_apply(
-                model, {"tokens": toks[:, i:i + 1], **extra}, cfg,
-                mode="decode", caches=caches)
-            dec.append(lg[:, 0])
-        return fwd, torch.stack(dec, 1), caches
+        with torch.no_grad():
+            fwd = model_apply(model, {"tokens": toks, **extra}, cfg,
+                              mode="train")[0]
+        return (fwd, *decode_logits(model, cfg, toks, dev, extra))
 
     extra = {}
     if cfg.family == "encdec":
         extra["enc_out"] = torch.zeros((B, cfg.enc_seq, cfg.d_model),
                                        device=dev)
-    with torch.no_grad():
-        fwd, dec, caches = both(extra)
-    scale = float(fwd.abs().max())
-    err = float((dec - fwd).abs().max())
-    top2 = fwd.topk(2, dim=-1).values
-    near = (top2[..., 0] - top2[..., 1]) < LM["tie_gap"]
-    differ = dec.argmax(-1) != fwd.argmax(-1)
-    r = dict(positions=B * S, max_abs_err=err, max_abs_logit=scale,
-             limit=LM["rel_tol"] * scale, near_ties=int(near.sum()),
-             argmax_differing=int(differ.sum()),
-             argmax_differing_outside_ties=int((differ & ~near).sum()),
-             cache_length=int(caches[0].length),
-             finite=bool(torch.isfinite(fwd).all() and
-                         torch.isfinite(dec).all()))
-    if not r["finite"] or err > r["limit"] or \
-            r["argmax_differing_outside_ties"] or r["cache_length"] != S:
-        raise AssertionError(f"phase 15: {cfg.name} decode against the "
-                             f"forward: {r}")
+    fwd, dec, caches = both(extra)
+    r = dict(**logits_gap(dec, fwd), cache_length=int(caches[0].length))
+    held(r, f"{cfg.name} decode against the forward", phase)
+    if r["cache_length"] != S:
+        raise AssertionError(f"phase {phase}: {cfg.name} cache length: {r}")
     if cfg.family == "encdec":
         enc = torch.from_numpy(rng.standard_normal(
             (B, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(dev)
-        with torch.no_grad():
-            f2, d2, _ = both({"enc_out": enc})
+        f2, d2, _ = both({"enc_out": enc})
         r["random_enc_out_gap"] = float((d2 - f2).abs().max())
     return r
 
 
-def lm_cpu_hold(model, cfg, dev) -> dict:
-    """The first cpu_layers layers of ``model`` (the encoder's too), on
-    the card against the same weights on the CPU: the float32 "train"
-    forward of hold_B x hold_steps tokens (and random frames for encdec),
-    within rel_tol of max |logit|."""
+def lm_cpu_hold(model, cfg, dev, phase: int = 15, n: int | None = None
+                ) -> dict:
+    """The first ``n`` (default cpu_layers) layers of ``model`` (the
+    encoder's too), on the card against the same weights on the CPU: the
+    float32 "train" forward of hold_B x hold_steps tokens (and random
+    frames for encdec), within rel_tol of max |logit|; the aux losses
+    (MoE) within rel_tol of the CPU's."""
     import numpy as np
     import torch
     from repro_torch.models import model_apply, transformer
 
-    n = LM["cpu_layers"]
+    n = n or LM["cpu_layers"]
     small_cfg = dataclasses.replace(
         cfg, n_layers=min(n, cfg.n_layers),
         n_enc_layers=min(n, cfg.n_enc_layers))
@@ -3278,15 +3341,20 @@ def lm_cpu_hold(model, cfg, dev) -> dict:
         batch["frames"] = torch.from_numpy(rng.standard_normal(
             (B, cfg.enc_seq, cfg.d_model), dtype=np.float32))
     with torch.no_grad():
-        got = model_apply(card, {k: v.to(dev) for k, v in batch.items()},
-                          small_cfg, mode="train")[0].cpu()
-        want = model_apply(host, batch, small_cfg, mode="train")[0]
+        got, got_aux, _ = model_apply(
+            card, {k: v.to(dev) for k, v in batch.items()}, small_cfg,
+            mode="train")
+        want, want_aux, _ = model_apply(host, batch, small_cfg, mode="train")
+    got = got.cpu()
     scale = float(want.abs().max())
     r = dict(layers=small_cfg.n_layers, enc_layers=small_cfg.n_enc_layers,
              max_abs_err=float((got - want).abs().max()),
-             max_abs_logit=scale, limit=LM["rel_tol"] * scale)
-    if not torch.isfinite(got).all() or r["max_abs_err"] > r["limit"]:
-        raise AssertionError(f"phase 15: {cfg.name} card against CPU: {r}")
+             max_abs_logit=scale, limit=LM["rel_tol"] * scale,
+             aux=float(got_aux), aux_cpu=float(want_aux))
+    if not torch.isfinite(got).all() or r["max_abs_err"] > r["limit"] or \
+            abs(r["aux"] - r["aux_cpu"]) > LM["rel_tol"] * abs(r["aux_cpu"]):
+        raise AssertionError(f"phase {phase}: {cfg.name} card against CPU: "
+                             f"{r}")
     return r
 
 
@@ -3318,37 +3386,44 @@ def lm_serve(cfg, dev, new: int, model=None) -> dict:
     return out
 
 
-def lm_step_profile(cfg, dev, steps: int = 8) -> dict:
+def lm_step_profile(cfg, dev, steps: int = 8, model=None) -> dict:
     """Where a bf16 decode step's time goes at the serving CLI's widths:
     ``steps`` steps after the prompt's 32 (host clock around each, ended
     by a synchronise) and the same steps under torch.profiler: device
     kernels a step and their summed device time, so the device's busy
-    share of a step."""
+    share of a step. ``model``: float32 weights to cast (default: drawn
+    from seed 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import init_caches, init_model, make_decode_step
     from repro_torch.models.lm import cast_params
 
     B, S = LM["serve_B"], LM["serve_prompt"]
-    model = cast_params(init_model(0, cfg, device=dev), cfg)
+    if model is None:
+        model = init_model(0, cfg, device=dev)
+    model = cast_params(model, cfg)
     step = make_decode_step(cfg)
     caches = init_caches(cfg, B, S + 2 * steps, dev)
     tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    # the encoder's output as the serving CLI feeds it: zeros
+    extras = {"enc_out": torch.zeros((B, cfg.enc_seq, cfg.d_model),
+                                     device=dev)} \
+        if cfg.family == "encdec" else {}
     for _ in range(S):
-        tok, caches = step(model, {"tokens": tok}, caches)
+        tok, caches = step(model, {"tokens": tok, **extras}, caches)
         tok = tok[:, None]
     torch.cuda.synchronize(dev)
     walls = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        tok, caches = step(model, {"tokens": tok}, caches)
+        tok, caches = step(model, {"tokens": tok, **extras}, caches)
         tok = tok[:, None]
         torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            tok, caches = step(model, {"tokens": tok}, caches)
+            tok, caches = step(model, {"tokens": tok, **extras}, caches)
             tok = tok[:, None]
         torch.cuda.synchronize(dev)
     ev = kernel_events(prof)
@@ -3358,6 +3433,25 @@ def lm_step_profile(cfg, dev, steps: int = 8) -> dict:
                 wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
                 kernels_per_step=len(ev) / steps,
                 busy_share=dev_ms / wall_ms if wall_ms else None)
+
+
+def gelu_step_profiles(cfg, dev, model) -> dict:
+    """A bf16 decode step of a gelu model as it runs (``modules.gelu``,
+    JAX's roundings op by op) and, in the same process, with
+    ``modules.gelu`` swapped for one ``F.gelu(approximate="tanh")`` call
+    (one kernel, one rounding): what the exact form costs a step."""
+    import torch.nn.functional as F
+    from repro_torch.models import modules
+
+    exact = modules.gelu
+    out = {"step_profile": lm_step_profile(cfg, dev, model=model)}
+    modules.gelu = lambda h: F.gelu(h, approximate="tanh")
+    try:
+        out["step_profile_fused_gelu"] = lm_step_profile(cfg, dev,
+                                                         model=model)
+    finally:
+        modules.gelu = exact
+    return out
 
 
 def lm_compose(model, cfg, dev) -> tuple[dict, dict]:
@@ -3459,10 +3553,235 @@ def run_lm(dev, smi: str) -> tuple[dict, dict]:
             decode_vs_forward=lm_decode_hold(m, c32, dev),
             card_vs_cpu=lm_cpu_hold(m, c32, dev),
             serve=lm_serve(cut, dev, LM["cut_new"], model=m)))
+        if cut.act == "gelu":
+            out["models"][-1].update(gelu_step_profiles(cut, dev, m))
         del m
         torch.cuda.empty_cache()
     return out, counts
 
+
+# --------------------------------------------------------------------------
+# phase 16: the LM's other temporal mixers on the card
+# --------------------------------------------------------------------------
+
+
+def ring_hold(model, cfg, dev) -> dict:
+    """The hybrid's ring cache wrapped at full width: one superblock (rec,
+    rec, local attention), ring_B sequences of local_window + ring_extra
+    tokens teacher-forced through decode against the "train" forward."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model_apply, transformer
+
+    small = dataclasses.replace(cfg, n_layers=len(cfg.rglru_pattern))
+    card = transformer.LM(small, dev)
+    sd = model.state_dict()
+    card.load_state_dict({k: sd[k] for k in card.state_dict()})
+    B, S = MIXERS["ring_B"], cfg.local_window + MIXERS["ring_extra"]
+    rng = np.random.default_rng(17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd = model_apply(card, {"tokens": toks}, small, mode="train")[0]
+    dec, caches = decode_logits(card, small, toks, dev)
+    ring = caches[2].k.shape[1]
+    r = dict(layers=small.n_layers, batch=B, steps=S, ring_slots=ring,
+             wraps=S // ring, seconds=time.perf_counter() - t0,
+             **logits_gap(dec, fwd))
+    if ring != cfg.local_window or S <= ring:
+        raise AssertionError(f"phase 16: the ring did not wrap: {r}")
+    return held(r, f"{cfg.name} ring decode against the forward")
+
+
+def run_recurrent(arch: str, dev, smi: str) -> dict:
+    """16a / 16b: the CLI at full width and depth, then one set of float32
+    weights drawn on the card: phase 15's holds (card against CPU at one
+    superblock for the hybrid), the hybrid's ring, the timed serve and a
+    profiled bf16 step cast from those weights."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+
+    cfg = get_config(arch)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", arch])
+    out = dict(model=arch, layers=cfg.n_layers, gpu=smi,
+               cli_seconds=time.perf_counter() - t0,
+               cli=buf.getvalue().strip().splitlines())
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m = init_model(torch.Generator(device=dev).manual_seed(0), cfg32,
+                   device=dev)
+    out["decode_vs_forward"] = lm_decode_hold(m, cfg32, dev, phase=16)
+    n = len(cfg.rglru_pattern) if cfg.family == "hybrid" else None
+    out["card_vs_cpu"] = lm_cpu_hold(m, cfg32, dev, phase=16, n=n)
+    if cfg.family == "hybrid":
+        out["ring"] = ring_hold(m, cfg32, dev)
+    out["serve"] = lm_serve(cfg, dev, LM["serve_new"], model=m)
+    out["step_profile"] = lm_step_profile(cfg, dev, model=m)
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording_drops(log: list):
+    """Record, for each MoE layer's dispatch while inside, the routed
+    slots that its capacity dropped (a host read each; for reporting)."""
+    from repro_torch.models import moe
+
+    orig = moe._dispatch
+
+    def recorded(expert_ids, gate_vals, counts, E, C, T):
+        out = orig(expert_ids, gate_vals, counts, E, C, T)
+        log.append(expert_ids.numel() - int((out[0] != T).sum()))
+        return out
+
+    moe._dispatch = recorded
+    try:
+        yield
+    finally:
+        moe._dispatch = orig
+
+
+def run_moe(arch: str, dev, smi: str) -> dict:
+    """16c: an MoE model at full width cut to its moe_layers, float32
+    weights drawn on the card: card against CPU (forward logits and aux);
+    hold_B x hold_steps decode steps on the card against the same on the
+    CPU (greedy tokens equal outside near ties); decode against the
+    forward at capacity_factor = n_experts / top_k, where no slot drops
+    (held), and at the config's capacity (reported: decode's T = B gives
+    C = 1); a bf16 serve of cut_new tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, model_apply, transformer
+
+    full = get_config(arch)
+    cut = dataclasses.replace(full, n_layers=MIXERS["moe_layers"][arch])
+    c32 = dataclasses.replace(cut, dtype="float32")
+    no_drop = dataclasses.replace(
+        c32, capacity_factor=full.n_experts / full.top_k)
+    B, S = LM["hold_B"], LM["hold_steps"]
+    for T in (B, B * S):
+        if int(T * full.top_k / full.n_experts
+               * no_drop.capacity_factor) < T:
+            raise AssertionError(f"phase 16: {arch}: capacity under T={T}")
+    m = init_model(torch.Generator(device=dev).manual_seed(0), c32,
+                   device=dev)
+    out = dict(model=arch, layers=cut.n_layers, gpu=smi,
+               params=sum(p.numel() for p in m.parameters()))
+    out["card_vs_cpu"] = lm_cpu_hold(m, c32, dev, phase=16)
+
+    rng = np.random.default_rng(18)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S)))
+    host = transformer.LM(c32, "cpu")
+    host.load_state_dict(m.state_dict())
+    t0 = time.perf_counter()
+    dec_cpu, _ = decode_logits(host, c32, toks, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del host
+    toks = toks.to(dev)
+    dec, _ = decode_logits(m, c32, toks, dev)
+    out["decode_card_vs_cpu"] = held(
+        dict(**logits_gap(dec.cpu(), dec_cpu), cpu_seconds=cpu_s),
+        f"{arch} decode on the card against the CPU", logits=False)
+
+    with torch.no_grad():
+        fwd = model_apply(m, {"tokens": toks}, no_drop, mode="train")[0]
+    dec_nd, _ = decode_logits(m, no_drop, toks, dev)
+    out["decode_vs_forward_no_drop"] = held(
+        dict(**logits_gap(dec_nd, fwd), capacity_factor=
+             no_drop.capacity_factor),
+        f"{arch} decode against the forward at no drop")
+
+    fwd_drops, dec_drops = [], []
+    with recording_drops(fwd_drops), torch.no_grad():
+        fwd = model_apply(m, {"tokens": toks}, c32, mode="train")[0]
+    with recording_drops(dec_drops):
+        dec, _ = decode_logits(m, c32, toks, dev)
+    L, k = cut.n_layers, cut.top_k
+    out["decode_vs_forward_config"] = dict(
+        **logits_gap(dec, fwd), capacity_factor=c32.capacity_factor,
+        forward_slots_dropped=sum(fwd_drops), forward_slots=L * B * S * k,
+        decode_slots_dropped_per_step=sum(dec_drops) / S,
+        decode_slots_per_step=L * B * k)
+    out["serve"] = lm_serve(cut, dev, LM["cut_new"], model=m)
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_mixers(dev, smi: str) -> dict:
+    """Phase 16: 16a falcon-mamba-7b and 16b recurrentgemma-2b at full
+    width and depth; 16c the MoE models cut in depth."""
+    return dict(ssm=run_recurrent(MIXERS["ssm"], dev, smi),
+                hybrid=run_recurrent(MIXERS["hybrid"], dev, smi),
+                moe=[run_moe(a, dev, smi) for a in MIXERS["moe_layers"]])
+
+
+def log_lm_mixers(mixers: dict, smi: str) -> None:
+    """Phase 16's lines: one JSON line a model, then its summary."""
+    for v in (mixers["ssm"], mixers["hybrid"], *mixers["moe"]):
+        log(f"[16] {json.dumps(v)}")
+    for v in (mixers["ssm"], mixers["hybrid"]):
+        for line in v["cli"]:
+            log(f"[16] CLI (repro_torch.launch.serve --arch {v['model']}): "
+                f"{line}")
+        sv, sp = v["serve"], v["step_profile"]
+        h, c = v["decode_vs_forward"], v["card_vs_cpu"]
+        log(f"[16] serve {v['model']} ({sv['layers']} layers, {sv['dtype']}),"
+            f" B={sv['batch']}, prompt {sv['prompt_len']}, {sv['new']} new: "
+            f"{sv['tokens_per_s']:.1f} tok/s inc. prefill "
+            f"({sv['new_tokens_per_s']:.1f} new tok/s), wall "
+            f"{sv['seconds']:.4f} s, peak device memory "
+            f"{sv['max_memory_allocated']} bytes ({sv['memory_held_before']} "
+            f"held before the loop: the float32 weights); the CLI's run took "
+            f"{v['cli_seconds']:.2f} s; one bf16 decode step (median of "
+            f"{sp['steps']}): wall {sp['wall_ms_per_step']:.3f} ms, "
+            f"{sp['kernels_per_step']:.0f} device kernels taking "
+            f"{sp['device_ms_per_step']:.3f} ms, device busy "
+            f"{sp['busy_share']:.3f}; gpu: {smi}")
+        log(f"[16] {v['model']} float32: decode vs forward over "
+            f"{h['positions']} positions max |diff| {h['max_abs_err']:.3g} "
+            f"(limit {h['limit']:.3g}), {h['argmax_differing']} argmaxes "
+            f"differ, {h['near_ties']} near ties; card vs CPU at "
+            f"{c['layers']} layers max |diff| {c['max_abs_err']:.3g} (limit "
+            f"{c['limit']:.3g})")
+        if "ring" in v:
+            r = v["ring"]
+            log(f"[16] {v['model']} ring: {r['layers']} layers, B={r['batch']},"
+                f" {r['steps']} decode steps through {r['ring_slots']} slots "
+                f"({r['wraps']} wrap) against the forward: max |diff| "
+                f"{r['max_abs_err']:.3g} (limit {r['limit']:.3g}), "
+                f"{r['argmax_differing']} argmaxes differ, {r['near_ties']} "
+                f"near ties; {r['seconds']:.1f} s")
+    for v in mixers["moe"]:
+        c, dc = v["card_vs_cpu"], v["decode_card_vs_cpu"]
+        nd, cf = v["decode_vs_forward_no_drop"], v["decode_vs_forward_config"]
+        sv = v["serve"]
+        log(f"[16] {v['model']} at {v['layers']} layers ({v['params']} "
+            f"parameters): card vs CPU forward max |diff| "
+            f"{c['max_abs_err']:.3g} (limit {c['limit']:.3g}), aux "
+            f"{c['aux']:.6g} vs {c['aux_cpu']:.6g}; decode card vs CPU "
+            f"{dc['argmax_differing']} tokens differ ({dc['near_ties']} near "
+            f"ties), max |diff| {dc['max_abs_err']:.3g}, the CPU's "
+            f"{dc['cpu_seconds']:.1f} s; decode vs forward at capacity "
+            f"factor {nd['capacity_factor']:.4g} (no drop) max |diff| "
+            f"{nd['max_abs_err']:.3g} (limit {nd['limit']:.3g}), at "
+            f"{cf['capacity_factor']}: max |diff| {cf['max_abs_err']:.3g}, "
+            f"{cf['argmax_differing']} argmaxes differ, slots dropped "
+            f"{cf['decode_slots_dropped_per_step']:.2f} of "
+            f"{cf['decode_slots_per_step']} a decode step, "
+            f"{cf['forward_slots_dropped']} of {cf['forward_slots']} in the "
+            f"forward; bf16 serve {sv['tokens_per_s']:.1f} tok/s inc. "
+            f"prefill, peak {sv['max_memory_allocated']} bytes; gpu: {smi}")
 
 def main() -> int:
     import torch
@@ -3907,6 +4226,17 @@ def main() -> int:
             + (f"; with random enc_out decode differs from the forward by "
                f"{h['random_enc_out_gap']:.3g} (cross-attention query at "
                f"position 0)" if "random_enc_out_gap" in h else ""))
+        for key, form in (("step_profile", "gelu op by op"),
+                          ("step_profile_fused_gelu", "one F.gelu")):
+            if key in m:
+                v = m[key]
+                log(f"[15] one bf16 decode step of {m['model']} "
+                    f"({m['layers']} layers, {form}) at B={v['batch']} "
+                    f"(median of {v['steps']}): wall "
+                    f"{v['wall_ms_per_step']:.3f} ms, "
+                    f"{v['kernels_per_step']:.0f} device kernels taking "
+                    f"{v['device_ms_per_step']:.3f} ms, device busy "
+                    f"{v['busy_share']:.3f}")
     v = lm["compose"]
     log(f"[15d] IBP over {v['backbone']} logits: N={v['N']} D={v['D']} "
         f"(embedded in {v['embed_seconds']:.2f} s), P={v['P']} "
@@ -3915,6 +4245,17 @@ def main() -> int:
         f"{v['K_plus']}, alpha = {v['alpha']:.3f}, sigma_x = "
         f"{v['sigma_x']:.4f}; launches {v['launches']}")
     log(f"[15] phase took {time.perf_counter() - t0:.1f} s")
+
+    # phase 16: the LM's other temporal mixers
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    mixers = run_lm_mixers(dev, smi)
+    mixer_counts = launch_counts()
+    log_lm_mixers(mixers, smi)
+    if any(mixer_counts.get(k, 0) for k in KERNELS):
+        raise AssertionError(f"phase 16 launched a kernel: {mixer_counts}")
+    log(f"[16] launches {mixer_counts}; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
@@ -4002,6 +4343,7 @@ def main() -> int:
             launches_shardmap=shard_counts.get(name, 0),
             launches_mesh=mesh_counts.get(name, 0),
             launches_lm=lm_counts.get(name, 0),
+            launches_lm_mixers=mixer_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -60,7 +60,7 @@ def bank_from_reference(fields: dict,
                          for k, v in fields.items()})
 
 
-_STACKED = ("layers", "enc_layers")
+_STACKED = ("layers", "enc_layers", "superblocks")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -78,10 +78,13 @@ def params_from_reference(params_np: dict, cfg,
     """The port's model of ``cfg`` holding the reference's weights.
 
     ``params_np``: the reference's ``init_model`` param tree as numpy. A
-    leaf under ``layers`` or ``enc_layers`` is stacked (L, ...) and goes
-    to layer i's parameter of the same path; every other leaf to the
-    parameter of its path. The port keeps the reference's (d_in, d_out)
-    layouts, so nothing is transposed. Raises on a leaf no parameter
+    leaf under ``layers``, ``enc_layers`` or the hybrid's ``superblocks``
+    is stacked (L, ...) (an MoE expert leaf (L, E, ...)) and goes to
+    layer (superblock) i's parameter of the same path,
+    ``superblocks/b0/rec/w_a`` to ``superblocks.i.b0.rec.w_a``; every
+    other leaf, the hybrid's ``tail/t0/...`` among them, to the parameter
+    of its path. The port keeps the reference's (d_in, d_out) layouts, so
+    nothing is transposed. Raises on a leaf no parameter
     takes, on a parameter no leaf sets, and on a shape that differs.
     """
     dev = _device.resolve(device)

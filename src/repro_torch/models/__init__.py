@@ -1,4 +1,6 @@
-"""The LM substrate's models (ROADMAP item 11a-1: the attention families).
+"""The LM substrate's models: the attention families (ROADMAP item
+11a-1) and the other temporal mixers, MoE, mamba-1 SSM, RG-LRU and the
+hybrid stack (item 11a-2).
 
 The counterpart of ``repro/models``; ``ActSpecs`` (activation sharding)
 waits for ROADMAP item 11c.
@@ -6,6 +8,7 @@ waits for ROADMAP item 11c.
 from .transformer import (
     init_caches,
     init_model,
+    layer_kind,
     model_apply,
     pad_vocab,
 )
@@ -17,10 +20,14 @@ from .lm import (
     make_prefill_step,
     make_train_step,
 )
+from .moe import moe_apply
+from .rglru import RGLRUCache, rglru_apply
+from .ssm import SSMCache, ssm_apply
 
 __all__ = [
     "init_caches",
     "init_model",
+    "layer_kind",
     "model_apply",
     "pad_vocab",
     "cross_entropy",
@@ -29,4 +36,9 @@ __all__ = [
     "make_decode_step",
     "make_prefill_step",
     "make_train_step",
+    "moe_apply",
+    "RGLRUCache",
+    "rglru_apply",
+    "SSMCache",
+    "ssm_apply",
 ]

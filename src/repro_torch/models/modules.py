@@ -9,6 +9,9 @@ scale (d,). The sharding specs (``sp_out_proj``, ``maybe_shard``,
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -51,17 +54,32 @@ def norm_init(d: int, device=None) -> torch.nn.Parameter:
 def init_weights(module: torch.nn.Module, generator: torch.Generator
                  ) -> None:
     """The reference's initialisers over every parameter of ``module``, in
-    ``named_parameters`` order from one generator: norm scales ones,
-    ``enc_embed`` 0.02 N(0, 1), every other matrix ``truncated_normal_init``.
-    Parameters on the meta device are left as they are."""
+    ``named_parameters`` order from one generator, by name: the SSM's
+    ``A_log`` (di, n) = log(1 + arange(n)) on every row (rounded
+    once from float64), the RG-LRU's
+    ``lam`` 0.65, ``conv_w`` 0.1 N(0, 1), the experts' ``moe.wi`` and
+    ``moe.wo`` and ``enc_embed`` 0.02 N(0, 1); then every other vector
+    (norm scales, the SSM's ``D``) ones and every other matrix
+    ``truncated_normal_init``. Parameters on the meta device are left as
+    they are."""
     for name, p in module.named_parameters():
         if p.device.type == "meta":
             continue
+        leaf = name.split(".")[-1]
         with torch.no_grad():
-            if p.dim() == 1:
-                p.fill_(1.0)
-            elif name.split(".")[-1] == "enc_embed":
+            if leaf == "A_log":
+                # in float64, so each value is log(1 + k) correctly rounded
+                n = p.shape[-1]
+                p.copy_(torch.log1p(torch.arange(
+                    n, dtype=torch.float64, device=p.device)).expand_as(p))
+            elif leaf == "lam":
+                p.fill_(0.65)
+            elif leaf == "conv_w":
+                p.normal_(0.0, 1.0, generator=generator).mul_(0.1)
+            elif leaf == "enc_embed" or name.endswith(("moe.wi", "moe.wo")):
                 p.normal_(0.0, 1.0, generator=generator).mul_(0.02)
+            elif p.dim() == 1:
+                p.fill_(1.0)
             else:
                 truncated_normal_init(p, 1.0, generator)
 
@@ -113,6 +131,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
     return torch.cat([rotated.to(x.dtype), x[..., rd:]], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _gelu_constants(dtype: torch.dtype) -> tuple[float, ...]:
+    """0.5, 1, sqrt(2/pi) and 0.044715 rounded to ``dtype``, as Python
+    floats: made once a dtype on the host, since a 0-d tensor made on the
+    card would be a copy from the host that waits for the device."""
+    return tuple(float(torch.tensor(v, dtype=dtype))
+                 for v in (0.5, 1.0, math.sqrt(2 / math.pi), 0.044715))
+
+
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form, op by op in ``h``'s dtype
+    with its constants rounded to that dtype, as JAX computes it: in bf16
+    it so equals JAX's bitwise, where ``F.gelu`` (one rounding) differs in
+    about 40% of the elements."""
+    half, one, c, a = _gelu_constants(h.dtype)
+    return h * (half * (one + torch.tanh(c * (h + a * (h * h * h)))))
+
+
 def activation(h: torch.Tensor, act: str) -> torch.Tensor:
     """silu, or gelu in its tanh form (``jax.nn.gelu``'s default)."""
-    return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+    return F.silu(h) if act == "silu" else gelu(h)

@@ -1,13 +1,17 @@
 """Model composition: blocks, the layer stack, full-model init/apply.
 
-The counterpart of ``repro/models/transformer.py`` for the families whose
-temporal mixer is attention:
+The counterpart of ``repro/models/transformer.py``. Families
+(``configs/base.py``):
   dense / vlm  — decoder-only: x += attn(n(x)); x += mlp(n(x))
+  moe          — decoder-only with the routed-expert FFN (+ shared experts)
+  ssm          — mamba blocks: x += ssm(n(x)), no FFN
+  hybrid       — RecurrentGemma: superblocks of ``rglru_pattern`` (RG-LRU
+                 or local attention, each + MLP), then the tail's blocks
   encdec       — whisper backbone: encoder (bidir) + decoder (causal + cross)
-with GQA or MLA attention. The reference scans stacked (L, ...) layer
-weights; here each layer is a ``Block`` in an ``nn.ModuleList``, run in a
-Python loop. ``moe``, ``ssm`` and ``hybrid`` (and any config with
-experts) are refused by ``init_model`` until ROADMAP item 11a-2 ports them.
+The reference scans stacked (L, ...) layer weights; here each layer is a
+``Block`` (in ``layers``, or in the hybrid's ``superblocks`` and
+``tail``), run in a Python loop in execution order, and the caches are
+one a layer in that order.
 """
 from __future__ import annotations
 
@@ -16,10 +20,11 @@ import torch
 from repro_torch import device as _device
 
 from . import attention as attn_lib
+from . import moe as moe_lib
+from . import rglru as rglru_lib
+from . import ssm as ssm_lib
 from .modules import (activation, embed_init, init_weights, layer_norm,
                       linear_init, norm_init, rms_norm)
-
-UNPORTED_FAMILIES = ("moe", "ssm", "hybrid")
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -65,31 +70,54 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 class Block(torch.nn.Module):
-    """ln1 + attention (GQA or MLA) [+ lnx + cross-attention] + ln2 + MLP."""
+    """ln1 + the temporal mixer (``attn``: GQA or MLA; ``ssm``; ``rec``:
+    RG-LRU) [+ lnx + cross-attention] + ln2 + the FFN (``moe`` when the
+    config has experts, else ``mlp``). A mamba block (kind "ssm") has no
+    ln2 and no FFN. ``window`` is the local attention window of an
+    attention block (0: global)."""
 
-    def __init__(self, cfg, kind: str, cross: bool = False, device=None):
+    def __init__(self, cfg, kind: str, cross: bool = False, window: int = 0,
+                 device=None):
         super().__init__()
-        self.kind = kind
+        self.kind, self.window = kind, window
         self.ln1 = norm_init(cfg.d_model, device)
-        attn_cls = attn_lib.MLA if kind == "mla" else attn_lib.GQA
-        self.attn = attn_cls(cfg, device)
+        if kind == "ssm":
+            self.ssm = ssm_lib.SSM(cfg, device)
+            return
+        if kind == "rglru":
+            self.rec = rglru_lib.RGLRU(cfg, device)
+        else:
+            attn_cls = attn_lib.MLA if kind == "mla" else attn_lib.GQA
+            self.attn = attn_cls(cfg, device)
         if cross:
             self.lnx = norm_init(cfg.d_model, device)
             self.xattn = attn_lib.GQA(cfg, device)
         self.ln2 = norm_init(cfg.d_model, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.n_experts:
+            self.moe = moe_lib.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
-def _block_apply(p: Block, x, cfg, *, mode, positions, cache, window=0,
-                 enc_out=None):
+def _block_apply(p: Block, x, cfg, *, mode, positions, cache, enc_out=None):
+    """Returns (x, the layer's new cache, its aux loss: None without
+    experts)."""
+    aux = None
     h = _norm(x, p.ln1, cfg)
-    if p.kind == "mla":
+    if p.kind == "ssm":
+        y, new_cache = ssm_lib.ssm_apply(p.ssm, h, cfg, mode=mode,
+                                         cache=cache)
+        return x + y, new_cache, aux
+    if p.kind == "rglru":
+        y, new_cache = rglru_lib.rglru_apply(p.rec, h, cfg, mode=mode,
+                                             cache=cache)
+    elif p.kind == "mla":
         y, new_cache = attn_lib.mla_apply(p.attn, h, cfg, mode=mode,
                                           positions=positions, cache=cache)
     else:
         y, new_cache = attn_lib.gqa_apply(p.attn, h, cfg, mode=mode,
                                           positions=positions, cache=cache,
-                                          window=window)
+                                          window=p.window)
     x = x + y
     if enc_out is not None and hasattr(p, "xattn"):
         # positions=None: the query is roped at arange(S), so at 0 in
@@ -99,7 +127,11 @@ def _block_apply(p: Block, x, cfg, *, mode, positions, cache, window=0,
                                   kv_src=enc_out)
         x = x + y
     h2 = _norm(x, p.ln2, cfg)
-    return x + mlp_apply(p.mlp, h2, cfg), new_cache
+    if hasattr(p, "moe"):
+        y2, aux = moe_lib.moe_apply(p.moe, h2, cfg)
+    else:
+        y2 = mlp_apply(p.mlp, h2, cfg)
+    return x + y2, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -117,32 +149,54 @@ def layer_kind(cfg) -> str:
     return "attn"
 
 
-def check_ported(cfg) -> None:
-    """Refuse the families the port does not have yet."""
-    if cfg.family in UNPORTED_FAMILIES or cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (n_experts={cfg.n_experts}) "
-            f"is not ported yet; the port has the dense, vlm and encdec "
-            f"families (GQA and MLA attention). moe, ssm, rglru and the "
-            f"hybrid stack are ROADMAP item 11a-2")
+def _hybrid_layout(cfg) -> tuple[tuple, int, int]:
+    """The hybrid stack: (its pattern of block kinds, the number of
+    superblocks, the number of tail blocks)."""
+    pat = tuple("rglru" if k == "rec" else "attn"
+                for k in (cfg.rglru_pattern or ("rec", "rec", "attn")))
+    return pat, cfg.n_layers // len(pat), cfg.n_layers % len(pat)
+
+
+def _layer_kinds(cfg) -> list[tuple[str, int]]:
+    """(kind, window) of every decoder layer in execution order."""
+    if cfg.family != "hybrid":
+        return [(layer_kind(cfg), 0)] * cfg.n_layers
+    pat, n_super, rest = _hybrid_layout(cfg)
+    order = list(pat) * n_super + list(pat[:rest])
+    return [(k, cfg.local_window if k == "attn" else 0) for k in order]
 
 
 class LM(torch.nn.Module):
-    """embed (Vp, d), final_ln, lm_head (d, Vp) unless tied; layers (a
-    ModuleList of ``Block``); encdec adds enc_embed (enc_seq, d),
-    enc_layers and enc_final_ln. Parameter names follow the reference's
-    param tree with the layer index in place of the stacked axis."""
+    """embed (Vp, d), final_ln, lm_head (d, Vp) unless tied, then the
+    decoder: ``layers`` (a ModuleList of ``Block``), or for the hybrid
+    family ``superblocks`` (a ModuleList of ModuleDicts of b0, b1, ...,
+    one a position of the pattern) and ``tail`` (a ModuleDict of t0, t1,
+    ...); encdec adds enc_embed (enc_seq, d), enc_layers and
+    enc_final_ln. Parameter names follow the reference's param tree with
+    the superblock or layer index in place of the stacked axis."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        check_ported(cfg)
         d, Vp = cfg.d_model, pad_vocab(cfg.vocab)
         self.embed = embed_init(Vp, d, device)
         self.final_ln = norm_init(d, device)
         if not cfg.tie_embeddings:
             self.lm_head = linear_init(d, Vp, device)
-        kind = layer_kind(cfg)
-        if cfg.family == "encdec":
+        if cfg.family == "hybrid":
+            pat, n_super, rest = _hybrid_layout(cfg)
+            w = cfg.local_window
+
+            def block(kind):
+                return Block(cfg, kind, window=w if kind == "attn" else 0,
+                             device=device)
+
+            self.superblocks = torch.nn.ModuleList(
+                torch.nn.ModuleDict({f"b{i}": block(k)
+                                     for i, k in enumerate(pat)})
+                for _ in range(n_super))
+            self.tail = torch.nn.ModuleDict(
+                {f"t{i}": block(pat[i]) for i in range(rest)})
+        elif cfg.family == "encdec":
             self.enc_embed = embed_init(cfg.enc_seq, d, device)
             self.enc_layers = torch.nn.ModuleList(
                 Block(cfg, "attn", device=device)
@@ -153,17 +207,22 @@ class LM(torch.nn.Module):
             self.enc_final_ln = norm_init(d, device)
         else:
             self.layers = torch.nn.ModuleList(
-                Block(cfg, kind, device=device) for _ in range(cfg.n_layers))
+                Block(cfg, layer_kind(cfg), device=device)
+                for _ in range(cfg.n_layers))
+
+    def decoder_blocks(self) -> list[Block]:
+        """The decoder's blocks in execution order (``init_caches``'s)."""
+        if hasattr(self, "superblocks"):
+            return [b for sb in self.superblocks for b in sb.values()] + \
+                list(self.tail.values())
+        return list(self.layers)
 
 
 def init_model(gen: int | torch.Generator, cfg, *, device=None) -> LM:
     """A model of ``cfg`` with float32 weights drawn from ``gen`` (a seed,
     or a ``torch.Generator`` on ``device``) by the reference's
     initialisers. ``device`` defaults to ``cuda`` (``device.resolve``);
-    ``"meta"`` builds the parameters' shapes and allocates nothing.
-    Raises ``NotImplementedError`` for the families of ROADMAP item
-    11a-2."""
-    check_ported(cfg)
+    ``"meta"`` builds the parameters' shapes and allocates nothing."""
     dev = torch.device("meta") if str(device) == "meta" else \
         _device.resolve(device)
     model = LM(cfg, dev)
@@ -174,19 +233,25 @@ def init_model(gen: int | torch.Generator, cfg, *, device=None) -> LM:
     return model
 
 
-def _run_stack(layers, x, cfg, *, mode, positions, caches, enc_out=None):
+def _run_stack(blocks, x, cfg, *, mode, positions, caches, enc_out=None):
+    """The blocks in order; returns (x, the summed aux losses, the new
+    caches or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
-    for i, layer in enumerate(layers):
-        x, nc = _block_apply(layer, x, cfg, mode=mode, positions=positions,
-                             cache=None if caches is None else caches[i],
-                             enc_out=enc_out)
+    for i, block in enumerate(blocks):
+        x, nc, aux_l = _block_apply(
+            block, x, cfg, mode=mode, positions=positions,
+            cache=None if caches is None else caches[i], enc_out=enc_out)
+        if aux_l is not None:
+            aux = aux + aux_l
         new_caches.append(nc)
-    return x, (new_caches if caches is not None else None)
+    return x, aux, (new_caches if caches is not None else None)
 
 
 def model_apply(model: LM, batch: dict, cfg, *, mode: str, caches=None):
     """Returns (logits float32 (B, S, Vp), aux_loss, new_caches). In decode
-    the caches' tensors are written in place (``attention`` module)."""
+    the caches' tensors are written in place (``attention``, ``ssm``,
+    ``rglru``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = model.embed[tokens].to(_compute_dtype(cfg))
@@ -202,7 +267,6 @@ def model_apply(model: LM, batch: dict, cfg, *, mode: str, caches=None):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None, :]
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     enc_out = None
     if cfg.family == "encdec":
         if "enc_out" in batch:  # serving: encoder ran once at prefill
@@ -212,12 +276,12 @@ def model_apply(model: LM, batch: dict, cfg, *, mode: str, caches=None):
                 + model.enc_embed[None].to(x.dtype)
             pos = torch.arange(e.shape[1], dtype=torch.int32,
                                device=e.device)[None]
-            e, _ = _run_stack(model.enc_layers, e, cfg, mode="encode",
-                              positions=pos, caches=None)
+            e, _, _ = _run_stack(model.enc_layers, e, cfg, mode="encode",
+                                 positions=pos, caches=None)
             enc_out = _norm(e, model.enc_final_ln, cfg)
-    x, new_caches = _run_stack(model.layers, x, cfg, mode=mode,
-                               positions=positions, caches=caches,
-                               enc_out=enc_out)
+    x, aux, new_caches = _run_stack(model.decoder_blocks(), x, cfg,
+                                    mode=mode, positions=positions,
+                                    caches=caches, enc_out=enc_out)
 
     x = _norm(x, model.final_ln, cfg)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
@@ -231,18 +295,28 @@ def model_apply(model: LM, batch: dict, cfg, *, mode: str, caches=None):
 
 
 def init_caches(cfg, B: int, S: int, device=None) -> list:
-    """One ``KVCache`` a decoder layer (MLA: the latent and rope caches)."""
-    check_ported(cfg)
+    """One cache a decoder layer in execution order: ``KVCache`` (GQA;
+    a ring of ``local_window`` slots for the hybrid's local attention when
+    S reaches it; MLA: the latent and rope caches), ``SSMCache`` or
+    ``RGLRUCache``, each with its own int32 length."""
     dtype = _compute_dtype(cfg)
-    if layer_kind(cfg) == "mla":
-        return [attn_lib.init_mla_cache(cfg, B, S, dtype, device)
-                for _ in range(cfg.n_layers)]
-    return [attn_lib.init_gqa_cache(cfg, B, S, dtype, device)
-            for _ in range(cfg.n_layers)]
+
+    def make(kind: str, window: int):
+        if kind == "ssm":
+            return ssm_lib.init_ssm_cache(cfg, B, dtype, device)
+        if kind == "rglru":
+            return rglru_lib.init_rglru_cache(cfg, B, dtype, device)
+        if kind == "mla":
+            return attn_lib.init_mla_cache(cfg, B, S, dtype, device)
+        return attn_lib.init_gqa_cache(cfg, B, S, dtype, device,
+                                       window=window)
+
+    return [make(kind, window) for kind, window in _layer_kinds(cfg)]
 
 
 def _cache_length(caches, cfg) -> torch.Tensor:
-    """The shared scalar length: the first int32 leaf of the caches."""
+    """The shared scalar length: the first int32 leaf of the caches (the
+    first layer's; every layer advances together)."""
     for c in caches:
         for leaf in c:
             if leaf.dtype == torch.int32:

@@ -19,154 +19,52 @@ are built once, in a module-scoped fixture.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_lm_common import (B, TOL, _np, _t, build_case, check_bf16_prefill,
+                              check_decode, check_greedy_generate,
+                              check_loss, check_prefill, check_train)
 from repro.configs import get_config as ref_config
 from repro.models import attention as ref_attn
 from repro.models import lm as ref_lm
 from repro.models import modules as ref_mod
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config
-from repro_torch.interop import params_from_reference
 from repro_torch.models import attention, lm, modules, transformer
 
 torch.set_num_threads(1)
 
 PORTED = ("smollm-135m", "granite-3-8b", "codeqwen1.5-7b", "minicpm3-4b",
           "whisper-large-v3", "internvl2-76b")
-TOL = dict(rtol=2e-4, atol=2e-4)
-# bf16 logits: within this share of max |logit| of the reference's
-BF16_REL = 2e-2
-B, S, STEPS = 2, 12, 12
-
-
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))
-
-
-def _np(t) -> np.ndarray:
-    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
-        else np.asarray(t, np.float32)
-
-
-def _inputs(cfg, seed: int):
-    """tokens, and frames / patches / enc_out where the family takes them."""
-    rng = np.random.default_rng(seed)
-    x = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
-    if cfg.family == "encdec":
-        x["frames"] = rng.standard_normal(
-            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
-        x["enc_out"] = rng.standard_normal(
-            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
-    if cfg.family == "vlm":
-        x["patches"] = rng.standard_normal(
-            (B, cfg.stub_tokens, cfg.d_model)).astype(np.float32)
-    return x
-
-
-def _batch(x: dict, keys, port: bool, tokens=None):
-    out = {}
-    for k in keys:
-        if k in x:
-            out[k] = x[k]
-    if tokens is not None:
-        out["tokens"] = tokens
-    conv = (lambda a: _t(a).long() if a.dtype == np.int32 else _t(a)) \
-        if port else jnp.asarray
-    return {k: conv(np.asarray(v)) for k, v in out.items()}
-
-
-def _reference_params(cfg):
-    params, _ = ref_tf.init_model(jax.random.key(0), cfg)
-    return params, jax.tree.map(np.asarray, params)
 
 
 @pytest.fixture(scope="module", params=PORTED)
 def case(request):
     """One architecture: the reference's results and the port's model on
     the same weights and inputs."""
-    arch = request.param
-    rcfg, cfg = ref_config(arch, smoke=True), get_config(arch, smoke=True)
-    params, params_np = _reference_params(rcfg)
-    model = params_from_reference(params_np, cfg, "cpu")
-    x = _inputs(cfg, seed=PORTED.index(arch))
-    fwd = ("tokens", "frames", "patches")
-    ref = {}
-    ref["train"], _, _ = jax.jit(
-        lambda p, b: ref_tf.model_apply(p, b, rcfg, mode="train"))(
-            params, _batch(x, fwd, False))
-    ref["prefill"] = jax.jit(ref_lm.make_prefill_step(rcfg))(
-        params, _batch(x, fwd, False))
-    step = jax.jit(ref_lm.make_decode_step(rcfg))
-    caches = ref_tf.init_caches(rcfg, B, S + 1)
-    toks = []
-    for i in range(STEPS):
-        tok, caches = step(params, _batch(x, ("enc_out",), False,
-                                          x["tokens"][:, i:i + 1]), caches)
-        toks.append(np.asarray(tok))
-    ref["tokens"], ref["caches"] = np.stack(toks, 1), caches
-    return dict(arch=arch, cfg=cfg, rcfg=rcfg, params=params,
-                params_np=params_np, model=model, x=x, ref=ref)
+    return build_case(request.param, seed=PORTED.index(request.param))
 
 
 def test_train_logits_match_reference(case):
-    cfg, x = case["cfg"], case["x"]
-    got, aux, caches = transformer.model_apply(
-        case["model"], _batch(x, ("tokens", "frames", "patches"), True), cfg,
-        mode="train")
-    assert got.dtype == torch.float32 and caches is None
-    assert got.shape == (B, S, transformer.pad_vocab(cfg.vocab))
-    np.testing.assert_allclose(_np(got), np.asarray(case["ref"]["train"]),
-                               **TOL)
-    assert float(aux) == 0.0
+    check_train(case)
 
 
 def test_prefill_last_logits_match_reference(case):
-    cfg, x = case["cfg"], case["x"]
-    got = lm.make_prefill_step(cfg)(
-        case["model"], _batch(x, ("tokens", "frames", "patches"), True))
-    assert got.shape == (B, transformer.pad_vocab(cfg.vocab))
-    np.testing.assert_allclose(_np(got), np.asarray(case["ref"]["prefill"]),
-                               **TOL)
+    check_prefill(case)
 
 
 def test_decode_steps_match_reference(case):
     """12 teacher-forced decode steps: the tokens of every step equal, the
     caches (GQA k/v, MLA latent and rope) within TOL, lengths equal."""
-    cfg, x = case["cfg"], case["x"]
-    step = lm.make_decode_step(cfg)
-    caches = transformer.init_caches(cfg, B, S + 1, "cpu")
-    toks = []
-    for i in range(STEPS):
-        tok, caches = step(case["model"],
-                           _batch(x, ("enc_out",), True,
-                                  x["tokens"][:, i:i + 1]), caches)
-        toks.append(tok.numpy())
-    np.testing.assert_array_equal(np.stack(toks, 1), case["ref"]["tokens"])
-    ref = case["ref"]["caches"]
-    for leaf in ("k", "v"):
-        got = torch.stack([getattr(c, leaf) for c in caches])
-        np.testing.assert_allclose(_np(got), np.asarray(getattr(ref, leaf)),
-                                   **TOL)
-    assert [int(c.length) for c in caches] == \
-        np.asarray(ref.length).tolist() == [STEPS] * cfg.n_layers
-    assert all(c.length.dtype == torch.int32 for c in caches)
+    check_decode(case)
 
 
 def test_lm_loss_matches_reference(case):
-    cfg, rcfg, x = case["cfg"], case["rcfg"], case["x"]
-    keys = ("tokens", "frames", "patches")
-    want, wm = ref_lm.lm_loss(case["params"], _batch(x, keys, False), rcfg,
-                              ref_tf.ActSpecs())
-    got, gm = lm.lm_loss(case["model"], _batch(x, keys, True), cfg)
-    np.testing.assert_allclose(float(got), float(want), **TOL)
-    assert int(gm["tokens"]) == int(wm["tokens"]) == B * (S - 1)
+    check_loss(case)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "minicpm3-4b"])
@@ -177,44 +75,14 @@ def test_greedy_generate_matches_reference_decode_loop(arch):
     empty slice past the prompt broadcasts the next token to width 0 and
     raises at the first generated token (ROADMAP §3); the loop is run here
     with the reference's decode step and a Python branch instead."""
-    rcfg, cfg = ref_config(arch, smoke=True), get_config(arch, smoke=True)
-    params, params_np = _reference_params(rcfg)
-    model = params_from_reference(params_np, cfg, "cpu")
-    Sp, new = 5, 6
-    prompt = np.random.default_rng(11).integers(
-        0, cfg.vocab, (B, Sp)).astype(np.int32)
-    step = jax.jit(ref_lm.make_decode_step(rcfg))
-    caches = ref_tf.init_caches(rcfg, B, Sp + new)
-    tok = jnp.asarray(prompt[:, :1])
-    want = [tok]
-    for i in range(Sp + new - 1):
-        nxt, caches = step(params, {"tokens": tok}, caches)
-        tok = jnp.asarray(prompt[:, i + 1:i + 2]) if i + 1 < Sp \
-            else nxt[:, None]
-        want.append(tok)
-    got = lm.greedy_generate(model, cfg, _t(prompt).long(), new)
-    assert got.shape == (B, Sp + new)
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(jnp.concatenate(want, 1)))
+    check_greedy_generate(arch)
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "minicpm3-4b"])
 def test_bf16_prefill_matches_reference(arch):
     """bf16 through make_prefill_step (float32 weights cast by
     cast_params on both sides): within BF16_REL of max |logit|."""
-    rcfg = dataclasses.replace(ref_config(arch, smoke=True), dtype="bfloat16")
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
-    params, params_np = _reference_params(rcfg)
-    model = params_from_reference(params_np, cfg, "cpu")
-    x = _inputs(cfg, seed=5)
-    want = np.asarray(jax.jit(ref_lm.make_prefill_step(rcfg))(
-        params, _batch(x, ("tokens",), False)))
-    got = lm.make_prefill_step(cfg)(model, _batch(x, ("tokens",), True))
-    assert got.dtype == torch.float32
-    # cast_params leaves the caller's model in float32
-    assert all(p.dtype == torch.float32 for p in model.parameters())
-    scale = np.abs(want).max()
-    assert np.abs(_np(got) - want).max() <= BF16_REL * scale
+    check_bf16_prefill(arch)
 
 
 # --------------------------------------------------------------------------

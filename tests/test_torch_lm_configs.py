@@ -6,14 +6,15 @@ on the CPU.
   reference's field by field, with the same parameter counts.
 * At full width, the port's parameters (built on the meta device, nothing
   allocated) have the shapes of the reference's ``init_model`` under
-  ``jax.eval_shape``, layer by layer, for the six ported architectures.
+  ``jax.eval_shape``, layer by layer (superblock by superblock for the
+  hybrid), for all ten architectures.
 * ``init_model`` draws each tensor from a ``torch.Generator`` with the
-  reference's spread, deterministically; it refuses the four
-  architectures of ROADMAP item 11a-2, and ``make_train_step`` refuses
-  (item 11b).
+  reference's spread, deterministically; ``make_train_step`` refuses
+  (ROADMAP item 11b).
 * ``SyntheticLM`` gives the reference's batches bitwise.
-* ``params_from_reference`` raises on a missing and on a spare leaf.
-* ``serve.main`` runs on the CPU for the six architectures and wants a
+* ``params_from_reference`` raises on a missing and on a spare leaf, and
+  maps the hybrid's stacked superblocks and its tail.
+* ``serve.main`` runs on the CPU for the ten architectures and wants a
   GPU by default.
 """
 from __future__ import annotations
@@ -38,9 +39,8 @@ from repro_torch.models import init_caches, init_model, make_train_step
 torch.set_num_threads(1)
 
 PORTED = ("smollm-135m", "granite-3-8b", "codeqwen1.5-7b", "minicpm3-4b",
-          "whisper-large-v3", "internvl2-76b")
-UNPORTED = ("falcon-mamba-7b", "recurrentgemma-2b", "deepseek-v2-236b",
-            "phi3.5-moe-42b-a6.6b")
+          "whisper-large-v3", "internvl2-76b", "falcon-mamba-7b",
+          "recurrentgemma-2b", "deepseek-v2-236b", "phi3.5-moe-42b-a6.6b")
 # the std of a standard normal truncated to ±2
 TRUNC_STD = 0.8796256610342398
 
@@ -52,7 +52,7 @@ def _unstacked_shapes(tree, prefix=()) -> dict[str, tuple]:
         path = prefix + (k,)
         if isinstance(v, dict):
             out.update(_unstacked_shapes(v, path))
-        elif path[0] in ("layers", "enc_layers"):
+        elif path[0] in ("layers", "enc_layers", "superblocks"):
             for i in range(v.shape[0]):
                 out[".".join((path[0], str(i)) + path[1:])] = tuple(
                     v.shape[1:])
@@ -103,21 +103,34 @@ def test_full_width_param_shapes_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "minicpm3-4b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "falcon-mamba-7b",
+                                  "recurrentgemma-2b", "deepseek-v2-236b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_init_model_spread_matches_reference_formula(arch):
     """Each matrix: mean ~0 and std = TRUNC_STD / sqrt(shape[-2]) within
-    6 standard errors, all within ±2 of its scale; enc_embed 0.02 N(0, 1);
-    norm scales ones."""
+    6 standard errors, all within ±2 of its scale; enc_embed and the
+    experts' wi and wo 0.02 N(0, 1), conv_w 0.1 N(0, 1); A_log
+    log(1 + arange(n)) on every row; lam 0.65; norm scales and D ones."""
     cfg = configs.get_config(arch, smoke=True)
     model = init_model(torch.Generator().manual_seed(3), cfg, device="cpu")
     for name, p in model.named_parameters():
         w = p.detach().double()
+        leaf = name.split(".")[-1]
+        if leaf == "A_log":
+            want = torch.log1p(torch.arange(p.shape[-1], dtype=torch.float64))
+            assert torch.equal(p, want.float().expand_as(p)), name
+            continue
+        if leaf == "lam":
+            assert torch.equal(p, torch.full_like(p, 0.65)), name
+            continue
         if p.dim() == 1:
             assert torch.equal(p, torch.ones_like(p)), name
             continue
         n = w.numel()
-        if name == "enc_embed":
+        if name == "enc_embed" or name.endswith(("moe.wi", "moe.wo")):
             sd = 0.02
+        elif leaf == "conv_w":
+            sd = 0.1
         else:
             scale = 1.0 / max(1.0, p.shape[-2]) ** 0.5
             sd = TRUNC_STD * scale
@@ -136,16 +149,6 @@ def test_init_model_is_deterministic_in_its_seed():
         assert torch.equal(pa, pb), name
         if pa.dim() > 1:
             assert not torch.equal(pa, pc), name
-
-
-@pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_are_refused_by_item(arch, smoke):
-    cfg = configs.get_config(arch, smoke)
-    with pytest.raises(NotImplementedError, match="11a-2"):
-        init_model(0, cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="11a-2"):
-        init_caches(cfg, 2, 8, "cpu")
 
 
 def test_make_train_step_is_refused_by_item():
@@ -190,6 +193,48 @@ def test_params_from_reference_raises_on_missing_and_spare_leaves(arch):
     bad = {**params, "final_ln": np.ones(cfg.d_model + 1, np.float32)}
     with pytest.raises(ValueError, match="final_ln"):
         params_from_reference(bad, cfg, "cpu")
+
+
+def test_params_from_reference_maps_superblocks_and_tail():
+    """The hybrid: superblocks/b{i}/... stacked over the superblocks goes
+    to superblocks.{j}.b{i}...; tail/t{i}/... is not stacked."""
+    cfg = configs.get_config("recurrentgemma-2b", smoke=True)
+    params = _ref_params_np("recurrentgemma-2b")
+    model = params_from_reference(params, cfg, "cpu")
+    sb = params["superblocks"]
+    assert len(model.superblocks) == sb["b0"]["rec"]["w_a"].shape[0] == 1
+    np.testing.assert_array_equal(model.superblocks[0]["b0"].rec.w_a.numpy(),
+                                  sb["b0"]["rec"]["w_a"][0])
+    np.testing.assert_array_equal(model.superblocks[0]["b2"].attn.wq.numpy(),
+                                  sb["b2"]["attn"]["wq"][0])
+    np.testing.assert_array_equal(model.tail["t1"].rec.lam.numpy(),
+                                  params["tail"]["t1"]["rec"]["lam"])
+    assert [b.kind for b in model.decoder_blocks()] == \
+        ["rglru", "rglru", "attn", "rglru", "rglru"]
+    assert [b.window for b in model.decoder_blocks()] == [0, 0, 8, 0, 0]
+    spare = {**params, "tail": {**params["tail"],
+                                "t2": params["tail"]["t1"]}}
+    with pytest.raises(ValueError, match="has no parameter"):
+        params_from_reference(spare, cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_init_caches_take_one_cache_a_layer(arch):
+    """init_caches: one cache a decoder layer in execution order, each
+    with a 0-d int32 length, of the reference's kinds and shapes."""
+    cfg = configs.get_config(arch, smoke=True)
+    caches = init_caches(cfg, 2, 16, "cpu")
+    assert len(caches) == cfg.n_layers
+    ref = ref_tf.init_caches(ref_configs.get_config(arch, smoke=True), 2, 16)
+    if cfg.family == "hybrid":
+        sup, tail = ref
+        want = [jax.tree.map(lambda a: a[0], c) for c in sup] + list(tail)
+    else:
+        want = [jax.tree.map(lambda a: a[0], ref)] * cfg.n_layers
+    for got, w in zip(caches, want):
+        assert type(got).__name__ == type(w).__name__
+        assert [tuple(t.shape) for t in got] == [tuple(a.shape) for a in w]
+        assert got.length.dtype == torch.int32 and int(got.length) == 0
 
 
 @pytest.mark.parametrize("arch", PORTED)
