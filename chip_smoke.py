@@ -11,7 +11,7 @@ Phases, each of which raises on failure (exit code non-zero):
    shapes (gibbs_flip: the sweep's N=32768 and the held-out eval's
    N=1024 from Z=0, beside one read of X and the product X A^T alone;
    collapsed_scan: one tail sub-iteration, N_p rows, and 1024 rows at
-   the grown K_tail 16 and 32; with Gibbs births, 1024 rows at K=32, 64,
+   the grown K_tail 16 and 32; with Gibbs births, 512 rows at K=32, 64,
    16, and 4 with births common; each plain scan runs once, timed, the
    tail sub-iteration's on the card and the others, here and in phases
    9, 10, 12 and 14, on the host, where the row loop is faster;
@@ -25,7 +25,7 @@ Phases, each of which raises on failure (exit code non-zero):
 5. Full width through MCMCDriver: a planted linear-Gaussian IBP matrix,
    N=32768, D=1024, K_max=64, P=8, L=5, 3 iterations, under the default
    tail (collapsed_backend "fast": the rss flip with the carried G).
-6. (Checked last, after phase 16.) The kernel that carries each TPU
+6. (Checked last, after phase 17.) The kernel that carries each TPU
    kernel on the main path (CARRIED_BY: collapsed_row's recurrence runs
    inside collapsed_scan) had its launch counter rise in phases 4, 5,
    11, 12, 13 and 14 (gibbs_flip in 11 also through the naive scorer;
@@ -47,25 +47,25 @@ Phases, each of which raises on failure (exit code non-zero):
 9. The serial collapsed sampler (collapsed_sweep, Gibbs births) at full
    width, in its full-width mode (backend "pallas", the mean-form flip,
    k_live_buckets "off": one scan launch a sweep): phase 5's data,
-   K_max=32 from K_init=4, one warm and 3 timed
+   K_max=32 from K_init=4, one warm and 2 timed
    sweeps, each launching feature_stats and collapsed_scan once and no
    other kernel; the scan's carried ZᵀZ and m exact against its Z; each
    sweep's sigma moves replayed from its keys (proposal, difference,
    decision) and equal to the sampler's; the sigma_x MH's collapsed
    log-likelihoods in float32 and float64; feature_stats on the last
-   sweep's entry Z, and the scan over the first 1024 rows of that sweep's
+   sweep's entry Z, and the scan over the first 512 rows of that sweep's
    own inputs, against their plain versions (the prefix's Z equal to the
    sweep's own rows); then one sweep at K_max=64, feature_stats held on
    its entry and returned Z.
 10. The packed collapsed carry: collapsed_scan held against its plain
-   version on 1024 rows of phase 5's data in the rss flavor with the
+   version on 512 rows of phase 5's data in the rss flavor with the
    carried G at the tail's K=8 (MH births), with Gibbs births at buckets
    16 and 32 of K_can=64 in both flavors, and on a forced overflow
    (ovf_row equal to the plain scan's); collapsed_sweep with
    k_live_buckets "on" (the default) under backends "fast" and "pallas"
-   at phase 9's K_max=64 from the same start: one warm sweep (its
-   seg_log), 3 timed, one profiled, and "off" against "on" from the same
-   final state; "off" against "on" from a state whose K+ stays below
+   at phase 9's K_max=64 from the same start, on the first 8192 of
+   phase 5's rows: one warm sweep (its seg_log), one timed, one
+   profiled, and "off" against "on" from the same final state; "off" against "on" from a state whose K+ stays below
    K_max (20 planted columns, sigma_x at the data's noise); phase 5's
    iteration and tail re-timed under each collapsed backend. The
    overflow exit is timed on fresh copies of its case, its bound counted
@@ -83,19 +83,19 @@ Phases, each of which raises on failure (exit code non-zero):
    warm-up, launches and device busy share of a 256-row dispatch, peak
    memory); predictive_loglik_naive against predictive_loglik on 256
    rows, and gibbs_flip at the naive scorer's shape against its plain
-   version; the mcmc CLI with --harvest-every and serve_ibp --smoke as
-   subprocesses.
+   version; the mcmc CLI with --harvest-every and serve_ibp --smoke
+   through their main functions in this process.
 12. C independent chains on one card (the multichain driver) at phase
    5's widths, C=4: 3 iterations (s/iteration beside phase 5's), with
    collapsed_scan launched L times an iteration, once a sub-iteration for
    all C tails, not C x L; resumed to iteration 19 for R-hat, ESS and the
    per-chain lists of the eval record; one iteration with stale_sync=1
    (2 L scan launches). The chained collapsed_scan (one launch of C
-   blocks) in the rss flavor on 1024 rows of C planted cases at K=8
+   blocks) in the rss flavor on 512 rows of C planted cases at K=8
    (ring) and K=32 (global arena): each chain against the plain scan
    (0 decisions differ, counts equal) and bitwise equal to a single-chain
    launch from its inputs; then timed at C = 1, 4, 16 on N_p rows at K=8
-   and at C = 1, 4 on 1024 rows at K=32, each beside C times the
+   and at C = 1, 4 on 512 rows at K=32, each beside C times the
    single-chain bound.
 13. The data-parallel layout (data="shardmap"): phase 5's P=8 ranks,
    processes of repro_torch.parallel.spawn sharing cuda:0 over gloo
@@ -118,8 +118,11 @@ Phases, each of which raises on failure (exit code non-zero):
    shape (N_p=4096 rows, K=64, D=1024) against their plain versions,
    timed as in phase 3. s/iteration beside phase 5's, the collectives'
    host time. One iteration in an NCCL world of one rank, bitwise equal
-   to the vmap layout at P=1; the CLI under torch.distributed.run on 4
-   ranks of cuda:0 (fused), on Cambridge data.
+   to the vmap layout at P=1; the CLI under torch.distributed.run on 2
+   ranks of cuda:0 (fused), on Cambridge data. One spawn of 8 ranks runs
+   phase 13's rank work and then phase 14's, and one process both
+   worlds of one rank: on the card's host each process's start (its
+   imports and CUDA context) costs about 10 s, one after another.
 14. The chains x data mesh (chains="mesh"): C=2 chains x P=4 shards on 8
    ranks sharing cuda:0 over gloo, from phase 5's final state (N_p=8192;
    chain c keyed by fold_in(key, c), p′ = c): 3 iterations under the
@@ -134,8 +137,8 @@ Phases, each of which raises on failure (exit code non-zero):
    each chain's SSE identity. gibbs_flip, feature_stats and gaussian_sse
    at a rank's N_p=8192 rows against their plain versions, and the
    unchained collapsed_scan on a planted p′ tail of 8192 rows at K=8,
-   in the tail's default rss flavor, against the plain scan, each timed
-   beside its bound. The device time
+   in the tail's default rss flavor, against the plain scan on its first
+   2048 rows, each timed beside its bound. The device time
    of each p′ rank's tails (CUDA events), s/iteration beside phases 5
    and 13, and whether an
    MPS daemon serves the card (without it the two chains' tails are
@@ -183,11 +186,34 @@ Phases, each of which raises on failure (exit code non-zero):
    superblock, 2112 decode steps through its 2048 slots against the
    forward. phi3.5-moe-42b-a6.6b (2 layers) and deepseek-v2-236b (1
    layer, MLA, 160 routed experts top-6 and 2 shared) at full width: card
-   against CPU (logits, aux), decode on the card against decode on the
-   CPU (tokens equal outside near ties), decode against the forward at a
+   against CPU (logits, aux), 2 x 4 decode steps on the card against the
+   same on the CPU (tokens equal outside near ties), decode against the
+   forward at a
    capacity that drops nothing (held) and at the config's 1.25 (reported:
    decode's T = B gives C = 1, so routed slots drop), a bf16 serve of 8
    tokens.
+
+17. LM training (repro_torch.optim, models.make_train_step,
+   launch/train.py; no kernel of their own, and none of the five is
+   launched): (a) the training CLI at smollm-135m's full width and depth
+   and its defaults (bf16 on float32 masters, remat, B=8, S=256), 30
+   steps with a checkpoint every 10, in this process: the median step
+   wall over steps 5-30 (host clock ended by a device synchronise),
+   tokens/s, peak device memory, the first and last loss, then one more
+   step profiled (kernels, device time, busy share); a second process
+   resumed from the step-20 checkpoint (losses 21-30 within 1e-3
+   relative of the first run's); 3 steps without remat (peak device
+   memory). (b) float32 at full
+   width (30 layers, B=2, S=64): the loss and every reference leaf's
+   gradient card against CPU (1e-5 relative; 1e-4 of the leaf's max
+   |g|), AdamW's update card against CPU on the CPU's gradients. (c)
+   falcon-mamba-7b (1 layer; micro_batches 2), recurrentgemma-2b (one
+   superblock), phi3.5-moe-42b-a6.6b (1 layer; int8-compressed
+   gradients), minicpm3-4b (MLA, 1 layer) and whisper-large-v3 (1 + 1
+   layers; micro_batches 8) at full width: the float32 holds of (b) on
+   2 x 32 tokens, then two bf16 train steps each on fresh batches,
+   timed. deepseek-v2-236b's one layer holds 90 GB of training state
+   and is left out.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
@@ -246,18 +272,24 @@ GROWTH = dict(K_max=128, K_tails=(8, 16, 32), k_tail_grow=2, iters=6)
 # phase 8: the serial uncollapsed baseline on phase 5's data
 BASELINE = dict(K=64, steps=5)
 # phase 9: the serial collapsed sampler on phase 5's data, then one sweep
-# at benchmarks/collapsed.py's top K
-COLLAPSED = dict(K_max=32, K_init=4, alpha=3.0, warm=1, sweeps=3,
-                 K_max_wide=64, prefix_rows=1024)
+# at benchmarks/collapsed.py's top K; the scan held on the first
+# prefix_rows rows of a sweep, and phase 3's Gibbs-birth scans on
+# hold_rows rows (both cut from 1024, and the timed sweeps from 3, to keep
+# the run inside its time limit)
+COLLAPSED = dict(K_max=32, K_init=4, alpha=3.0, warm=1, sweeps=2,
+                 K_max_wide=64, prefix_rows=512, hold_rows=512)
 # phase 9 measures the full-width carry with the mean-form flip, one
 # launch a sweep; phase 10 the packed carry, the defaults
 OFF = dict(backend="pallas", k_live_buckets="off")
 # phase 10: the packed collapsed carry on phase 5's data: the scan held on
-# 1024 rows (the tail's K=8, buckets 16 and 32 of K_can=64, an overflow),
-# then the packed sweeps at phase 9's K_max=64 from K_init=4, and phase
-# 5's iteration and tail under each collapsed backend
-PACKED = dict(rows=1024, K_can=64, tail_K=8, buckets=(16, 32), K_max=64,
-              K_init=4, alpha=3.0, warm=1, sweeps=3, iters=3)
+# `rows` rows (the tail's K=8, buckets 16 and 32 of K_can=64, an overflow),
+# then the packed sweeps at phase 9's K_max=64 from K_init=4 on the first
+# sweep_rows rows, and phase 5's iteration and tail under each collapsed
+# backend. The holds' rows, the sweeps' rows and their count are cut to
+# keep the run inside its time limit (from 1024, all 32768 and 2 timed)
+PACKED = dict(rows=512, K_can=64, tail_K=8, buckets=(16, 32), K_max=64,
+              K_init=4, alpha=3.0, warm=1, sweeps=1, sweep_rows=8192,
+              iters=3)
 # phase 11: posterior-predictive serving at phase 5's widths: a harvest of
 # 20 iterations from iteration 5 (S=16); the batched scorer held on
 # hold_rows held-out rows, card against CPU; encode against the 2^12
@@ -276,8 +308,9 @@ SERVING = dict(iters=20, harvest_every=1, harvest_burn=0.2, hold_rows=256,
 # pass; the chained collapsed_scan held on hold_rows rows of C planted
 # cases at K 8 (each chain's carry in its block's shared memory) and 32
 # (each in its own global arena), and timed on the tail's N_p rows at each
-# C of time_C (K=8) and on hold_rows rows at each of time_C_global (K=32)
-MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=1024, hold_K=(8, 32),
+# C of time_C (K=8) and on hold_rows rows at each of time_C_global (K=32);
+# hold_rows cut from 1024 to keep the run inside its time limit
+MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=512, hold_K=(8, 32),
              time_C=(1, 4, 16), time_C_global=(1, 4), reps=10)
 # phase 13: the data-parallel layout: phase 5's P ranks on cuda:0 over gloo
 # (NCCL refuses two ranks on one card), iters under each sync from phase
@@ -285,9 +318,10 @@ MULTI = dict(C=4, iters=3, resume_iters=19, hold_rows=1024, hold_K=(8, 32),
 # layouts' sweeps must sit within `boundary` of |logit - u|, and A within
 # A_rtol of max |A|, sigma_x within sx_rtol, the fused sync's SSE identity
 # within sse_rtol of gaussian_sse; the CLI on cli_ranks processes of
-# torch.distributed.run
+# torch.distributed.run (cut from 4: on the card's host each process's
+# start costs about 10 s)
 SHARDMAP = dict(iters=3, boundary=1e-4, A_rtol=1e-4, sx_rtol=1e-5,
-                sse_rtol=1e-5, cli_ranks=4, cli_N=1000, cli_iters=20)
+                sse_rtol=1e-5, cli_ranks=2, cli_N=1000, cli_iters=20)
 # phase 14: the chains x data mesh: C chains x P shards on C·P ranks of
 # cuda:0 over gloo from phase 5's final state (chain c keyed by
 # fold_in(key, c), p′ = c), iters under each sync after one untimed, then
@@ -299,9 +333,12 @@ SHARDMAP = dict(iters=3, boundary=1e-4, A_rtol=1e-4, sx_rtol=1e-5,
 # on phase 11's bank: score_rows held-out rows, the median of score_reps
 # timed calls, within score_tol of each block's one-process score; the
 # mesh driver with one chain and one shard in an NCCL world of one rank,
-# one_iters iterations on one_rows of phase 5's rows
+# one_iters iterations on one_rows of phase 5's rows; a p′ rank's scan
+# held against the plain scan on its first scan_hold_rows rows (cut from
+# all N_p to keep the run inside its time limit) and timed on all N_p
 MESH = dict(C=2, P=4, iters=3, vmap_iters=2, score_rows=256, score_reps=5,
-            score_key=97, score_tol=1e-5, one_rows=8192, one_iters=2)
+            score_key=97, score_tol=1e-5, one_rows=8192, one_iters=2,
+            scan_hold_rows=2048)
 # phase 15: the LM substrate on the card: smollm-135m's serving CLI at its
 # full width and defaults (bf16, serve_B sequences, a serve_prompt-token
 # prompt, serve_new new tokens); at full width in float32, hold_B
@@ -327,18 +364,59 @@ LM = dict(arch="smollm-135m", serve_B=4, serve_prompt=32, serve_new=16,
 # superblock, local attention included); the hybrid's ring cache wrapped:
 # one superblock, ring_B sequences of local_window + ring_extra
 # teacher-forced decode steps against the forward; the MoE models at full
-# width cut to moe_layers: card against CPU (logits, aux), decode on the
-# card against decode on the CPU (greedy tokens), decode against the
+# width cut to moe_layers: card against CPU (logits, aux), cpu_decode_steps
+# decode steps on the card against the same on the CPU (greedy tokens; cut
+# from phase 15's hold_steps to keep the run inside its limit), decode
+# against the
 # forward at a capacity that drops nothing (held) and at the config's
 # (reported, with the routed slots dropped a step), a bf16 serve of
-# cut_new tokens
+# cut_new tokens; the profiled bf16 step is the median of profile_steps
+# (cut from phase 15's 8: the profiler's events of a 3,200-kernel step
+# take seconds of host time to read)
 MIXERS = dict(ssm="falcon-mamba-7b", hybrid="recurrentgemma-2b",
               moe_layers={"phi3.5-moe-42b-a6.6b": 2, "deepseek-v2-236b": 1},
-              ring_B=1, ring_extra=64)
+              ring_B=1, ring_extra=64, cpu_decode_steps=4, profile_steps=4)
+# phase 17: LM training: smollm-135m's training CLI at full width and depth
+# and its defaults (bf16, remat, B=batch, S=seq) for cli_steps steps, a
+# checkpoint every ckpt_every, then a second process resumed from the
+# step-resume_from checkpoint (its losses within resume_rtol of the first
+# run's: the embedding's and the MoE combine's index backward add with
+# atomics on the card, so a repeat is not bitwise); the first run is in
+# this process, each step timed (the median from time_from) and one more
+# profiled; remat_off_steps steps without remat (peak memory); float32 at
+# full width, hold_B x hold_S tokens: the loss (loss_rtol) and every
+# reference leaf's gradient (grad_rel of its max |g|) card against CPU,
+# AdamW's update on the CPU's gradients (adam_rel of each leaf's max); the
+# models of `cut` at full width cut to that many layers (recurrentgemma:
+# one superblock; deepseek-v2-236b's one layer, 5.02 B parameters, is 90
+# GB of training state: it does not fit), the same float32 holds on
+# hold_B x cut_S tokens, then
+# bf16_steps bf16 train steps at their micro_batches (B = max(hold_B,
+# micro_batches), S = bf16_S), the archs of int8 with int8-compressed
+# gradients
+TRAIN = dict(arch="smollm-135m", cli_steps=30, ckpt_every=10, resume_from=20,
+             resume_rtol=1e-3, batch=8, seq=256, time_from=5,
+             remat_off_steps=3, hold_B=2, hold_S=64, loss_rtol=1e-5,
+             grad_rel=1e-4, adam_rel=1e-4,
+             cut={"falcon-mamba-7b": 1, "recurrentgemma-2b": 3,
+                  "phi3.5-moe-42b-a6.6b": 1, "minicpm3-4b": 1,
+                  "whisper-large-v3": 1}, cut_S=32,
+             int8=("phi3.5-moe-42b-a6.6b",), bf16_steps=2, bf16_S=64)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The run's timeline on standard error: seconds since the script
+    started, then what just ended."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {what[:110]}",
+          file=sys.stderr, flush=True)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    stamp(msg)
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -800,12 +878,17 @@ def hold_scan(dev, case: dict, sx: float, sa: float, N: float, tag: str,
 
 def scan_variant(dev, n_rows: int, K: int, D: int, seed: int,
                  alpha: float | None = None, plain_dev="cpu",
-                 flavor: str = "pallas") -> dict:
+                 flavor: str = "pallas", hold_rows: int | None = None
+                 ) -> dict:
     """``hold_scan`` on a planted case (the plain scan on ``plain_dev``,
     both scans in the flip ``flavor``): one tail sub-iteration of
     ``n_rows`` rows, K tail columns, D wide, with MH births; or, with
     ``alpha``, ``n_rows`` rows of the serial sweep's scan with Gibbs
-    births; then the kernel's times beside its bound."""
+    births; then the kernel's times beside its bound. With ``hold_rows``
+    the hold scans only the first hold_rows rows (the entry state still
+    counts all n_rows, as a prefix of the full scan does) and the timing
+    all n_rows."""
+    import torch
     from _torch_cases import scan_case
 
     from repro_torch.kernels.collapsed_scan import collapsed_scan
@@ -816,19 +899,25 @@ def scan_variant(dev, n_rows: int, K: int, D: int, seed: int,
     case = scan_case(n_rows, K, D, seed=seed, lam=0.01, alpha=alpha)
     gibbs = alpha is not None
     tag = f"collapsed_scan K={K}{' gibbs' if gibbs else ''}"
-    rep, run, tensors = hold_scan(dev, case, sx, sa, N, tag,
-                                  plain_dev=plain_dev, flavor=flavor)
+    per_row = ("Z", "X", "u_logit", "j_prop", "log_u_acc", "gumbel")
+    held_case = case if hold_rows is None else {
+        k: v[:hold_rows] if k in per_row else v for k, v in case.items()}
+    rep, run, _ = hold_scan(dev, held_case, sx, sa, N, tag,
+                            plain_dev=plain_dev, flavor=flavor)
     del rep["Z"]
     b, by = scan_bound_ms(n_rows, K, D, rep["k_live"], gibbs,
                           fast=flavor == "fast")
-    t = tensors()  # the kernel is timed scanning on from its own output
+    # the kernel is timed scanning on from its own output
+    t = {k: torch.tensor(v, device=dev) for k, v in case.items()}
     out = dict(
         shape=f"rows={n_rows} K={K} D={D}" + (
             f" gibbs alpha={alpha:g}" if gibbs else ""), **rep,
+        held_rows=n_rows if hold_rows is None else hold_rows,
         free_left=K - rep["k_live"],
         **timed(lambda: run(collapsed_scan, t), ("collapsed_scan_kernel",)),
         bound_ms=b, bound_by=by)
     out["ms_per_row"] = out["ms"] / n_rows
+    stamp(f"[3] collapsed_scan {out['shape']} held and timed")
     return out
 
 
@@ -837,7 +926,7 @@ def check_collapsed_scan(dev) -> dict:
     D=1024), and at the grown tails of phase 7 (K_tail 16, whose carry
     still fits one block's shared memory, and 32, whose carry lives in
     global memory) on 1024 rows; then the serial sweep's scan with Gibbs
-    births on 1024 rows at its K_max=32 and at phase 9's wide K_max=64
+    births on COLLAPSED["hold_rows"] rows at its K_max=32 and at phase 9's wide K_max=64
     (global memory), at K=16 (shared memory, the Gumbel values through
     the ring), and at K=4 with alpha = N/4, where births are common and
     fill every free column, so that the capacity mask (j <= the free
@@ -849,7 +938,7 @@ def check_collapsed_scan(dev) -> dict:
     main["variants"] = [scan_variant(dev, 1024, k, D, 31 + k)
                         for k in GROWTH["K_tails"][1:]]
     main["variants"] += [
-        scan_variant(dev, 1024, k, D, 91 + k, alpha=a)
+        scan_variant(dev, COLLAPSED["hold_rows"], k, D, 91 + k, alpha=a)
         for k, a in ((COLLAPSED["K_max"], COLLAPSED["alpha"]),
                      (COLLAPSED["K_max_wide"], COLLAPSED["alpha"]),
                      (16, COLLAPSED["alpha"]), (4, FULL["N"] / 4))]
@@ -1555,12 +1644,13 @@ def packed_variant(dev, data: tuple, K_can: int, modeled: int,
     out.update(**timed(fn, ("collapsed_scan_kernel",)), bound_ms=b,
                bound_by=by, rows_scanned=rows)
     out["ms_per_row"] = out["ms"] / rows
+    stamp(f"[10] collapsed_scan {out['shape']} held and timed")
     return out
 
 
 def check_packed_scan(dev, data: tuple) -> list[dict]:
     """Phase 10's holds of the scan against its plain version, each on
-    1024 rows of phase 5's data: the rss flip with the carried G at the
+    PACKED["rows"] rows of phase 5's data: the rss flip with the carried G at the
     tail's K=8 with MH births (2 of 3 modeled features unexplained);
     Gibbs births at buckets 16 (8 modeled features, 9 live) and 32 (20
     modeled, 21 live) of K_can=64, in both flavors; and a forced overflow
@@ -1608,7 +1698,7 @@ def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
 
     c = PACKED
     holds = check_packed_scan(dev, data)
-    X = torch.from_numpy(data[0]).to(dev)
+    X = torch.from_numpy(data[0][:c["sweep_rows"]]).to(dev)
     N, D = X.shape
     hyp = IBPHypers()
     buckets = ibm.live_buckets(c["K_max"])
@@ -1661,6 +1751,7 @@ def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
         _, on = one(state, backend, "on")
         sec = [r["seconds"] for r in timed_]
         med = st_.median(sec)
+        stamp(f"[10] {backend}: the packed sweeps")
         sweeps[backend] = dict(
             warm=warm, timed=timed_, median_seconds_per_sweep=med,
             ms_per_row=med / N * 1e3, profile=profile,
@@ -1680,7 +1771,7 @@ def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
     at = np.sort(rng.choice(c["K_max"], size=20, replace=False))
     Zs = torch.zeros((N, c["K_max"]), device=dev)
     Zs[:, torch.from_numpy(at).to(dev)] = torch.from_numpy(
-        data[3][:, :20]).to(dev)
+        data[3][:N, :20]).to(dev)
     settled0 = dataclasses.replace(
         init_state(prng.key(12), N, D, K_max=c["K_max"], K_init=0,
                    alpha=c["alpha"], sigma_x=FULL["sigma_n"], device=dev),
@@ -1694,6 +1785,7 @@ def run_packed(dev, data: tuple, phase5: tuple) -> tuple[dict, dict]:
             on_seg_log=on["seg_log"], K_plus_in=on["K_plus_in"],
             K_plus_off=off["K_plus"], K_plus_on=on["K_plus"],
             decisions_differing=int((off_s.Z != on_s.Z).sum()))
+        stamp(f"[10] {backend}: off and on from K+ 20")
 
     # phase 5's iteration and tail under each collapsed backend, from its
     # final state (the defaults: "fast" and k_live_buckets "on")
@@ -2076,31 +2168,36 @@ def planted_bank(data: tuple, dev):
 
 
 def run_cli_serving(tmp: Path) -> dict:
-    """The two CLIs as subprocesses: repro_torch.launch.mcmc harvests a
-    bank on Cambridge data, then repro_torch.launch.serve_ibp --smoke
-    serves it with --op loglik (both on the card, their default)."""
-    import os
+    """The two CLIs' ``main`` in this process, as ``python -m`` runs them
+    (a process of its own would add about 10 s of start on the card's
+    host): repro_torch.launch.mcmc harvests a bank on Cambridge data,
+    then repro_torch.launch.serve_ibp --smoke serves it with --op loglik
+    (both on the card, their default)."""
+    import io
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    from repro_torch.launch import mcmc, serve_ibp
+
     bank = tmp / "cli11" / "bank.npz"
-    cmds = [
-        [sys.executable, "-m", "repro_torch.launch.mcmc", "--N", "1000",
-         "--P", "5", "--K-max", "32", "--iters", "20", "--eval-every", "10",
-         "--harvest-every", "2", "--harvest-burn", "0.5",
-         "--ckpt-dir", str(tmp / "cli11"), "--bank-path", str(bank),
-         "--out", str(tmp / "cli11" / "h.json")],
-        [sys.executable, "-m", "repro_torch.launch.serve_ibp", "--bank",
-         str(bank), "--op", "loglik", "--smoke"]]
+    calls = [
+        (mcmc.main, ["--N", "1000", "--P", "5", "--K-max", "32", "--iters",
+                     "20", "--eval-every", "10", "--harvest-every", "2",
+                     "--harvest-burn", "0.5", "--ckpt-dir",
+                     str(tmp / "cli11"), "--bank-path", str(bank), "--out",
+                     str(tmp / "cli11" / "h.json")]),
+        (serve_ibp.main, ["--bank", str(bank), "--op", "loglik",
+                          "--smoke"])]
     outs = []
     t0 = time.perf_counter()
-    for cmd, want in zip(cmds, ("sample bank (5 samples) -> ", "smoke OK")):
-        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                           cwd=str(ROOT), timeout=300)
-        if r.returncode != 0 or want not in r.stdout:
-            raise AssertionError(f"{' '.join(cmd[2:4])}: rc {r.returncode}, "
-                                 f"no '{want}' line:\n{r.stdout[-2000:]}\n"
-                                 f"{r.stderr[-2000:]}")
-        outs.append([ln for ln in r.stdout.splitlines()
+    for (fn, argv), want in zip(calls, ("sample bank (5 samples) -> ",
+                                        "smoke OK")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        out = buf.getvalue()
+        if want not in out:
+            raise AssertionError(f"{fn.__module__}: no '{want}' line:\n"
+                                 f"{out[-2000:]}")
+        outs.append([ln for ln in out.splitlines()
                      if want in ln or ln.startswith(("op=", "bank:"))])
     return dict(lines=outs, seconds=time.perf_counter() - t0)
 
@@ -2387,6 +2484,7 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
     from repro_torch.interop import from_reference
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
+    clock = dict(enter=time.time())
     w = parallel.world()
     X = np.load(x_path, mmap_mode="c")
     Zc = np.load(z_path)
@@ -2433,7 +2531,8 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
                              parallel.collective_seconds().values()),
                          tail_ms=sum(a.elapsed_time(b) for a, b in tails))
 
-    out = dict(rank=w.rank, backend=w.backend, device=str(w.device))
+    out = dict(rank=w.rank, backend=w.backend, device=str(w.device),
+               clock=clock)
 
     def all_reduce_ms(n: int, group) -> float:
         """One all-reduce of n floats over the data axis with the device
@@ -2462,9 +2561,11 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
             out["all_reduce_ms"] = {
                 n: all_reduce_ms(n, data)
                 for n in (K * K + K * X.shape[1] + K + Kt + 2, 1)}
+        clock.setdefault("built", time.time())
         if warm and sync == syncs[0]:
             s.step(gs, ss)
             wait()
+        clock.setdefault("warm", time.time())
         steps = []
         for i in range(iters):
             pp = int(gs.p_prime)
@@ -2506,7 +2607,67 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
             times.append(time.perf_counter() - t0)
         out["score"] = dict(scores=got.cpu().numpy(),
                             seconds=statistics.median(times))
+    thy._chain_tails = chain_tails
+    clock["done"] = time.time()
     return out
+
+
+def rank_jobs(jobs: list) -> list:
+    """On one rank of ``parallel.spawn``: each (function, arguments) of
+    ``jobs`` in turn, in the one process group, and their results in
+    order. Phases 13 and 14 share their 8 ranks, and their worlds of one
+    rank share a process: on the card's host a rank's start (its imports
+    and its CUDA context) takes about 10 s, one rank after another."""
+    return [fn(*args) for fn, args in jobs]
+
+
+def spawn_clock(ranks: list, t0: float, tag: str,
+                returned: float | None = None) -> dict:
+    """Where a spawn's seconds went (wall clock from ``t0``, just before
+    the spawn): the slowest rank's entry into ``rank_iterations`` (the
+    first job's: the process start, its imports and the group's set-up),
+    its sampler built, its untimed iteration done, its work done; and the
+    spawn's return (``returned``, default now)."""
+    out = {k: round(max(r["clock"][k] for r in ranks) - t0, 2)
+           for k in ("enter", "built", "warm", "done")}
+    out["returned"] = round((time.time() if returned is None else returned)
+                            - t0, 2)
+    stamp(f"{tag} spawn clock {out}")
+    return out
+
+
+def spawn_layouts(tmp: Path, data: tuple, phase5: tuple, bank) -> dict:
+    """Phases 13 and 14's rank work in one spawn: phase 5's P ranks on
+    cuda:0 (gloo) run phase 13's shardmap job, then phase 14's C x P mesh
+    job (the same world: C·P = P); then one rank in an NCCL world of one
+    runs phase 13's and phase 14's jobs at P=1. Returns each phase's
+    ranks, its world of one's result and the spawns' clocks."""
+    import torch
+
+    from repro_torch import parallel
+
+    if MESH["C"] * MESH["P"] != FULL["P"]:
+        raise AssertionError("phases 13 and 14 share one world of ranks")
+    jobs = [(rank_iterations, shardmap_job(tmp, data, phase5)),
+            (rank_iterations, mesh_job(tmp, data, phase5, bank))]
+    ones = [(rank_iterations, shardmap_one_job(tmp, data, phase5)),
+            (drive_mesh, mesh_one_job(tmp, data))]
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    ranks = parallel.spawn(rank_jobs, FULL["P"], jobs, device="cuda:0",
+                           timeout_s=900)
+    t_spawn, w1 = time.perf_counter() - t0, time.time()
+    t1 = time.perf_counter()
+    one = parallel.spawn(rank_jobs, 1, ones, device="cuda:0",
+                         timeout_s=600)[0]
+    t_one = time.perf_counter() - t1
+    stamp(f"[13-14] the world of one rank: {t_one:.1f} s")
+    return dict(
+        ranks13=[r[0] for r in ranks], ranks14=[r[1] for r in ranks],
+        one13=one[0], one14=one[1], spawn_seconds=t_spawn,
+        one_spawn_seconds=t_one,
+        clock13=spawn_clock([r[0] for r in ranks], w0, "[13]", w1),
+        clock14=spawn_clock([r[1] for r in ranks], w0, "[14]", w1))
 
 
 def shard_uniforms(gs, p: int, shape: tuple, dev):
@@ -2758,38 +2919,60 @@ def run_cli_shardmap(tmp: Path, device: str) -> dict:
     return dict(seconds=secs, lines=lines)
 
 
-def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
-                 ) -> tuple[dict, dict]:
-    """Phase 13: phase 5's final state on P ranks of cuda:0, which they
-    share (so over gloo), against the vmap layout's first iteration from
-    it and the master's draws replayed on the ranks' Z; the kernels at a
-    rank's shape against their plain versions; the NCCL world of
-    one rank against the vmap layout at P=1; the CLI under
-    torch.distributed.run. Returns (results, launches of every rank in
-    the driven iterations, summed)."""
-    import numpy as np
-    import torch
+def shardmap_kw() -> dict:
+    f = FULL
+    return dict(P=f["P"], K_max=f["K_max"], K_tail=f["K_tail"], L=f["L"],
+                data="shardmap")
 
-    from repro_torch import parallel
+
+def shardmap_job(tmp: Path, data: tuple, phase5: tuple) -> tuple:
+    """Phase 13's ``rank_iterations`` arguments: phase 5's rows and
+    final Z (written under ``tmp``) and state, both syncs, a stale pass,
+    one untimed iteration first."""
+    import numpy as np
+
+    f = FULL
+    _, gs, ss = phase5
+    x_path, z_path = tmp / "shard_x.npy", tmp / "shard_z.npy"
+    np.save(x_path, np.ascontiguousarray(data[0][:f["N"]]))
+    np.save(z_path, ss.Z.cpu().numpy())
+    return (str(x_path), str(z_path), state_np(gs), shardmap_kw(),
+            ("staged", "fused"), SHARDMAP["iters"], True, True)
+
+
+def shardmap_one_job(tmp: Path, data: tuple, phase5: tuple) -> tuple:
+    """The world of one rank's ``rank_iterations`` arguments: phase 13's
+    inputs at P=1 (all rows on the one shard), one staged iteration."""
+    import numpy as np
+
+    _, gs, _ = phase5
+    return (str(tmp / "shard_x.npy"), str(tmp / "shard_z.npy"),
+            dict(state_np(gs), p_prime=np.zeros((), np.int32)),
+            dict(shardmap_kw(), P=1), ("staged",), 1, False, False)
+
+
+def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev,
+                 spawned: dict) -> tuple[dict, dict]:
+    """Phase 13 (its ranks' work done by ``spawn_layouts``): phase 5's
+    final state on P ranks of cuda:0, which they share (so over gloo),
+    against the vmap layout's first iteration from it and the master's
+    draws replayed on the ranks' Z; the kernels at a rank's shape
+    against their plain versions; the NCCL world of one rank against the
+    vmap layout at P=1; the CLI under torch.distributed.run. Returns
+    (results, launches of every rank in the driven iterations,
+    summed)."""
+    import numpy as np
+
     from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
     from repro_torch.interop import from_reference
 
     f, sm = FULL, SHARDMAP
     sampler, gs, ss = phase5
     P, L = f["P"], f["L"]
-    kw = dict(P=P, K_max=f["K_max"], K_tail=f["K_tail"], L=L,
-              data="shardmap")
-    x_path, z_path = tmp / "shard_x.npy", tmp / "shard_z.npy"
-    np.save(x_path, np.ascontiguousarray(data[0][:f["N"]]))
-    np.save(z_path, ss.Z.cpu().numpy())
+    kw = shardmap_kw()
     gs_np = state_np(gs)
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    ranks = parallel.spawn(rank_iterations, P, str(x_path), str(z_path),
-                           gs_np, kw, ("staged", "fused"), sm["iters"], True,
-                           True, device="cuda:0", timeout_s=900)
-    t_spawn = time.perf_counter() - t0
+    ranks, t_spawn = spawned["ranks13"], spawned["spawn_seconds"]
+    clock = spawned["clock13"]
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"shardmap ranks on one card ran "
                              f"{[r['backend'] for r in ranks]}, not gloo")
@@ -2799,7 +2982,9 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
     Z_v, g_v = ss_v.Z.bool().cpu().numpy(), state_np(gs_v)
     sweep = sweep_blocks(sampler, gs, ss)
     res = dict(P=P, N=f["N"], D=f["D"], K_max=f["K_max"], L=L,
-               iters=sm["iters"], spawn_seconds=t_spawn, sweep=sweep)
+               iters=sm["iters"], spawn_seconds=t_spawn, spawn_clock=clock,
+               sweep=sweep)
+    stamp("[13] the vmap layout's first iteration and the sweep blocks")
     firsts = {}
     for sync in ("staged", "fused"):
         check_replicated(ranks, sync)
@@ -2838,7 +3023,9 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
         raise AssertionError(f"shardmap: the SSE identity is "
                              f"{res['sse']['rel_gap']:.3g} off gaussian_sse "
                              f"(limit {sm['sse_rtol']})")
+    stamp("[13] the ranks' holds")
     res["kernels"] = rank_kernels(sampler, gs, ss, 13)
+    stamp("[13] the kernels at a rank's shape")
     res["all_reduce_ms"] = {  # the slowest rank's median
         str(n): max(r["all_reduce_ms"][n] for r in ranks)
         for n in ranks[0]["all_reduce_ms"]}
@@ -2852,11 +3039,7 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
     # at P=1, from phase 5's state with all rows on the one shard
     kw1 = dict(kw, P=1)
     gs1_np = dict(gs_np, p_prime=np.zeros((), np.int32))
-    t0 = time.perf_counter()
-    one = parallel.spawn(rank_iterations, 1, str(x_path), str(z_path),
-                         gs1_np, kw1, ("staged",), 1, False, False,
-                         device="cuda:0", timeout_s=600)[0]
-    t_one = time.perf_counter() - t0
+    one, t_one = spawned["one13"], spawned["one_spawn_seconds"]
     s1 = build_sampler(SamplerSpec(**dict(kw1, data="vmap")), IBPHypers(),
                        data[0][:f["N"]], device=dev)
     z1 = ss.Z.cpu().numpy().reshape(1, f["N"], -1)
@@ -2874,6 +3057,7 @@ def run_shardmap(tmp: Path, data: tuple, phase5: tuple, dev
     res["nccl_one"] = dict(backend=one["backend"], bitwise_equal=equal,
                            seconds=one["staged"]["steps"][0]["seconds"],
                            spawn_seconds=t_one)
+    stamp("[13] the NCCL world of one rank")
     res["cli"] = run_cli_shardmap(tmp, "cuda:0")
     return res, counts
 
@@ -2947,32 +3131,43 @@ def drive_mesh(x_path: str, xe_path: str, cfg_kw: dict) -> dict:
                 collectives_chains=parallel.collective_counts("chains"))
 
 
-def run_mesh_one(tmp: Path, data: tuple, dev) -> tuple[dict, dict]:
+def mesh_one_cfg() -> dict:
+    f, m = FULL, MESH
+    return dict(K_max=f["K_max"], K_tail=f["K_tail"], L=f["L"], n_chains=1,
+                P=1, n_iters=m["one_iters"], eval_every=1,
+                ckpt_every=m["one_iters"])
+
+
+def mesh_one_job(tmp: Path, data: tuple) -> tuple:
+    """``drive_mesh``'s arguments for the NCCL world of one rank: phase
+    5's first one_rows rows and its held-out rows (written under
+    ``tmp``), mesh_one_cfg with a checkpoint directory."""
+    import numpy as np
+
+    x_path, xe_path = tmp / "mesh_one_x.npy", tmp / "mesh_one_eval.npy"
+    np.save(x_path, np.ascontiguousarray(data[0][:MESH["one_rows"]]))
+    np.save(xe_path, np.ascontiguousarray(data[1]))
+    return (str(x_path), str(xe_path),
+            dict(mesh_one_cfg(), ckpt_dir=str(tmp / "mesh_one_ckpt")))
+
+
+def run_mesh_one(tmp: Path, data: tuple, dev, got: dict, t_spawn: float
+                 ) -> tuple[dict, dict]:
     """driver="mesh" with one chain and one shard in an NCCL world of one
     rank on cuda:0 (gather_global and over_chains send their host
     payloads through the card), with an eval each iteration and a
-    checkpoint, against the multichain driver at C=1, P=1 in this
-    process on the same rows: the final state, the eval records (their
-    clocks aside) and the checkpoint files bitwise. Returns (results,
-    the rank's launches)."""
+    checkpoint (``got``: ``drive_mesh``'s result on that rank), against
+    the multichain driver at C=1, P=1 in this process on the same rows:
+    the final state, the eval records (their clocks aside) and the
+    checkpoint files bitwise. Returns (results, the rank's launches)."""
     import numpy as np
 
-    from repro_torch import parallel
     from repro_torch.runtime import DriverConfig, MCMCDriver
 
-    f, m = FULL, MESH
+    m = MESH
     rows, iters = m["one_rows"], m["one_iters"]
     X = np.ascontiguousarray(data[0][:rows])
-    x_path, xe_path = tmp / "mesh_one_x.npy", tmp / "mesh_one_eval.npy"
-    np.save(x_path, X)
-    np.save(xe_path, np.ascontiguousarray(data[1]))
-    cfg = dict(K_max=f["K_max"], K_tail=f["K_tail"], L=f["L"], n_chains=1,
-               P=1, n_iters=iters, eval_every=1, ckpt_every=iters)
-    t0 = time.perf_counter()
-    got = parallel.spawn(drive_mesh, 1, str(x_path), str(xe_path),
-                         dict(cfg, ckpt_dir=str(tmp / "mesh_one_ckpt")),
-                         device="cuda:0", timeout_s=600)[0]
-    t_spawn = time.perf_counter() - t0
+    cfg = mesh_one_cfg()
     drv = MCMCDriver(X, DriverConfig(driver="multichain", **dict(
         cfg, ckpt_dir=str(tmp / "multi_one_ckpt"))), X_eval=data[1],
         device=dev)
@@ -3016,17 +3211,41 @@ def launches_of(ranks: list, runs: tuple[str, ...]) -> dict:
     return counts
 
 
-def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
-             ) -> tuple[dict, dict]:
-    """Phase 14: phase 5's final state as C chains on a C x P mesh of
-    ranks of cuda:0 (gloo), against the multichain layout's first
-    iteration at P and the master's draws replayed on each chain's Z;
-    the kernels at a rank's shape against their plain versions; the
-    sharded scorer on phase 11's bank; chains="mesh" x data="vmap" on C
-    ranks against the multichain layout at phase 5's P; the mesh driver
-    in an NCCL world of one rank against the multichain driver. Returns
-    (results, launches of every rank in the driven iterations and
-    runs, summed)."""
+def mesh_job(tmp: Path, data: tuple, phase5: tuple, bank) -> tuple:
+    """Phase 14's ``rank_iterations`` arguments: phase 5's rows and final
+    Z (written under ``tmp``) as C chains on a C x P mesh, both syncs, a
+    stale pass, one untimed iteration first, and the sharded scorer on
+    phase 11's ``bank`` (saved under ``tmp``)."""
+    import numpy as np
+
+    f, m = FULL, MESH
+    _, gs5, ss5 = phase5
+    x_path, z_path = tmp / "mesh_x.npy", tmp / "mesh_z.npy"
+    bank_path = tmp / "mesh_bank.npz"
+    np.save(x_path, np.ascontiguousarray(data[0][:f["N"]]))
+    np.save(z_path, ss5.Z.cpu().numpy().reshape(f["N"], -1))
+    bank.save(str(bank_path))
+    kw = dict(K_max=f["K_max"], K_tail=f["K_tail"], L=f["L"],
+              chains="mesh", data="shardmap", n_chains=m["C"], P=m["P"])
+    score = dict(bank=str(bank_path),
+                 X=np.ascontiguousarray(data[1][:m["score_rows"]]),
+                 key=m["score_key"], n_sweeps=SERVING["n_sweeps"],
+                 reps=m["score_reps"])
+    return (str(x_path), str(z_path), mesh_state(gs5, m["C"]), kw,
+            ("staged", "fused"), m["iters"], True, True, score)
+
+
+def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev,
+             spawned: dict) -> tuple[dict, dict]:
+    """Phase 14 (its ranks' work done by ``spawn_layouts``): phase 5's
+    final state as C chains on a C x P mesh of ranks of cuda:0 (gloo),
+    against the multichain layout's first iteration at P and the
+    master's draws replayed on each chain's Z; the kernels at a rank's
+    shape against their plain versions; the sharded scorer on phase 11's
+    bank; chains="mesh" x data="vmap" on C ranks against the multichain
+    layout at phase 5's P; the mesh driver in an NCCL world of one rank
+    against the multichain driver. Returns (results, launches of every
+    rank in the driven iterations and runs, summed)."""
     import numpy as np
     import torch
 
@@ -3041,23 +3260,12 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
     C, P, L = m["C"], m["P"], f["L"]
     X = data[0][:f["N"]]
     x_path, z_path = tmp / "mesh_x.npy", tmp / "mesh_z.npy"
-    bank_path = tmp / "mesh_bank.npz"
-    np.save(x_path, np.ascontiguousarray(X))
     Z5 = ss5.Z.cpu().numpy().reshape(f["N"], -1)
-    np.save(z_path, Z5)
-    bank.save(str(bank_path))
     gs_np = mesh_state(gs5, C)
     X_score = np.ascontiguousarray(data[1][:m["score_rows"]])
     widths = dict(K_max=f["K_max"], K_tail=f["K_tail"], L=L)
-    kw = dict(widths, chains="mesh", data="shardmap", n_chains=C, P=P)
-    score = dict(bank=str(bank_path), X=X_score, key=m["score_key"],
-                 n_sweeps=SERVING["n_sweeps"], reps=m["score_reps"])
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = parallel.spawn(rank_iterations, C * P, str(x_path), str(z_path),
-                           gs_np, kw, ("staged", "fused"), m["iters"], True,
-                           True, score, device="cuda:0", timeout_s=900)
-    t_spawn = time.perf_counter() - t0
+    ranks, t_spawn = spawned["ranks14"], spawned["spawn_seconds"]
+    clock = spawned["clock14"]
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"mesh ranks on one card ran "
                              f"{[r['backend'] for r in ranks]}, not gloo")
@@ -3079,7 +3287,8 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
               for c in range(C)]
     res = dict(C=C, P=P, N=f["N"], N_p=f["N"] // P, D=f["D"],
                K_max=f["K_max"], L=L, iters=m["iters"],
-               spawn_seconds=t_spawn, mps=mps_state())
+               spawn_seconds=t_spawn, spawn_clock=clock, mps=mps_state())
+    stamp("[14] the multichain layout's first iteration and the sweeps")
     for sync in ("staged", "fused"):
         check_rank_launches(ranks, sync, L)
         chains = []
@@ -3138,10 +3347,15 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
     # rows of phase 5's final state, and a p′ rank's scan (N_p rows at
     # K_tail, the unchained instance in the tail's default rss flavor)
     # on a planted case, timed alone
+    stamp("[14] the chains' holds")
     res["kernels"] = rank_kernels(one, thy.chain_of(gsC, 0),
                                   thy.chain_of(ssC, 0), 14)
+    stamp("[14] the kernels at a rank's shape")
     res["scan"] = dict(scan_variant(dev, f["N"] // P, f["K_tail"], f["D"],
-                                    700, flavor="fast"), library_ms=None)
+                                    700, flavor="fast",
+                                    hold_rows=m["scan_hold_rows"]),
+                       library_ms=None)
+    stamp("[14] the p' rank's scan")
     res["scan"]["shape"] += " fast (a p′ rank's tail, phase 14)"
 
     # the sharded scorer: each chain's P data ranks score the batch; each
@@ -3171,11 +3385,13 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
     # chains="mesh" x data="vmap": a chain a rank, phase 5's P shards
     # simulated on it, against the multichain layout at phase 5's P
     kwv = dict(widths, chains="mesh", data="vmap", n_chains=C, P=f["P"])
-    t0 = time.perf_counter()
+    stamp("[14] the sharded scorer")
+    t0, w0 = time.perf_counter(), time.time()
     ranks_v = parallel.spawn(rank_iterations, C, str(x_path), str(z_path),
                              gs_np, kwv, ("staged",), m["vmap_iters"], False,
                              True, None, device="cuda:0", timeout_s=600)
     t_spawn_v = time.perf_counter() - t0
+    spawn_clock(ranks_v, w0, "[14] mesh x vmap")
     mc8 = build_sampler(SamplerSpec(chains="vmap", n_chains=C, P=f["P"],
                                     **widths), IBPHypers(), X, device=dev)
     g8, s8 = mc8.step(*from_reference(
@@ -3216,7 +3432,9 @@ def run_mesh(tmp: Path, data: tuple, phase5: tuple, bank, dev
               seconds_per_iteration=sum(per_it) / len(per_it),
               spawn_seconds=t_spawn_v)
     res["mesh_vmap"] = vm
-    res["nccl_one"], one_counts = run_mesh_one(tmp, data, dev)
+    stamp("[14] chains=mesh x data=vmap")
+    res["nccl_one"], one_counts = run_mesh_one(
+        tmp, data, dev, spawned["one14"], spawned["one_spawn_seconds"])
     for c in (launches_of(ranks_v, ("staged",)), one_counts):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
@@ -3314,13 +3532,15 @@ def lm_decode_hold(model, cfg, dev, phase: int = 15) -> dict:
     return r
 
 
-def lm_cpu_hold(model, cfg, dev, phase: int = 15, n: int | None = None
-                ) -> dict:
+def lm_cpu_hold(model, cfg, dev, phase: int = 15, n: int | None = None,
+                host=None) -> dict:
     """The first ``n`` (default cpu_layers) layers of ``model`` (the
     encoder's too), on the card against the same weights on the CPU: the
     float32 "train" forward of hold_B x hold_steps tokens (and random
     frames for encdec), within rel_tol of max |logit|; the aux losses
-    (MoE) within rel_tol of the CPU's."""
+    (MoE) within rel_tol of the CPU's. Where ``n`` covers every layer,
+    ``model`` itself runs on the card, and ``host``, if given, is its
+    CPU copy."""
     import numpy as np
     import torch
     from repro_torch.models import model_apply, transformer
@@ -3329,11 +3549,15 @@ def lm_cpu_hold(model, cfg, dev, phase: int = 15, n: int | None = None
     small_cfg = dataclasses.replace(
         cfg, n_layers=min(n, cfg.n_layers),
         n_enc_layers=min(n, cfg.n_enc_layers))
+    whole = (small_cfg.n_layers, small_cfg.n_enc_layers) == \
+        (cfg.n_layers, cfg.n_enc_layers)
     sd = model.state_dict()
-    card = transformer.LM(small_cfg, dev)
-    host = transformer.LM(small_cfg, "cpu")
-    for m in (card, host):
-        m.load_state_dict({k: sd[k] for k in m.state_dict()})
+    card = model if whole else transformer.LM(small_cfg, dev)
+    if host is None or not whole:
+        host = transformer.LM(small_cfg, "cpu")
+        host.load_state_dict({k: sd[k] for k in host.state_dict()})
+    if card is not model:
+        card.load_state_dict({k: sd[k] for k in card.state_dict()})
     B, S = LM["hold_B"], LM["hold_steps"]
     rng = np.random.default_rng(16)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
@@ -3614,17 +3838,24 @@ def run_recurrent(arch: str, dev, smi: str) -> dict:
     out = dict(model=arch, layers=cfg.n_layers, gpu=smi,
                cli_seconds=time.perf_counter() - t0,
                cli=buf.getvalue().strip().splitlines())
+    stamp(f"[16] {arch}: the serving CLI")
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     m = init_model(torch.Generator(device=dev).manual_seed(0), cfg32,
                    device=dev)
+    stamp(f"[16] {arch}: float32 weights drawn")
     out["decode_vs_forward"] = lm_decode_hold(m, cfg32, dev, phase=16)
+    stamp(f"[16] {arch}: decode against the forward")
     n = len(cfg.rglru_pattern) if cfg.family == "hybrid" else None
     out["card_vs_cpu"] = lm_cpu_hold(m, cfg32, dev, phase=16, n=n)
+    stamp(f"[16] {arch}: card against CPU")
     if cfg.family == "hybrid":
         out["ring"] = ring_hold(m, cfg32, dev)
+        stamp(f"[16] {arch}: the ring")
     out["serve"] = lm_serve(cfg, dev, LM["serve_new"], model=m)
-    out["step_profile"] = lm_step_profile(cfg, dev, model=m)
+    out["step_profile"] = lm_step_profile(
+        cfg, dev, steps=MIXERS["profile_steps"], model=m)
+    stamp(f"[16] {arch}: the timed serve and the profiled step")
     del m
     torch.cuda.empty_cache()
     return out
@@ -3653,8 +3884,8 @@ def recording_drops(log: list):
 def run_moe(arch: str, dev, smi: str) -> dict:
     """16c: an MoE model at full width cut to its moe_layers, float32
     weights drawn on the card: card against CPU (forward logits and aux);
-    hold_B x hold_steps decode steps on the card against the same on the
-    CPU (greedy tokens equal outside near ties); decode against the
+    hold_B x cpu_decode_steps decode steps on the card against the same
+    on the CPU (greedy tokens equal outside near ties); decode against the
     forward at capacity_factor = n_experts / top_k, where no slot drops
     (held), and at the config's capacity (reported: decode's T = B gives
     C = 1); a bf16 serve of cut_new tokens."""
@@ -3677,21 +3908,26 @@ def run_moe(arch: str, dev, smi: str) -> dict:
                    device=dev)
     out = dict(model=arch, layers=cut.n_layers, gpu=smi,
                params=sum(p.numel() for p in m.parameters()))
-    out["card_vs_cpu"] = lm_cpu_hold(m, c32, dev, phase=16)
+    # one CPU copy for both holds (deepseek-v2's is 20 GB)
+    host = transformer.LM(c32, "cpu")
+    host.load_state_dict(m.state_dict())
+    stamp(f"[16] {arch}: float32 weights drawn and copied to the CPU")
+    out["card_vs_cpu"] = lm_cpu_hold(m, c32, dev, phase=16, host=host)
+    stamp(f"[16] {arch}: card against CPU")
 
     rng = np.random.default_rng(18)
     toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S)))
-    host = transformer.LM(c32, "cpu")
-    host.load_state_dict(m.state_dict())
+    short = toks[:, :MIXERS["cpu_decode_steps"]]
     t0 = time.perf_counter()
-    dec_cpu, _ = decode_logits(host, c32, toks, "cpu")
+    dec_cpu, _ = decode_logits(host, c32, short, "cpu")
     cpu_s = time.perf_counter() - t0
     del host
     toks = toks.to(dev)
-    dec, _ = decode_logits(m, c32, toks, dev)
+    dec, _ = decode_logits(m, c32, short.to(dev), dev)
     out["decode_card_vs_cpu"] = held(
         dict(**logits_gap(dec.cpu(), dec_cpu), cpu_seconds=cpu_s),
         f"{arch} decode on the card against the CPU", logits=False)
+    stamp(f"[16] {arch}: decode card against CPU")
 
     with torch.no_grad():
         fwd = model_apply(m, {"tokens": toks}, no_drop, mode="train")[0]
@@ -3712,6 +3948,7 @@ def run_moe(arch: str, dev, smi: str) -> dict:
         forward_slots_dropped=sum(fwd_drops), forward_slots=L * B * S * k,
         decode_slots_dropped_per_step=sum(dec_drops) / S,
         decode_slots_per_step=L * B * k)
+    stamp(f"[16] {arch}: decode against the forward")
     out["serve"] = lm_serve(cut, dev, LM["cut_new"], model=m)
     del m
     torch.cuda.empty_cache()
@@ -3782,6 +4019,465 @@ def log_lm_mixers(mixers: dict, smi: str) -> None:
             f"{cf['forward_slots_dropped']} of {cf['forward_slots']} in the "
             f"forward; bf16 serve {sv['tokens_per_s']:.1f} tok/s inc. "
             f"prefill, peak {sv['max_memory_allocated']} bytes; gpu: {smi}")
+
+# --------------------------------------------------------------------------
+# phase 17: LM training on the card
+# --------------------------------------------------------------------------
+
+STEP_LINE = r"step\s+(\d+) loss=(\S+) \(([\d,.]+) tok/s\)"
+
+
+def train_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """B sequences of S tokens (and random frames for encdec) from a
+    numpy seed, on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (B, S))}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model),
+                                          dtype=np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def parse_train_log(out: str) -> tuple[dict, list]:
+    """The training CLI's stdout: {step: (loss, tok/s)} and its other
+    lines."""
+    import re
+
+    steps = {int(m[1]): (float(m[2]), float(m[3].replace(",", "")))
+             for m in re.finditer(STEP_LINE, out)}
+    return steps, [ln for ln in out.splitlines()
+                   if not re.match(STEP_LINE, ln)]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def timing_train_steps(record: dict):
+    """While inside, every step that ``launch.train``'s make_train_step
+    builds records its host wall, ended by a device synchronise, in
+    record["walls"], and its last (step, model, state, batch) in
+    record["last"]."""
+    from repro_torch.launch import train
+
+    orig = train.make_train_step
+
+    def timed_factory(cfg, optimizer):
+        step = orig(cfg, optimizer)
+
+        def timed(model, state, batch):
+            t0 = time.perf_counter()
+            out = step(model, state, batch)
+            sync(next(model.parameters()).device)
+            record.setdefault("walls", []).append(time.perf_counter() - t0)
+            record["last"] = (step, out[0], out[1], batch)
+            return out
+
+        return timed
+
+    train.make_train_step = timed_factory
+    try:
+        yield record
+    finally:
+        train.make_train_step = orig
+
+
+def run_train_cli(tmp: Path, dev) -> dict:
+    """17a: the training CLI (``launch.train.main``) at the arch's full
+    width and depth and its defaults (bf16, remat, B=8, S=256) for
+    cli_steps steps with a checkpoint every ckpt_every, in this process:
+    each step's host wall ended by a device synchronise (the median over
+    steps time_from..cli_steps), the peak device memory, then one more
+    step under torch.profiler (kernels, device time, busy share). Then
+    ``python -m repro_torch.launch.train`` in a second process resumed
+    from a copy of the step-resume_from checkpoint alone: its losses
+    within resume_rtol of the first run's at the same steps."""
+    import io
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.launch import train
+
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["cli_steps"]),
+            "--ckpt-every", str(TRAIN["ckpt_every"]), "--log-every", "1",
+            "--device", str(dev)]
+    n, at = TRAIN["cli_steps"], TRAIN["resume_from"]
+    cuda = torch.device(dev).type == "cuda"
+    sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) if cuda else 0
+    buf, record = io.StringIO(), {}
+    t0 = time.perf_counter()
+    with timing_train_steps(record), contextlib.redirect_stdout(buf):
+        train.main(argv + ["--ckpt-dir", str(tmp / "train17")])
+    seconds = time.perf_counter() - t0
+    stamp("[17] the training CLI in this process")
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    steps, lines = parse_train_log(buf.getvalue())
+    if sorted(steps) != list(range(1, n + 1)) or len(record["walls"]) != n:
+        raise AssertionError(f"phase 17: the CLI logged steps "
+                             f"{sorted(steps)}")
+    step, model, state, batch = record.pop("last")
+    prof = profile_call(lambda: step(model, state, batch)) if cuda else {}
+    del step, model, state, batch
+    stamp("[17] one train step profiled")
+
+    name = f"step_{at:09d}.npz"
+    (tmp / "train17_resume").mkdir()
+    shutil.copy(tmp / "train17" / name, tmp / "train17_resume" / name)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *argv, "--ckpt-dir", str(tmp / "train17_resume")],
+                       capture_output=True, text=True, env=env,
+                       cwd=str(ROOT), timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 17: the resumed CLI: rc "
+                             f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    stamp("[17] the resumed CLI")
+    resumed, resume_lines = parse_train_log(r.stdout)
+    if f"resumed from step {at}" not in resume_lines or \
+            sorted(resumed) != list(range(at + 1, n + 1)):
+        raise AssertionError(f"phase 17: the resumed CLI: {resume_lines}"
+                             f" steps {sorted(resumed)}")
+    gaps = [abs(resumed[s][0] - steps[s][0]) / abs(steps[s][0])
+            for s in resumed]
+    walls = record["walls"][TRAIN["time_from"] - 1:]
+    med = statistics.median(walls)
+    out = dict(arch=TRAIN["arch"], steps=n, batch=TRAIN["batch"],
+               seq=TRAIN["seq"], first_loss=steps[1][0],
+               last_loss=steps[n][0], seconds=seconds,
+               cli_tokens_per_s=steps[n][1], time_from=TRAIN["time_from"],
+               step_ms_median=med * 1e3, step_ms_min=min(walls) * 1e3,
+               step_ms_max=max(walls) * 1e3,
+               tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / med,
+               peak_memory=peak, memory_held_before=held, profile=prof,
+               lines=lines, resume_lines=resume_lines,
+               resume_seconds=time.perf_counter() - t1, resume_from=at,
+               resume_max_rel=max(gaps), resume_limit=TRAIN["resume_rtol"])
+    if not all(math.isfinite(v[0]) for v in steps.values()) or \
+            out["resume_max_rel"] > TRAIN["resume_rtol"]:
+        raise AssertionError(f"phase 17: the resumed losses: {out}")
+    return out
+
+
+def remat_off_steps(cfg, dev) -> dict:
+    """remat_off_steps steps of the CLI's loop in this process without
+    remat (weights from seed 0, SyntheticLM batches of B=8, S=256): the
+    peak device memory, and the median host wall of the steps after the
+    first, each ended by a device synchronise."""
+    import torch
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.interop import reference_leaves
+    from repro_torch.models import init_model, make_train_step
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["remat_off_steps"]
+    cfg = dataclasses.replace(cfg, remat=False)
+    model = init_model(0, cfg, device=dev)
+    opt = AdamW(lr=cosine_schedule(3e-4, TRAIN["cli_steps"] // 10,
+                                   TRAIN["cli_steps"]))
+    state = opt.init(reference_leaves(model, cfg))
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(cfg.vocab, S, B, seed=0)
+    sync(dev)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses = [], []
+    for i in range(n):
+        batch = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in data.batch(i).items()}
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    r = dict(arch=cfg.name, remat=False, steps=n, losses=losses,
+             step_ms_median=statistics.median(walls[1:]) * 1e3,
+             peak_memory=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 17: {cfg.name} without remat: {r}")
+    return r
+
+
+def leaf_names(model, cfg) -> dict:
+    """{reference leaf path: [parameter names in layer order]}."""
+    from repro_torch.interop import reference_leaves
+
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    return {path: [name_of[id(p)] for p in
+                   (leaf if isinstance(leaf, list) else [leaf])]
+            for path, leaf in reference_leaves(model, cfg).items()}
+
+
+def leaf_gaps(names: dict, got: dict, want: dict, dev) -> tuple:
+    """The worst reference leaf of ``got`` against ``want`` ({name:
+    tensor}, want's on any device): (max |diff| / max |want| over the
+    leaf, its path, its max |want|)."""
+    worst = (0.0, None, 0.0)
+    for path, ns in names.items():
+        err = max(float((got[n] - want[n].to(dev)).abs().max()) for n in ns)
+        scale = max(float(want[n].abs().max()) for n in ns)
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if rel >= worst[0]:
+            worst = (rel, "/".join(path), scale)
+    return worst
+
+
+def grad_hold(cfg32, dev, B: int, S: int, seed: int) -> tuple[dict, object]:
+    """float32 weights of ``cfg32`` drawn on the card; the loss and every
+    reference leaf's gradient of B x S tokens (``lm.loss_and_grads``,
+    rematerialised as the config asks), card against the same weights on
+    the CPU: the loss within loss_rtol, each leaf within grad_rel of its
+    max |g|. Returns the result and (the card's model, the CPU's
+    gradients)."""
+    import torch
+    from repro_torch.models import init_model, lm, transformer
+
+    model = init_model(torch.Generator(device=dev).manual_seed(0), cfg32,
+                       device=dev)
+    host = transformer.LM(cfg32, "cpu")
+    host.load_state_dict(model.state_dict())
+    batch = train_batch(cfg32, B, S, seed, "cpu")
+    t0 = time.perf_counter()
+    loss, metrics, grads = lm.loss_and_grads(
+        model, {k: v.to(dev) for k, v in batch.items()}, cfg32)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, metrics_h, grads_h = lm.loss_and_grads(host, batch, cfg32)
+    cpu_s = time.perf_counter() - t0
+    del host
+    names = leaf_names(model, cfg32)
+    rel, path, scale = leaf_gaps(names, grads, grads_h, dev)
+    r = dict(arch=cfg32.name, layers=cfg32.n_layers,
+             enc_layers=cfg32.n_enc_layers, batch=B, seq=S,
+             params=sum(p.numel() for p in model.parameters()),
+             loss=float(loss), loss_cpu=float(loss_h),
+             loss_rel=abs(float(loss) - float(loss_h)) / abs(float(loss_h)),
+             aux=float(metrics["aux"]), aux_cpu=float(metrics_h["aux"]),
+             worst_leaf=path, worst_leaf_rel=rel, worst_leaf_max=scale,
+             leaves=len(names), card_seconds=card_s,
+             cpu_seconds=cpu_s, grad_rel=TRAIN["grad_rel"],
+             loss_rtol=TRAIN["loss_rtol"])
+    del grads
+    if not math.isfinite(r["loss"]) or r["loss_rel"] > TRAIN["loss_rtol"] \
+            or rel > TRAIN["grad_rel"]:
+        raise AssertionError(f"phase 17: {cfg32.name} gradients card "
+                             f"against CPU: {r}")
+    return r, (model, grads_h)
+
+
+def adam_hold(model, cfg32, grads_h: dict, dev) -> dict:
+    """One AdamW update (the CLI's lr at its first step) of the card's
+    weights and of a CPU copy, both from the CPU's gradients: each new
+    weight within adam_rel of its leaf's max |change| plus 2 float32 ulps
+    of the weight (a change of ~lr moves a weight of 1 by ~1e3 ulps, so
+    one ulp of rounding is a 1e-3 share of it), the moments within
+    adam_rel of their leaf's max."""
+    import torch
+    from repro_torch.interop import reference_leaves
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    host = transformer.LM(cfg32, "cpu")
+    host.load_state_dict(model.state_dict())
+    before = {n: p.detach().clone() for n, p in host.named_parameters()}
+    opt = AdamW(lr=cosine_schedule(3e-4, TRAIN["cli_steps"] // 10,
+                                   TRAIN["cli_steps"]))
+    out = {}
+    for where, m, gs in (("card", model, {n: g.to(dev) for n, g in
+                                          grads_h.items()}),
+                         ("cpu", host, grads_h)):
+        leaves = reference_leaves(m, cfg32)
+        by_id = {id(p): gs[n] for n, p in m.named_parameters()}
+        g_leaves = {k: [by_id[id(p)] for p in v] if isinstance(v, list)
+                    else by_id[id(v)] for k, v in leaves.items()}
+        state = opt.init(leaves)
+        sync(dev)
+        t0 = time.perf_counter()
+        _, state = opt.update(leaves, g_leaves, state)
+        sync(dev)
+        names = leaf_names(m, cfg32)
+        flat = {mom: {n: t for path, ns in names.items() for n, t in
+                      zip(ns, state[mom][path] if isinstance(
+                          state[mom][path], list) else [state[mom][path]])}
+                for mom in ("m", "v")}
+        out[where] = dict(seconds=time.perf_counter() - t0, flat=flat,
+                          params=dict(m.named_parameters()))
+    names = leaf_names(model, cfg32)
+    eps = float(torch.finfo(torch.float32).eps)
+    worst = dict(ratio=0.0, leaf=None)
+    for path, ns in names.items():
+        dmax = max(float((out["cpu"]["params"][n].detach() - before[n])
+                         .abs().max()) for n in ns)
+        for n in ns:
+            want = out["cpu"]["params"][n].detach()
+            err = (out["card"]["params"][n].detach().cpu() - want).abs()
+            ratio = float((err / (TRAIN["adam_rel"] * dmax + 2 * eps
+                                  * want.abs())).max())
+            if ratio >= worst["ratio"]:
+                worst = dict(ratio=ratio, leaf="/".join(path),
+                             max_change=dmax)
+    r = dict(arch=cfg32.name, card_update_seconds=out["card"]["seconds"],
+             cpu_update_seconds=out["cpu"]["seconds"], weights=worst)
+    for mom in ("m", "v"):
+        rel, path, scale = leaf_gaps(names, out["card"]["flat"][mom],
+                                     out["cpu"]["flat"][mom], dev)
+        r[mom] = dict(worst_leaf=path, rel=rel, max=scale)
+    if worst["ratio"] > 1 or r["m"]["rel"] > TRAIN["adam_rel"] or \
+            r["v"]["rel"] > TRAIN["adam_rel"]:
+        raise AssertionError(f"phase 17: AdamW card against CPU: {r}")
+    return r
+
+
+def train_steps_bf16(model, cfg, dev, seed: int, compress: str) -> dict:
+    """bf16_steps train steps of ``cfg`` (bf16 compute on ``model``'s
+    float32 weights, its micro_batches, remat), each on a fresh batch of
+    B = max(hold_B, micro_batches) sequences of bf16_S tokens, each
+    step's host wall ended by a synchronise; ``compress``: the
+    optimizer's grad_compress."""
+    import torch
+    from repro_torch.interop import reference_leaves
+    from repro_torch.models import make_train_step
+    from repro_torch.optim import AdamW
+
+    k = max(1, cfg.micro_batches)
+    B, S = max(TRAIN["hold_B"], k), TRAIN["bf16_S"]
+    opt = AdamW(lr=3e-4, grad_compress=compress)
+    state = opt.init(reference_leaves(model, cfg))
+    step = make_train_step(cfg, opt)
+    first = next(model.parameters()).detach().clone()
+    sync(dev)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses = [], []
+    for i in range(TRAIN["bf16_steps"]):
+        batch = train_batch(cfg, B, S, seed + i, dev)
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    moved = float((next(model.parameters()) - first).abs().max())
+    r = dict(arch=cfg.name, dtype=cfg.dtype, micro_batches=k, batch=B,
+             seq=S, grad_compress=compress, losses=losses,
+             step_ms=[w * 1e3 for w in walls], moved=moved,
+             peak_memory=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    if not all(math.isfinite(x) for x in losses) or moved == 0:
+        raise AssertionError(f"phase 17: {cfg.name} bf16 steps: {r}")
+    return r
+
+
+def run_train(tmp: Path, dev, smi: str) -> dict:
+    """Phase 17: (a) the training CLI at full width and depth, timed in
+    this process (one more step profiled), and its resume in a second
+    process; a few steps without remat (peak memory); (b) float32 gradients and AdamW's
+    update card against CPU at full width; (c) the other families at full
+    width cut in depth: float32 gradients card against CPU, then bf16
+    train steps."""
+    import torch
+    from repro_torch.configs import get_config
+
+    out: dict = {"gpu": smi}
+    out["cli"] = run_train_cli(tmp, dev)
+    log(f"[17] cli {json.dumps(out['cli'])}")
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN["arch"])
+    out["remat_off"] = remat_off_steps(cfg, dev)
+    log(f"[17] remat_off {json.dumps(out['remat_off'])}")
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out["hold"], (model, grads_h) = grad_hold(cfg32, dev, TRAIN["hold_B"],
+                                              TRAIN["hold_S"], seed=170)
+    log(f"[17] hold {json.dumps(out['hold'])}")
+    out["adam"] = adam_hold(model, cfg32, grads_h, dev)
+    log(f"[17] adam {json.dumps(out['adam'])}")
+    del model, grads_h
+    torch.cuda.empty_cache()
+
+    out["cut"] = []
+    for arch, n in TRAIN["cut"].items():
+        full = get_config(arch)
+        cut = dataclasses.replace(
+            full, n_layers=n, n_enc_layers=n if full.n_enc_layers else 0)
+        hold, (model, grads_h) = grad_hold(
+            dataclasses.replace(cut, dtype="float32"), dev, TRAIN["hold_B"],
+            TRAIN["cut_S"], seed=171)
+        del grads_h
+        stamp(f"[17] {arch}: float32 gradients card against CPU")
+        hold["bf16"] = train_steps_bf16(
+            model, cut, dev, seed=172,
+            compress="int8" if arch in TRAIN["int8"] else "none")
+        out["cut"].append(hold)
+        log(f"[17] cut {json.dumps(hold)}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_train(tr: dict, smi: str) -> None:
+    """Phase 17's summary lines (run_train logs each part's JSON line as
+    it ends)."""
+    c, off, p = tr["cli"], tr["remat_off"], tr["cli"]["profile"]
+    for line in c["lines"] + c["resume_lines"]:
+        log(f"[17] CLI (repro_torch.launch.train --arch {c['arch']}): {line}")
+    log(f"[17] CLI {c['arch']} (bf16, remat) B={c['batch']} S={c['seq']}, "
+        f"{c['steps']} steps in {c['seconds']:.1f} s: median step "
+        f"{c['step_ms_median']:.2f} ms (min {c['step_ms_min']:.2f}, max "
+        f"{c['step_ms_max']:.2f}) over steps {c['time_from']}-{c['steps']}, "
+        f"{c['tokens_per_s']:,.0f} tok/s ({c['cli_tokens_per_s']:,.0f} "
+        f"by the CLI's last line, checkpoints included), loss "
+        f"{c['first_loss']} -> {c['last_loss']}; peak device memory "
+        f"{c['peak_memory']} bytes ({c['memory_held_before']} held before; "
+        f"remat off: {off['peak_memory']}, median step "
+        f"{off['step_ms_median']:.2f} ms); one profiled step: wall "
+        f"{p.get('wall_s', 0) * 1e3:.2f} ms, {p.get('kernels')} kernels "
+        f"taking {p.get('wall_s', 0) * p.get('busy_share', 0) * 1e3:.2f} ms"
+        f" of device time, busy {p.get('busy_share', 0):.3f}; resumed from "
+        f"step {c['resume_from']} in a second process "
+        f"({c['resume_seconds']:.1f} s): losses within "
+        f"{c['resume_max_rel']:.3g} relative (limit {c['resume_limit']}); "
+        f"gpu: {smi}")
+    for v in [tr["hold"]] + tr["cut"]:
+        log(f"[17] {v['arch']} float32 ({v['layers']} layers, {v['params']} "
+            f"parameters, B={v['batch']} S={v['seq']}) card vs CPU: loss "
+            f"{v['loss']:.7g} vs {v['loss_cpu']:.7g} (rel {v['loss_rel']:.3g},"
+            f" limit {v['loss_rtol']}), worst leaf {v['worst_leaf']} at "
+            f"{v['worst_leaf_rel']:.3g} of its max |g| (limit "
+            f"{v['grad_rel']}); card {v['card_seconds']:.2f} s, CPU "
+            f"{v['cpu_seconds']:.1f} s")
+        if "bf16" in v:
+            b = v["bf16"]
+            log(f"[17] {v['arch']} bf16 train steps (micro_batches "
+                f"{b['micro_batches']}, B={b['batch']} S={b['seq']}, "
+                f"grad_compress {b['grad_compress']}): losses "
+                f"{[round(x, 4) for x in b['losses']]}, "
+                f"{[round(x, 1) for x in b['step_ms']]} ms, peak device "
+                f"memory {b['peak_memory']} bytes")
+    a, w = tr["adam"], tr["adam"]["weights"]
+    log(f"[17] AdamW card vs CPU on the CPU's gradients ({a['arch']}): "
+        f"new weights worst leaf {w['leaf']} at {w['ratio']:.3g} of its "
+        f"limit (its max change {w['max_change']:.3g}), m "
+        f"{a['m']['rel']:.3g}, v {a['v']['rel']:.3g} of their max (limit "
+        f"{TRAIN['adam_rel']}); "
+        f"update "
+        f"{a['card_update_seconds'] * 1e3:.1f} ms on the card, "
+        f"{a['cpu_update_seconds'] * 1e3:.0f} ms on the CPU")
+
 
 def main() -> int:
     import torch
@@ -4049,16 +4745,23 @@ def main() -> int:
             f"({v['bound_by']}), launches a call {v['launches_per_call']}")
     log(f"[12] phase took {time.perf_counter() - t0:.1f} s")
 
+    # phases 13 and 14: one spawn of P ranks runs both layouts' rank
+    # work, one rank both worlds of one; phase 13's time includes it
+    layouts_dir = tempfile.TemporaryDirectory()
+    ltmp = Path(layouts_dir.name)
     # phase 13: the data-parallel layout on P ranks
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmpdir:
-        shard, shard_counts = run_shardmap(Path(tmpdir), data, phase5, dev)
+    spawned = spawn_layouts(ltmp, data, phase5, bank)
+    shard, shard_counts = run_shardmap(ltmp, data, phase5, dev, spawned)
     log(f"[13] shardmap: {json.dumps(shard)}")
     log(f"[13] launches of every rank, summed {shard_counts}")
     sw = shard["sweep"]
     log(f"[13] {shard['P']} ranks on cuda:0 over gloo, spawned and run in "
-        f"{shard['spawn_seconds']:.1f} s; the first sweep as one call vs "
-        f"each rank's block: {sw['decisions_differing']} decisions differ, "
+        f"{shard['spawn_seconds']:.1f} s with phase 14's work (the slowest "
+        f"rank in rank_iterations after {shard['spawn_clock']['enter']} s, "
+        f"phase 13's work done after {shard['spawn_clock']['done']} s); "
+        f"the first sweep as one call vs each rank's block: "
+        f"{sw['decisions_differing']} decisions differ, "
         f"{sw['boundary_events']} boundary events")
     for sync in ("staged", "fused"):
         v = shard[sync]
@@ -4112,14 +4815,16 @@ def main() -> int:
 
     # phase 14: the chains x data mesh on C·P ranks
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmpdir:
-        mesh, mesh_counts = run_mesh(Path(tmpdir), data, phase5, bank, dev)
+    mesh, mesh_counts = run_mesh(ltmp, data, phase5, bank, dev, spawned)
+    del spawned
+    layouts_dir.cleanup()
     log(f"[14] mesh: {json.dumps(mesh)}")
     log(f"[14] launches of every rank, summed {mesh_counts}")
     mp = mesh["mps"]
     log(f"[14] {mesh['C']} chains x {mesh['P']} shards = "
-        f"{mesh['C'] * mesh['P']} ranks on cuda:0 over gloo (N_p={mesh['N_p']}), spawned and run in "
-        f"{mesh['spawn_seconds']:.1f} s; MPS "
+        f"{mesh['C'] * mesh['P']} ranks on cuda:0 over gloo (N_p={mesh['N_p']}), phase 13's ranks "
+        f"(phase 14's work from {mesh['spawn_clock']['enter']} to "
+        f"{mesh['spawn_clock']['done']} s after the spawn); MPS "
         f"{'active' if mp['active'] else 'not active'} (control pipe "
         f"{mp['control_pipe']} {'found' if mp['active'] else 'absent'}, "
         f"compute mode {mp['compute_mode']}): without it the ranks' kernels "
@@ -4188,8 +4893,9 @@ def main() -> int:
         f"{v['records']} evals and a checkpoint: bitwise equal to the "
         f"multichain driver at C=1 (state, eval records, checkpoint) "
         f"{v['bitwise_equal']}; collectives {v['collectives']}, over the "
-        f"chain axis {v['collectives_chains']}; spawned and run in "
-        f"{v['spawn_seconds']:.1f} s")
+        f"chain axis {v['collectives_chains']}; in the world of one rank "
+        f"shared with phase 13, spawned and run in {v['spawn_seconds']:.1f} "
+        f"s")
     log(f"[14] phase took {time.perf_counter() - t0:.1f} s")
 
     # phase 15: the LM substrate on the card
@@ -4255,6 +4961,18 @@ def main() -> int:
     if any(mixer_counts.get(k, 0) for k in KERNELS):
         raise AssertionError(f"phase 16 launched a kernel: {mixer_counts}")
     log(f"[16] launches {mixer_counts}; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 17: LM training
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tr = run_train(Path(tmpdir), dev, smi)
+    train_counts = launch_counts()
+    log_train(tr, smi)
+    if any(train_counts.get(k, 0) for k in KERNELS):
+        raise AssertionError(f"phase 17 launched a kernel: {train_counts}")
+    log(f"[17] launches {train_counts}; phase took "
         f"{time.perf_counter() - t0:.1f} s")
 
     # phase 6: the main paths went through every kernel that carries them
@@ -4344,6 +5062,7 @@ def main() -> int:
             launches_mesh=mesh_counts.get(name, 0),
             launches_lm=lm_counts.get(name, 0),
             launches_lm_mixers=mixer_counts.get(name, 0),
+            launches_lm_train=train_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -19,6 +19,7 @@ from repro_torch.models import init_caches, init_model, make_decode_step
 from repro_torch.models.lm import cast_params
 
 
+@torch.inference_mode()
 def generate(cfg, *, batch: int = 4, prompt_len: int = 32, new: int = 16,
              seed: int = 0, device=None, model=None) -> dict:
     """The serving loop of ``main`` on ``cfg``: weights from ``seed`` (or

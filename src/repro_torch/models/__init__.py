@@ -1,6 +1,6 @@
 """The LM substrate's models: the attention families (ROADMAP item
-11a-1) and the other temporal mixers, MoE, mamba-1 SSM, RG-LRU and the
-hybrid stack (item 11a-2).
+11a-1), the other temporal mixers, MoE, mamba-1 SSM, RG-LRU and the
+hybrid stack (item 11a-2), and their training step (item 11b).
 
 The counterpart of ``repro/models``; ``ActSpecs`` (activation sharding)
 waits for ROADMAP item 11c.
@@ -16,6 +16,7 @@ from .lm import (
     cross_entropy,
     greedy_generate,
     lm_loss,
+    loss_and_grads,
     make_decode_step,
     make_prefill_step,
     make_train_step,
@@ -33,6 +34,7 @@ __all__ = [
     "cross_entropy",
     "greedy_generate",
     "lm_loss",
+    "loss_and_grads",
     "make_decode_step",
     "make_prefill_step",
     "make_train_step",

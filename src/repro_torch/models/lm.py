@@ -1,9 +1,13 @@
-"""Serving steps and the loss built on ``transformer.model_apply``.
+"""Training and serving steps and the loss built on
+``transformer.model_apply``.
 
-The counterpart of ``repro/models/lm.py``: ``make_prefill_step`` and
-``make_decode_step`` return (model, batch[, caches]) -> ... functions;
-``greedy_generate`` is the reference's end-to-end loop. Training
-(``make_train_step``) is ROADMAP item 11b.
+The counterpart of ``repro/models/lm.py``: ``make_train_step`` returns a
+(model, opt_state, batch) -> (model, opt_state, metrics) step (autograd
+through the differentiable bf16 cast of ``cast_params``, the layers
+rematerialised as ``cfg.remat`` asks, ``cfg.micro_batches`` slices);
+``make_prefill_step`` and ``make_decode_step`` return (model, batch[,
+caches]) -> ... functions that run under ``torch.inference_mode``;
+``greedy_generate`` is the reference's end-to-end loop.
 """
 from __future__ import annotations
 
@@ -35,14 +39,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
 def cast_params(model: torch.nn.Module, cfg) -> torch.nn.Module:
     """The bf16 compute copy of a model's float32 weights for a bf16
     config: ``model`` itself when the config is float32 or no weight is
-    float32, else a copy with every float32 parameter in bf16 (the
-    caller's model is left as it is)."""
+    float32, else a copy with every float32 parameter cast to bf16 (the
+    caller's model is left as it is).
+
+    The cast is differentiable, as the reference's ``astype`` is under
+    ``jax.grad``: in a train step, where the float32 masters require
+    grad, the gradients of the bf16 copy reach them. Serving runs under
+    ``torch.inference_mode``, so there it builds no graph."""
     if cfg.dtype != "bfloat16":
         return model
     # deepcopy takes each float32 parameter's bf16 cast from the memo, so
     # no second float32 copy of the weights is made on the way
-    memo = {id(p): torch.nn.Parameter(p.detach().to(torch.bfloat16),
-                                      requires_grad=False)
+    memo = {id(p): p.to(torch.bfloat16)
             for p in model.parameters() if p.dtype == torch.float32}
     if not memo:
         return model
@@ -50,8 +58,9 @@ def cast_params(model: torch.nn.Module, cfg) -> torch.nn.Module:
 
 
 def lm_loss(model, batch, cfg, aux_weight: float = 0.01):
-    """The reference's loss, forward only: next-token CE over the real
-    vocab (pre-shifted ``labels`` when the batch has them)."""
+    """The reference's loss: next-token CE over the real vocab (pre-shifted
+    ``labels`` when the batch has them), normalised by the batch's
+    tokens, plus ``aux_weight`` times the MoE load-balance loss."""
     model = cast_params(model, cfg)
     tokens = batch["tokens"]
     if "labels" in batch:
@@ -65,13 +74,83 @@ def lm_loss(model, batch, cfg, aux_weight: float = 0.01):
     return loss, {"nll": nll, "tokens": n, "aux": aux}
 
 
-def make_train_step(cfg, optimizer=None, aux_weight: float = 0.01):
-    raise NotImplementedError(
-        "make_train_step: training (autograd, the int8-compressed AdamW of "
-        "optim/, launch/train.py) is not ported yet; it is ROADMAP item 11b")
+def loss_and_grads(model, batch, cfg, aux_weight: float = 0.01
+                   ) -> tuple[torch.Tensor, dict, dict]:
+    """``lm_loss`` and its gradient with respect to each of ``model``'s
+    float32 parameters (``jax.value_and_grad``'s counterpart). Returns
+    (loss, metrics, {name: float32 gradient}), all detached; a parameter
+    the loss does not reach gets zeros. The parameters require grad for
+    the call only."""
+    named = list(model.named_parameters())
+    flags = [p.requires_grad for _, p in named]
+    for _, p in named:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = lm_loss(model, batch, cfg, aux_weight)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+    finally:
+        for (_, p), f in zip(named, flags):
+            p.requires_grad_(f)
+    grads = {name: torch.zeros_like(p) if g is None else g
+             for (name, p), g in zip(named, grads)}
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg, optimizer, aux_weight: float = 0.01):
+    """One optimizer step: ``train_step(model, opt_state, batch) ->
+    (model, opt_state, metrics)``, the model's parameters updated in
+    place; ``metrics`` holds ``loss``, ``nll``, ``tokens`` and ``aux``.
+
+    ``cfg.micro_batches`` = k > 1 splits the batch into k slices along
+    its first axis, as the reference's scan does: the slices' losses,
+    metrics and gradients are summed, then the loss and the gradients
+    multiplied by 1/k; ``nll``, ``tokens`` and ``aux`` stay sums, and
+    each slice's loss is normalised by its own tokens. The optimizer
+    takes the parameters as the reference's leaves
+    (``interop.reference_leaves``), so its int8 scales and noise are the
+    reference's a leaf."""
+    # imported here: interop imports the models
+    from repro_torch.interop import reference_leaves
+
+    k = max(1, cfg.micro_batches)
+
+    def train_step(model, opt_state, batch):
+        if k == 1:
+            loss, metrics, grads = loss_and_grads(model, batch, cfg,
+                                                  aux_weight)
+        else:
+            B = next(iter(batch.values())).shape[0]
+            if B % k:
+                raise ValueError(f"make_train_step: a batch of {B} does not "
+                                 f"split into micro_batches={k} slices")
+            b = B // k
+            for j in range(k):
+                mb = {n: x[j * b:(j + 1) * b] for n, x in batch.items()}
+                out = loss_and_grads(model, mb, cfg, aux_weight)
+                if j == 0:
+                    loss, metrics, grads = out
+                    continue
+                loss = loss + out[0]
+                metrics = {n: metrics[n] + out[1][n] for n in metrics}
+                for n, g in out[2].items():
+                    grads[n].add_(g)
+            inv = 1.0 / k
+            loss = loss * inv
+            grads = {n: g * inv for n, g in grads.items()}
+        by_id = {id(p): grads[n] for n, p in model.named_parameters()}
+        leaves = reference_leaves(model, cfg)
+        g_leaves = {
+            path: [by_id[id(p)] for p in leaf] if isinstance(leaf, list)
+            else by_id[id(leaf)] for path, leaf in leaves.items()}
+        _, opt_state = optimizer.update(leaves, g_leaves, opt_state)
+        return model, opt_state, dict(metrics, loss=loss)
+
+    return train_step
 
 
 def make_prefill_step(cfg):
+    @torch.inference_mode()
     def prefill_step(model, batch):
         logits, _, _ = model_apply(cast_params(model, cfg), batch, cfg,
                                    mode="prefill")
@@ -82,6 +161,7 @@ def make_prefill_step(cfg):
 
 
 def make_decode_step(cfg):
+    @torch.inference_mode()
     def decode_step(model, batch, caches):
         logits, _, new_caches = model_apply(cast_params(model, cfg), batch,
                                             cfg, mode="decode", caches=caches)
@@ -92,6 +172,7 @@ def make_decode_step(cfg):
     return decode_step
 
 
+@torch.inference_mode()
 def greedy_generate(model, cfg, prompt: torch.Tensor, max_new: int):
     """End-to-end generation (teacher-forced prefill through the decode
     step, then greedy tokens)."""

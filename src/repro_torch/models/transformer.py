@@ -11,11 +11,16 @@ The counterpart of ``repro/models/transformer.py``. Families
 The reference scans stacked (L, ...) layer weights; here each layer is a
 ``Block`` (in ``layers``, or in the hybrid's ``superblocks`` and
 ``tail``), run in a Python loop in execution order, and the caches are
-one a layer in that order.
+one a layer in that order. In training with ``cfg.remat`` each layer
+(the hybrid's each superblock) is rematerialised, as the reference's
+``jax.checkpoint`` over its scan body does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as _device
 
@@ -212,10 +217,19 @@ class LM(torch.nn.Module):
 
     def decoder_blocks(self) -> list[Block]:
         """The decoder's blocks in execution order (``init_caches``'s)."""
+        return [b for unit, _ in self.decoder_units() for b in unit]
+
+    def decoder_units(self) -> list[tuple[list[Block], bool]]:
+        """The decoder's blocks in execution order, grouped as the
+        reference rematerialises them: (blocks, rematerialisable), one
+        layer a unit, or one superblock (its pattern's blocks) a unit
+        and each tail block a unit of its own that is not
+        rematerialised (the reference runs the tail outside its
+        ``jax.checkpoint``)."""
         if hasattr(self, "superblocks"):
-            return [b for sb in self.superblocks for b in sb.values()] + \
-                list(self.tail.values())
-        return list(self.layers)
+            return [(list(sb.values()), True) for sb in self.superblocks] \
+                + [([b], False) for b in self.tail.values()]
+        return [([b], True) for b in self.layers]
 
 
 def init_model(gen: int | torch.Generator, cfg, *, device=None) -> LM:
@@ -233,18 +247,44 @@ def init_model(gen: int | torch.Generator, cfg, *, device=None) -> LM:
     return model
 
 
-def _run_stack(blocks, x, cfg, *, mode, positions, caches, enc_out=None):
-    """The blocks in order; returns (x, the summed aux losses, the new
-    caches or None)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = []
+def _run_unit(blocks, x, cfg, *, mode, positions, caches, enc_out):
+    aux, new_caches = None, []
     for i, block in enumerate(blocks):
         x, nc, aux_l = _block_apply(
             block, x, cfg, mode=mode, positions=positions,
             cache=None if caches is None else caches[i], enc_out=enc_out)
         if aux_l is not None:
-            aux = aux + aux_l
+            aux = aux_l if aux is None else aux + aux_l
         new_caches.append(nc)
+    return x, new_caches, aux
+
+
+def _run_stack(units, x, cfg, *, mode, positions, caches, enc_out=None,
+               keep_aux=True):
+    """The units (``LM.decoder_units``' form) in order; returns (x, the
+    summed aux losses, zero unless ``keep_aux``, the new caches or None).
+    In mode "train" with ``cfg.remat`` each rematerialisable unit runs
+    under ``torch.utils.checkpoint``: its activations are recomputed in
+    the backward pass, as the reference's ``jax.checkpoint`` recomputes
+    them (the recompute is deterministic, so values and gradients are
+    those of the run without it)."""
+    remat = cfg.remat and mode == "train"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches, at = [], 0
+    for blocks, can_remat in units:
+        cs = None if caches is None else caches[at:at + len(blocks)]
+        at += len(blocks)
+        run = functools.partial(_run_unit, blocks, cfg=cfg, mode=mode,
+                                positions=positions, caches=cs,
+                                enc_out=enc_out)
+        if remat and can_remat:
+            x, ncs, aux_u = torch.utils.checkpoint.checkpoint(
+                run, x, use_reentrant=False)
+        else:
+            x, ncs, aux_u = run(x)
+        if keep_aux and aux_u is not None:
+            aux = aux + aux_u
+        new_caches += ncs
     return x, aux, (new_caches if caches is not None else None)
 
 
@@ -276,12 +316,16 @@ def model_apply(model: LM, batch: dict, cfg, *, mode: str, caches=None):
                 + model.enc_embed[None].to(x.dtype)
             pos = torch.arange(e.shape[1], dtype=torch.int32,
                                device=e.device)[None]
-            e, _, _ = _run_stack(model.enc_layers, e, cfg, mode="encode",
-                                 positions=pos, caches=None)
+            e, _, _ = _run_stack([([b], False) for b in model.enc_layers],
+                                 e, cfg, mode="encode", positions=pos,
+                                 caches=None)
             enc_out = _norm(e, model.enc_final_ln, cfg)
-    x, aux, new_caches = _run_stack(model.decoder_blocks(), x, cfg,
+    # the hybrid's blocks drop their aux losses, as the reference's
+    # _hybrid_apply does
+    x, aux, new_caches = _run_stack(model.decoder_units(), x, cfg,
                                     mode=mode, positions=positions,
-                                    caches=caches, enc_out=enc_out)
+                                    caches=caches, enc_out=enc_out,
+                                    keep_aux=cfg.family != "hybrid")
 
     x = _norm(x, model.final_ln, cfg)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head

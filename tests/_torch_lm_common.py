@@ -1,7 +1,8 @@
 """Shared helpers of the LM substrate's parity tests (``test_torch_lm.py``,
-``test_torch_lm_mixer_models.py``): inputs from numpy seeds, the
-reference's results on one architecture's smoke config, and the checks
-that hold the port's model to them.
+``test_torch_lm_mixer_models.py``, ``test_torch_train*.py``): inputs
+from numpy seeds, the reference's results on one architecture's smoke
+config, and the checks that hold the port's model and its gradients to
+them.
 
 Not a test module (no ``test_`` prefix); it imports JAX, so no test
 meant for the card imports it.
@@ -19,10 +20,13 @@ from repro.configs import get_config as ref_config
 from repro.models import lm as ref_lm
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config
-from repro_torch.interop import params_from_reference
+from repro_torch.interop import (_flatten, params_from_reference,
+                                 reference_leaves, to_reference_tree)
 from repro_torch.models import lm, transformer
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+# float32 gradients: within this share of each reference leaf's max |g|
+GRAD_REL = 1e-4
 # bf16 logits: within this share of max |logit| of the reference's
 BF16_REL = 2e-2
 B, S, STEPS = 2, 12, 12
@@ -216,3 +220,24 @@ def check_bf16_prefill(arch: str) -> None:
     assert all(p.dtype == torch.float32 for p in model.parameters())
     scale = np.abs(want).max()
     assert np.abs(_np(got) - want).max() <= BF16_REL * scale
+
+
+def grad_tree(model, cfg, grads: dict) -> dict:
+    """The port's {name: gradient} as the reference's flat {path: array},
+    a stacked leaf's layers stacked."""
+    by_id = {id(p): grads[n] for n, p in model.named_parameters()}
+    leaves = {path: [by_id[id(p)] for p in leaf] if isinstance(leaf, list)
+              else by_id[id(leaf)]
+              for path, leaf in reference_leaves(model, cfg).items()}
+    return _flatten(to_reference_tree(leaves))
+
+
+def assert_grads_match(got: dict, want: dict) -> None:
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == np.float32, path
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        assert err <= GRAD_REL * scale if scale else err == 0.0, \
+            (path, err, scale)

@@ -9,8 +9,9 @@ on the CPU.
   ``jax.eval_shape``, layer by layer (superblock by superblock for the
   hybrid), for all ten architectures.
 * ``init_model`` draws each tensor from a ``torch.Generator`` with the
-  reference's spread, deterministically; ``make_train_step`` refuses
-  (ROADMAP item 11b).
+  reference's spread, deterministically; ``make_train_step`` no longer
+  refuses (ROADMAP item 11b is done): it takes a step, and its optimizer
+  refuses an unknown gradient compression.
 * ``SyntheticLM`` gives the reference's batches bitwise.
 * ``params_from_reference`` raises on a missing and on a spare leaf, and
   maps the hybrid's stacked superblocks and its tail.
@@ -32,9 +33,10 @@ from repro.data.synthetic_lm import SyntheticLM as RefSyntheticLM
 from repro.models import transformer as ref_tf
 from repro_torch import configs
 from repro_torch.data.synthetic_lm import SyntheticLM
-from repro_torch.interop import params_from_reference
+from repro_torch.interop import params_from_reference, reference_leaves
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_model, make_train_step
+from repro_torch.optim import AdamW
 
 torch.set_num_threads(1)
 
@@ -152,8 +154,20 @@ def test_init_model_is_deterministic_in_its_seed():
 
 
 def test_make_train_step_is_refused_by_item():
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_train_step(configs.get_config("smollm-135m", smoke=True))
+    """Item 11b is ported: the step runs (a finite loss) where it raised
+    NotImplementedError; what is refused now is an unknown option."""
+    cfg = configs.get_config("smollm-135m", smoke=True)
+    model = init_model(0, cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 9), generator=gen)}
+    opt = AdamW(lr=1e-3)
+    _, state, metrics = make_train_step(cfg, opt)(model, opt.init(
+        reference_leaves(model, cfg)), batch)
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    bad = AdamW(grad_compress="fp8")
+    with pytest.raises(ValueError, match="grad_compress"):
+        make_train_step(cfg, bad)(model, bad.init(
+            reference_leaves(model, cfg)), batch)
 
 
 @pytest.mark.parametrize("seed,step,n_shards", [(0, 0, 1), (3, 1, 1),
