@@ -215,6 +215,24 @@ Phases, each of which raises on failure (exit code non-zero):
    timed. deepseek-v2-236b's one layer holds 90 GB of training state
    and is left out.
 
+18. The LM on a mesh (repro_torch.parallel.mesh, parallel.shard_model,
+   the steps with specs; no kernel of their own, and none of the five is
+   launched): the 8 ranks of phases 13-14's spawn (cuda:0, gloo), after
+   their jobs, as a (4, 2) (data, model) mesh. smollm-135m whole (30
+   layers, d=576): 3 sharded train steps at the training CLI's defaults
+   (bf16 on float32 masters, remat, B=8, S=256, the batch pre-shifted so
+   the sequence splits over model), each step's wall, collectives by kind
+   and group with their host seconds, peak device memory by rank; rank 0
+   runs the same steps unsharded (losses, the first gradient and the
+   weights held at bf16's tolerances); float32 at B=2, S=64: the loss,
+   every gradient and AdamW's update on the same gradients against the
+   unsharded port; layers.0.attn.wq spread over the ranks; 4
+   teacher-forced float32 decode steps at B=4 on caches stored sharded,
+   the argmaxes the unsharded decode's. phi3.5-moe-42b-a6.6b's one layer
+   at full width in float32 with moe_impl "a2a" on 2 x 32 tokens against
+   the gather dispatch at capacity E / top_k (loss, aux, gradients).
+   Logged after phase 17.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
 script's total wall time. Run from the root of a checkout: python3
@@ -402,6 +420,38 @@ TRAIN = dict(arch="smollm-135m", cli_steps=30, ckpt_every=10, resume_from=20,
                   "phi3.5-moe-42b-a6.6b": 1, "minicpm3-4b": 1,
                   "whisper-large-v3": 1}, cut_S=32,
              int8=("phi3.5-moe-42b-a6.6b",), bf16_steps=2, bf16_S=64)
+
+
+# phase 18: the LM on a mesh: the 8 ranks of phases 13-14's spawn (cuda:0,
+# gloo) as a (4, 2) (data, model) mesh, after their jobs. smollm-135m
+# whole: `steps` sharded train steps at the training CLI's defaults (bf16
+# on float32 masters, remat, B=batch, S=seq: the batch pre-shifted, so
+# the model sees S positions and the sequence splits over model), rank 0
+# running the same steps unsharded (bf16: the losses within
+# bf16_loss_rtol, under a tenth of what the unsharded loss falls over the
+# steps; each leaf of the first step's gradient as close in norm to the
+# float32 gradient as the unsharded step's is, twice its gap or
+# bf16_rtol: the embedding's bf16 backward sums a frequent token's rows
+# in bf16, in another order on each rank; each leaf's change over the
+# steps within moved_rel of the unsharded change in norm: AdamW's near
+# sign steps flip where a gradient element is near 0, and a step that
+# moves nothing is 1 off); float32 at hold_B x hold_S, one make_train_step
+# on the mesh: the loss (loss_rtol), every gradient (grad_rel of its max
+# |g|) and the new weights against the unsharded AdamW on the step's own
+# gradients (adam_rel of max |w|, adam_moved_rel of the update's max
+# |change|); `decode_steps` teacher-forced float32 decode steps
+# at B=decode_B on caches stored sharded, each step's argmax equal to the
+# unsharded decode's unless its top two are within tie_gap; the MoE
+# config's one layer at full width in float32 with moe_impl "a2a" on
+# moe_B x moe_S tokens against the gather dispatch at capacity E / top_k
+# (rank 0 computes the unsharded hold: ~6.2 GB of weights; no remat, so
+# the expert slabs are gathered once)
+LM_MESH = dict(shape=(4, 2), arch="smollm-135m", steps=3, batch=8, seq=256,
+               lr=3e-4, seed=0, bf16_rtol=2e-2, bf16_loss_rtol=1e-3,
+               moved_rel=0.5, hold_B=2, hold_S=64, loss_rtol=1e-5,
+               grad_rel=1e-4, adam_rel=1e-4, adam_moved_rel=1e-3, decode_B=4,
+               decode_steps=4, tie_gap=1e-3,
+               moe="phi3.5-moe-42b-a6.6b", moe_B=2, moe_S=32)
 
 
 T_START = time.perf_counter()
@@ -2612,6 +2662,476 @@ def rank_iterations(x_path: str, z_path: str, gs_np: dict, kw: dict,
     return out
 
 
+def _rel_gap(got, want) -> float:
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max())
+    return gap / scale if scale else gap
+
+
+def lm_mesh_rank(s: dict) -> dict:
+    """Phase 18 on one rank of the shared spawn (the module docstring
+    and LM_MESH say what it runs); rank 0 also computes the unsharded
+    holds and returns the gaps, every rank its step walls, collectives,
+    peak memory and slices' shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.interop import reference_leaves
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_caches, lm, transformer
+    from repro_torch.models.modules import tree_map
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.parallel import mesh as pmesh
+
+    clock = dict(enter=time.time())
+    w = parallel.world()
+    dev, rank0 = w.device, w.rank == 0
+    mesh = parallel.make_mesh(s["shape"], ("data", "model"))
+    reset_launch_counts()
+    out = dict(rank=w.rank, coords=mesh.coords)
+
+    def wait():
+        torch.cuda.synchronize(dev)
+        parallel.barrier()
+
+    def placed(cfg, mode):
+        """init_model(seed) drawn on the card and sharded, one rank at a
+        time (the MoE layer is 6.2 GB whole)."""
+        model = None
+        for r in range(w.size):
+            if r == w.rank:
+                model = transformer.init_model(s["seed"], cfg, device=dev)
+                pbytes = 2 * sum(p.numel() for p in model.parameters())
+                pspecs = pmesh.resolve_param_specs(
+                    transformer.param_specs(model),
+                    dict(model.named_parameters()), mesh, mode=mode,
+                    param_bytes=pbytes)
+                parallel.shard_model(model, mesh, pspecs)
+                torch.cuda.empty_cache()
+            wait()
+        return model
+
+    def leaf_shardings(model, cfg):
+        names = {id(p): n for n, p in model.named_parameters()}
+        return names, reference_leaves(model, cfg)
+
+    def whole_on_rank0(t, n, layout):
+        """Parameter ``n``'s tensor ``t`` (this rank's slice) whole, in
+        float32, on rank 0's card (None elsewhere): the port's
+        ``gather_tensor`` on host copies, so no rank holds a whole copy
+        on the card. A check's gathers are not the step's: the counts
+        are reset after them."""
+        whole = parallel.gather_tensor(t.detach().float().cpu(),
+                                       layout[n].spec, mesh)
+        return whole.to(dev) if rank0 else None
+
+    def gap_on_rank0(t, n, layout, want, pieces=8):
+        """``_rel_gap`` of parameter ``n``'s whole tensor (``t`` this
+        rank's slice) against rank 0's ``want`` (None elsewhere), gathered
+        a piece at a time along a dim every rank holds whole, so that no
+        rank's host holds a whole expert slab at once."""
+        spec = tuple(layout[n].spec) + (None,) * t.dim()
+        free = next((d for d in range(t.dim())
+                     if spec[d] is None and t.shape[d] >= pieces), None)
+        parts = [t] if free is None else t.chunk(pieces, free)
+        wants = want.chunk(pieces, free) if rank0 and free is not None \
+            else [want] * len(parts)
+        gap = 0.0
+        for part, w_ in zip(parts, wants):
+            got = whole_on_rank0(part, n, layout)
+            if rank0:
+                gap = max(gap, float((got - w_).abs().max()))
+        if rank0:
+            scale = float(want.abs().max())
+            return gap / scale if scale else gap
+        return None
+
+    def by_kind_group():
+        return {g or "all": {k: v for k, v in
+                             parallel.collective_counts(g).items() if v}
+                for g in (None, "data", "model", "world")}, \
+            {k: round(v, 4) for k, v in
+             parallel.collective_seconds().items() if v}
+
+    # (a) smollm-135m, bf16 at the training CLI's defaults
+    cfg = get_config(s["arch"])
+    B, S = s["batch"], s["seq"]
+    data = SyntheticLM(cfg.vocab, S + 1, B, seed=s["seed"])
+
+    def batch_of(i):
+        t = torch.from_numpy(data.batch(i)["tokens"]).long().to(dev)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    class FirstGrads:
+        """The CLI's AdamW, keeping its first update's gradients (the
+        reference's leaves) by parameter name."""
+
+        def __init__(self, model, opt=None):
+            self.opt = opt or AdamW(lr=cosine_schedule(s["lr"], 20, 200))
+            self.names = {id(p): n for n, p in model.named_parameters()}
+            self.grads = None
+
+        def init(self, leaves):
+            return self.opt.init(leaves)
+
+        def update(self, leaves, grads, state, **kw):
+            if self.grads is None:
+                self.grads = {}
+                for path, leaf in leaves.items():
+                    gs = grads[path] if isinstance(leaf, list) \
+                        else [grads[path]]
+                    ps = leaf if isinstance(leaf, list) else [leaf]
+                    self.grads.update({self.names[id(p)]: g
+                                       for p, g in zip(ps, gs)})
+            return self.opt.update(leaves, grads, state, **kw)
+
+    model = placed(cfg, "train")
+    out["wq"] = dict(local=tuple(model.layers[0].attn.wq.shape),
+                     full=model.mesh_layout["layers.0.attn.wq"].shape,
+                     spec=model.mesh_layout["layers.0.attn.wq"].spec,
+                     sum=float(model.layers[0].attn.wq.double().sum()))
+    specs = pmesh.act_specs(mesh, seq_len=S, batch=B, mode="train")
+    opt = FirstGrads(model)
+    state = opt.init(reference_leaves(model, cfg))
+    step = lm.make_train_step(cfg, opt, specs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(s["steps"]):
+        wait()
+        parallel.reset_collective_counts()
+        t0 = time.perf_counter()
+        model, state, met = step(model, state, batch_of(i))
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts, secs = by_kind_group()
+        steps.append(dict(loss=float(met["loss"]), wall=wall,
+                          collectives=counts, seconds=secs))
+    out["bf16"] = dict(steps=steps,
+                       peak=torch.cuda.max_memory_allocated(dev))
+    clock["bf16"] = time.time()
+    # rank 0: the same steps unsharded from the same weights, and the
+    # first batch's float32 gradient; the first gradients' gaps (to each
+    # other and to float32) and the gap of the weights' change over the
+    # steps (sharded against unsharded, in norm)
+    ref = None
+    if rank0:
+        ref = transformer.init_model(s["seed"], cfg, device=dev)
+        w0 = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        _, _, g32 = lm.loss_and_grads(ref, batch_of(0), dataclasses.replace(
+            cfg, dtype="float32"))
+        uopt = FirstGrads(ref)
+        ust = uopt.init(reference_leaves(ref, cfg))
+        ustep = lm.make_train_step(cfg, uopt)
+        ulosses = []
+        for i in range(s["steps"]):
+            ref, ust, um = ustep(ref, ust, batch_of(i))
+            ulosses.append(float(um["loss"]))
+        out["bf16"]["unsharded_losses"] = ulosses
+        gu = uopt.grads
+
+    def norm_gap(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    gaps = {}
+    for n, p in model.named_parameters():
+        g = whole_on_rank0(opt.grads[n], n, model.mesh_layout)
+        wgt = whole_on_rank0(p, n, model.mesh_layout)
+        if rank0:
+            want = gu[n].float()
+            moved = dict(ref.named_parameters())[n].float() - w0[n]
+            gaps[n] = (norm_gap(g, want), _rel_gap(g, want),
+                       norm_gap(wgt - w0[n], moved),
+                       norm_gap(g, g32[n]), norm_gap(want, g32[n]))
+    parallel.reset_collective_counts()
+    del opt, model, state, ref
+    if rank0:
+        out["bf16"]["grad_gaps"] = gaps
+        del gu, uopt, g32, w0
+    torch.cuda.empty_cache()
+    wait()
+    clock["bf16_hold"] = time.time()
+
+    # (b) float32 holds at hold_B x hold_S: one make_train_step on the
+    # mesh (the loss, its gradients, the AdamW update it applies) against
+    # the unsharded loss and gradients and the unsharded AdamW on the
+    # step's own gradients
+    cfg32 = dataclasses.replace(cfg, dtype="float32", remat=False)
+    rng = np.random.default_rng(s["seed"] + 1)
+    hb = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (s["hold_B"], s["hold_S"] + 1))).to(dev)}
+    model = placed(cfg32, "train")
+    specs = pmesh.act_specs(mesh, seq_len=s["hold_S"], batch=s["hold_B"],
+                            mode="train")
+    opt = FirstGrads(model, AdamW(lr=1e-3))
+    st = opt.init(reference_leaves(model, cfg32))
+    parallel.reset_collective_counts()
+    model, st, met = lm.make_train_step(cfg32, opt, specs)(model, st, hb)
+    out["f32"] = dict(loss=float(met["loss"]),
+                      collectives=by_kind_group()[0])
+    whole_g = {n: whole_on_rank0(g, n, model.mesh_layout)
+               for n, g in opt.grads.items()}
+    new = {n: whole_on_rank0(p, n, model.mesh_layout)
+           for n, p in model.named_parameters()}
+    parallel.reset_collective_counts()
+    if rank0:
+        ref = transformer.init_model(s["seed"], cfg32, device=dev)
+        w0 = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        lu, _, gu = lm.loss_and_grads(ref, hb, cfg32)
+        out["f32"]["unsharded_loss"] = float(lu)
+        out["f32"]["grad_gaps"] = {n: _rel_gap(whole_g[n], gu[n])
+                                   for n in gu}
+        rn, rl = leaf_shardings(ref, cfg32)
+        uopt = AdamW(lr=1e-3)
+        ust = uopt.init(rl)
+        uper = {path: [whole_g[rn[id(p)]] for p in leaf]
+                if isinstance(leaf, list) else whole_g[rn[id(leaf)]]
+                for path, leaf in rl.items()}
+        uopt.update(rl, uper, ust)
+        # the weights' gap, of their max |w| and of the update's max |change|
+        out["f32"]["adam_gaps"] = {
+            n: (_rel_gap(new[n], p.detach()),
+                _rel_gap(new[n] - w0[n], p.detach() - w0[n]))
+            for n, p in ref.named_parameters()}
+        del ref, gu, w0
+    del model, opt, whole_g, new, st
+    torch.cuda.empty_cache()
+    wait()
+    clock["f32"] = time.time()
+
+    # (c) decode on the mesh (serve specs; caches stored sharded)
+    DB, n = s["decode_B"], s["decode_steps"]
+    model = placed(cfg32, "serve")
+    toks = torch.from_numpy(np.random.default_rng(s["seed"] + 2).integers(
+        0, cfg.vocab, (DB, n))).to(dev)
+    specs = pmesh.act_specs(mesh, seq_len=1, batch=DB, mode="decode")
+    caches = init_caches(cfg32, DB, n, dev)
+    cspecs = pmesh.layer_cache_specs(cfg32, caches, mesh)
+    caches = tree_map(lambda t, sp: parallel.shard_tensor(t, sp, mesh),
+                      caches, cspecs)
+    out["cache_local"] = tuple(tuple(t.shape) for t in caches[0])
+    decode = lm.make_decode_step(cfg32, specs, cspecs)
+    got, walls = [], []
+    for i in range(n):
+        wait()
+        t0 = time.perf_counter()
+        nxt, caches = decode(model, {"tokens": toks[:, i:i + 1]}, caches)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        got.append(nxt.cpu().numpy())
+    out["decode"] = dict(walls=walls, tokens=np.stack(got, 1))
+    del model, caches
+    torch.cuda.empty_cache()
+    if rank0:
+        ref = transformer.init_model(s["seed"], cfg32, device=dev)
+        uc = init_caches(cfg32, DB, n, dev)
+        want, gaps = [], []
+        for i in range(n):
+            with torch.inference_mode():
+                logits, _, uc = transformer.model_apply(
+                    ref, {"tokens": toks[:, i:i + 1]}, cfg32, mode="decode",
+                    caches=uc)
+            top2 = logits[:, -1].topk(2, dim=-1).values
+            want.append(logits[:, -1].argmax(-1).cpu().numpy())
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        out["decode"]["unsharded"] = np.stack(want, 1)
+        out["decode"]["top2_gap"] = np.stack(gaps, 1)
+        del ref, uc
+        torch.cuda.empty_cache()
+    wait()
+    clock["decode"] = time.time()
+
+    # (d) the MoE config's one layer at full width, a2a against gather
+    mcfg = get_config(s["moe"])
+    mcfg = dataclasses.replace(
+        mcfg, n_layers=1, dtype="float32", moe_impl="a2a", remat=False,
+        capacity_factor=mcfg.n_experts / mcfg.top_k)
+    mb = {"tokens": torch.from_numpy(np.random.default_rng(
+        s["seed"] + 3).integers(0, mcfg.vocab, (s["moe_B"],
+                                                s["moe_S"] + 1))).to(dev)}
+    model = placed(mcfg, "train")
+    clock["moe_placed"] = time.time()
+    specs = pmesh.act_specs(mesh, seq_len=s["moe_S"], batch=s["moe_B"],
+                            mode="train")
+    torch.cuda.reset_peak_memory_stats(dev)
+    wait()
+    parallel.reset_collective_counts()
+    t0 = time.perf_counter()
+    loss, met, grads = lm.loss_and_grads(model, mb, mcfg, 0.01, specs)
+    torch.cuda.synchronize(dev)
+    counts, secs = by_kind_group()
+    out["moe"] = dict(loss=float(loss), aux=float(met["aux"]),
+                      wall=time.perf_counter() - t0, collectives=counts,
+                      seconds=secs, peak=torch.cuda.max_memory_allocated(dev))
+    layout = model.mesh_layout
+    del model
+    torch.cuda.empty_cache()
+    wait()
+    clock["moe_step"] = time.time()
+    if rank0:
+        ref = transformer.init_model(
+            s["seed"], dataclasses.replace(mcfg, moe_impl="gather"),
+            device=dev)
+        lu, mu, gu = lm.loss_and_grads(ref, mb, mcfg)
+        out["moe"]["unsharded"] = dict(loss=float(lu), aux=float(mu["aux"]))
+        del ref
+    gaps = {}
+    for n, g in grads.items():
+        gap = gap_on_rank0(g, n, layout, gu[n] if rank0 else None)
+        if rank0:
+            gaps[n] = gap
+    parallel.reset_collective_counts()
+    if rank0:
+        out["moe"]["grad_gaps"] = gaps
+        del gu
+    del grads
+    torch.cuda.empty_cache()
+    out["launches"] = launch_counts()
+    clock["done"] = time.time()
+    out["clock"] = clock
+    return out
+
+
+def check_lm_mesh(ranks: list, clock: dict) -> dict:
+    """Phase 18's holds on its ranks' results (``lm_mesh_rank``); raises
+    on any that fails. Returns what ``log_lm_mesh`` prints."""
+    import numpy as np
+
+    s = LM_MESH
+    r0 = ranks[0]
+    bad = []
+    b = r0["bf16"]
+    for i, (st, u) in enumerate(zip(b["steps"], b["unsharded_losses"])):
+        if abs(st["loss"] - u) > s["bf16_loss_rtol"] * abs(u):
+            bad.append(f"bf16 step {i} loss {st['loss']} vs {u}")
+        if any(r["bf16"]["steps"][i]["loss"] != st["loss"] for r in ranks):
+            bad.append(f"bf16 step {i}: the ranks' losses differ")
+    g_worst = max((v[0], n) for n, v in b["grad_gaps"].items())
+    g_elem = max((v[1], n) for n, v in b["grad_gaps"].items())
+    w_worst = max((v[2], n) for n, v in b["grad_gaps"].items())
+    # each leaf's bf16 gradient as close to the float32 one as the
+    # unsharded step's (twice its gap, or bf16_rtol)
+    g32 = max((v[3] / max(2 * v[4], s["bf16_rtol"]), n, v[3], v[4])
+              for n, v in b["grad_gaps"].items())
+    fall = (b["unsharded_losses"][0] - b["unsharded_losses"][-1]) / abs(
+        b["unsharded_losses"][0])
+    if s["bf16_loss_rtol"] > fall / 10:
+        bad.append(f"the bf16 loss limit {s['bf16_loss_rtol']} would pass "
+                   f"steps that move nothing (the loss falls {fall})")
+    if g32[0] > 1 or w_worst[0] > s["moved_rel"]:
+        bad.append(f"bf16 gradient {g32} or weight change {w_worst} gap")
+    f = r0["f32"]
+    f_loss = abs(f["loss"] - f["unsharded_loss"]) / abs(f["unsharded_loss"])
+    f_grad = max((v, n) for n, v in f["grad_gaps"].items())
+    f_adam = max((v[0], n) for n, v in f["adam_gaps"].items())
+    f_moved = max((v[1], n) for n, v in f["adam_gaps"].items())
+    if f_loss > s["loss_rtol"] or f_grad[0] > s["grad_rel"] or \
+            f_adam[0] > s["adam_rel"] or f_moved[0] > s["adam_moved_rel"]:
+        bad.append(f"float32 loss {f_loss}, gradient {f_grad}, AdamW "
+                   f"{f_adam}, change {f_moved}")
+    d = r0["decode"]
+    near = d["top2_gap"] < s["tie_gap"]
+    differ = (d["tokens"] != d["unsharded"])
+    if (differ & ~near).any() or any(
+            not np.array_equal(r["decode"]["tokens"], d["tokens"])
+            for r in ranks):
+        bad.append(f"decode tokens {d['tokens'].tolist()} vs "
+                   f"{d['unsharded'].tolist()}")
+    wq = [r["wq"] for r in ranks]
+    spread = len({(q["sum"], q["local"]) for q in wq})
+    if spread < 2 or wq[0]["local"] == wq[0]["full"]:
+        bad.append(f"wq not spread over the ranks: {wq}")
+    m = r0["moe"]
+    m_loss = abs(m["loss"] - m["unsharded"]["loss"]) / abs(
+        m["unsharded"]["loss"])
+    m_aux = abs(m["aux"] - m["unsharded"]["aux"]) / abs(
+        m["unsharded"]["aux"])
+    m_grad = max((v, n) for n, v in m["grad_gaps"].items())
+    if m_loss > s["loss_rtol"] or m_aux > s["loss_rtol"] or \
+            m_grad[0] > s["grad_rel"]:
+        bad.append(f"MoE a2a vs gather: loss {m_loss}, aux {m_aux}, "
+                   f"gradient {m_grad}")
+    if not m["collectives"]["model"].get("all_to_all"):
+        bad.append(f"MoE: no all-to-all over model: {m['collectives']}")
+    launched = {k: v for r in ranks for k, v in r["launches"].items() if v}
+    if launched:
+        bad.append(f"phase 18 launched a kernel: {launched}")
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    return dict(ranks=ranks, clock=clock, g_worst=g_worst, g_elem=g_elem,
+                g32=g32, w_worst=w_worst,
+                f_loss=f_loss, f_grad=f_grad, f_adam=f_adam,
+                f_moved=f_moved, fall=fall,
+                near=int(near.sum()), differ=int(differ.sum()),
+                m_loss=m_loss, m_aux=m_aux, m_grad=m_grad)
+
+
+def log_lm_mesh(v: dict, smi: str) -> None:
+    s, ranks = LM_MESH, v["ranks"]
+    r0 = ranks[0]
+    b = r0["bf16"]
+    walls = [[round(st["wall"], 3) for st in r["bf16"]["steps"]]
+             for r in ranks]
+    log(f"[18] {s['arch']} whole on a {s['shape']} (data, model) mesh, "
+        f"{len(ranks)} ranks on cuda:0 over gloo, bf16 on float32 masters, "
+        f"remat, B={s['batch']} S={s['seq']}: {s['steps']} sharded steps, "
+        f"losses {[round(st['loss'], 6) for st in b['steps']]} (unsharded "
+        f"{[round(x, 6) for x in b['unsharded_losses']]}, limit "
+        f"{s['bf16_loss_rtol']} relative, the unsharded loss falls "
+        f"{v['fall']:.4g}); step walls by rank {walls} s; peak "
+        f"device memory by rank {[r['bf16']['peak'] for r in ranks]} "
+        f"bytes; gpu: {smi}")
+    for i, st in enumerate(b["steps"]):
+        log(f"[18] bf16 step {i} on rank 0: collectives by group "
+            f"{st['collectives']}, host seconds {st['seconds']}")
+    log(f"[18] bf16 first gradient: against the unsharded step's, worst "
+        f"leaf {v['g_worst'][1]} {v['g_worst'][0]:.3g} of its norm, largest "
+        f"element gap {v['g_elem'][1]} {v['g_elem'][0]:.3g} of its max |g|; "
+        f"against float32's, the worst leaf for its limit {v['g32'][1]}: "
+        f"{v['g32'][2]:.3g} of its norm, the unsharded bf16 step's "
+        f"{v['g32'][3]:.3g} (limit: twice that, or {s['bf16_rtol']}); "
+        f"the weights' change over {s['steps']} steps against the "
+        f"unsharded change: worst {v['w_worst'][1]} at "
+        f"{v['w_worst'][0]:.3g} of its norm (limit {s['moved_rel']}; a "
+        f"step that moves nothing is 1)")
+    f = r0["f32"]
+    log(f"[18] float32 B={s['hold_B']} S={s['hold_S']}: loss "
+        f"{f['loss']:.8f} vs unsharded {f['unsharded_loss']:.8f} "
+        f"({v['f_loss']:.3g} relative, limit {s['loss_rtol']}); worst "
+        f"gradient {v['f_grad'][1]} {v['f_grad'][0]:.3g} of its max |g| "
+        f"(limit {s['grad_rel']}); one make_train_step's weights against "
+        f"the unsharded AdamW on its gradients, worst {v['f_adam'][1]} "
+        f"{v['f_adam'][0]:.3g} of max |w| (limit {s['adam_rel']}), "
+        f"{v['f_moved'][1]} {v['f_moved'][0]:.3g} of the update's max "
+        f"|change| (limit {s['adam_moved_rel']}); the step's collectives "
+        f"{f['collectives']}")
+    q = r0["wq"]
+    log(f"[18] layers.0.attn.wq {q['full']} as {q['spec']}: {q['local']} "
+        f"on each rank, {len({r['wq']['sum'] for r in ranks})} distinct "
+        f"slices over {len(ranks)} ranks")
+    d = r0["decode"]
+    log(f"[18] decode, float32, B={s['decode_B']}, {s['decode_steps']} "
+        f"teacher-forced steps on caches stored sharded (a layer's k on a "
+        f"rank: {r0['cache_local'][0]}): argmaxes {d['tokens'].tolist()}, "
+        f"{v['differ']} differ from the unsharded decode's ({v['near']} "
+        f"near ties under {s['tie_gap']}); step walls "
+        f"{[round(t, 3) for t in d['walls']]} s")
+    m = r0["moe"]
+    log(f"[18] {s['moe']} one layer, float32, a2a on {s['moe_B']} x "
+        f"{s['moe_S']} tokens vs the gather dispatch at capacity E/top_k: "
+        f"loss {v['m_loss']:.3g} relative, aux {v['m_aux']:.3g}, worst "
+        f"gradient {v['m_grad'][1]} {v['m_grad'][0]:.3g} of its max |g|; "
+        f"forward+backward {m['wall']:.3f} s, collectives by group "
+        f"{m['collectives']}, host seconds {m['seconds']}; peak device "
+        f"memory by rank {[r['moe']['peak'] for r in ranks]} bytes")
+    log(f"[18] the spawn's clock (s after it started): {v['clock']}; "
+        f"launches of the five kernels: none")
+
+
 def rank_jobs(jobs: list) -> list:
     """On one rank of ``parallel.spawn``: each (function, arguments) of
     ``jobs`` in turn, in the one process group, and their results in
@@ -2637,19 +3157,22 @@ def spawn_clock(ranks: list, t0: float, tag: str,
 
 
 def spawn_layouts(tmp: Path, data: tuple, phase5: tuple, bank) -> dict:
-    """Phases 13 and 14's rank work in one spawn: phase 5's P ranks on
+    """Phases 13, 14 and 18's rank work in one spawn: phase 5's P ranks on
     cuda:0 (gloo) run phase 13's shardmap job, then phase 14's C x P mesh
-    job (the same world: C·P = P); then one rank in an NCCL world of one
-    runs phase 13's and phase 14's jobs at P=1. Returns each phase's
-    ranks, its world of one's result and the spawns' clocks."""
+    job (the same world: C·P = P), then phase 18's LM on a (4, 2) mesh;
+    then one rank in an NCCL world of one runs phase 13's and phase 14's
+    jobs at P=1. Returns each phase's ranks, its world of one's result
+    and the spawns' clocks."""
     import torch
 
     from repro_torch import parallel
 
-    if MESH["C"] * MESH["P"] != FULL["P"]:
-        raise AssertionError("phases 13 and 14 share one world of ranks")
+    if MESH["C"] * MESH["P"] != FULL["P"] or \
+            math.prod(LM_MESH["shape"]) != FULL["P"]:
+        raise AssertionError("phases 13, 14 and 18 share one world of ranks")
     jobs = [(rank_iterations, shardmap_job(tmp, data, phase5)),
-            (rank_iterations, mesh_job(tmp, data, phase5, bank))]
+            (rank_iterations, mesh_job(tmp, data, phase5, bank)),
+            (lm_mesh_rank, (LM_MESH,))]
     ones = [(rank_iterations, shardmap_one_job(tmp, data, phase5)),
             (drive_mesh, mesh_one_job(tmp, data))]
     torch.cuda.empty_cache()
@@ -2664,10 +3187,13 @@ def spawn_layouts(tmp: Path, data: tuple, phase5: tuple, bank) -> dict:
     stamp(f"[13-14] the world of one rank: {t_one:.1f} s")
     return dict(
         ranks13=[r[0] for r in ranks], ranks14=[r[1] for r in ranks],
+        ranks18=[r[2] for r in ranks],
         one13=one[0], one14=one[1], spawn_seconds=t_spawn,
         one_spawn_seconds=t_one,
         clock13=spawn_clock([r[0] for r in ranks], w0, "[13]", w1),
-        clock14=spawn_clock([r[1] for r in ranks], w0, "[14]", w1))
+        clock14=spawn_clock([r[1] for r in ranks], w0, "[14]", w1),
+        clock18={k: round(max(r[2]["clock"][k] for r in ranks) - w0, 2)
+                 for k in ranks[0][2]["clock"]})
 
 
 def shard_uniforms(gs, p: int, shape: tuple, dev):
@@ -2838,6 +3364,8 @@ def check_rank_launches(ranks: list, sync: str, L: int) -> None:
     feature_stats 1, gaussian_sse 1 under staged and 0 under fused; 3
     all-reduces under staged, 1 under fused, none over the chain axis;
     the stale pass: the sweeps and p′'s tail, no collective."""
+    from repro_torch import parallel
+
     for r in ranks:
         run = r[sync]
         for i, st in enumerate(run["steps"]):
@@ -2845,8 +3373,8 @@ def check_rank_launches(ranks: list, sync: str, L: int) -> None:
             want = dict(gibbs_flip=L, collapsed_scan=L if pp else 0,
                         feature_stats=1,
                         gaussian_sse=1 if sync == "staged" else 0)
-            want_c = dict(all_reduce_sum=3 if sync == "staged" else 1,
-                          all_gather_rows=0)
+            want_c = dict(dict.fromkeys(parallel.group.OPS, 0),
+                          all_reduce_sum=3 if sync == "staged" else 1)
             got = {k: st["launches"].get(k, 0) for k in want}
             if (got != want or st["collectives"] != want_c
                     or any(st["collectives_chains"].values())):
@@ -4816,6 +5344,7 @@ def main() -> int:
     # phase 14: the chains x data mesh on C·P ranks
     t0 = time.perf_counter()
     mesh, mesh_counts = run_mesh(ltmp, data, phase5, bank, dev, spawned)
+    lm_ranks, lm_clock = spawned["ranks18"], spawned["clock18"]
     del spawned
     layouts_dir.cleanup()
     log(f"[14] mesh: {json.dumps(mesh)}")
@@ -4974,6 +5503,12 @@ def main() -> int:
         raise AssertionError(f"phase 17 launched a kernel: {train_counts}")
     log(f"[17] launches {train_counts}; phase took "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 18: the LM on a mesh (its ranks' work done in phase 13's spawn)
+    t0 = time.perf_counter()
+    lm_mesh = check_lm_mesh(lm_ranks, lm_clock)
+    log_lm_mesh(lm_mesh, smi)
+    log(f"[18] phase took {time.perf_counter() - t0:.1f} s here")
 
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():

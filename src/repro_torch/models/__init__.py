@@ -1,16 +1,19 @@
 """The LM substrate's models: the attention families (ROADMAP item
 11a-1), the other temporal mixers, MoE, mamba-1 SSM, RG-LRU and the
-hybrid stack (item 11a-2), and their training step (item 11b).
+hybrid stack (item 11a-2), their training step (item 11b), and their
+runs on a mesh of ranks (item 11c-1: ``ActSpecs``, each parameter's
+declared spec, ``param_specs``).
 
-The counterpart of ``repro/models``; ``ActSpecs`` (activation sharding)
-waits for ROADMAP item 11c.
+The counterpart of ``repro/models``.
 """
 from .transformer import (
+    ActSpecs,
     init_caches,
     init_model,
     layer_kind,
     model_apply,
     pad_vocab,
+    param_specs,
 )
 from .lm import (
     cross_entropy,
@@ -26,11 +29,13 @@ from .rglru import RGLRUCache, rglru_apply
 from .ssm import SSMCache, ssm_apply
 
 __all__ = [
+    "ActSpecs",
     "init_caches",
     "init_model",
     "layer_kind",
     "model_apply",
     "pad_vocab",
+    "param_specs",
     "cross_entropy",
     "greedy_generate",
     "lm_loss",

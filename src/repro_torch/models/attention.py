@@ -14,6 +14,13 @@ A decode step writes its token's keys and values into the cache's
 tensors in place (no copy of the cache a step) and returns them with the
 length advanced; the length is a 0-d int32 tensor on the cache's device,
 so a step never waits for the host.
+
+On a mesh (``specs.mesh``) a mixer gathers the sequence of its input
+block (``maybe_shard`` to the stream's batch entry, the rest whole),
+computes every head on it, and returns its output to the stream's
+layout: in training under sequence parallelism through ``sp_out_proj``
+(the rank's features times its rows of ``wo``, one reduce-scatter over
+the sequence), else by slicing the whole out-projection.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .modules import linear_init, proj, rope
+from .modules import (FSDP, TP, linear_init, proj, rope, seq_whole,
+                      sp_out_proj, to_stream)
 
 NEG_INF = -1e30
 
@@ -127,6 +135,18 @@ def _write(buf: torch.Tensor, new: torch.Tensor, at: torch.Tensor) -> None:
     buf.index_copy_(1, idx, new.to(buf.dtype))
 
 
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, specs, mode: str,
+              whole) -> torch.Tensor:
+    """``out @ wo`` in the stream's layout: under sequence parallelism
+    in training, ``sp_out_proj``'s reduce-scatter; else the whole product
+    moved there (``maybe_shard``)."""
+    if whole is None:
+        return proj(out, wo)
+    if mode == "train" and specs.hid[1] is not None:
+        return sp_out_proj(out, wo, specs, specs.hid, whole)
+    return to_stream(proj(out, wo), specs, whole)
+
+
 # --------------------------------------------------------------------------
 # GQA block
 # --------------------------------------------------------------------------
@@ -141,7 +161,7 @@ class GQA(torch.nn.Module):
         self.wq = linear_init(d, H * hd, device)
         self.wk = linear_init(d, KV * hd, device)
         self.wv = linear_init(d, KV * hd, device)
-        self.wo = linear_init(H * hd, d, device)
+        self.wo = linear_init(H * hd, d, device, (TP, FSDP))
 
 
 def gqa_apply(
@@ -154,7 +174,9 @@ def gqa_apply(
     cache: KVCache | None = None,
     kv_src: torch.Tensor | None = None,   # cross-attention source (enc-dec)
     window: int = 0,
+    specs=None,                # ActSpecs: on a mesh, the stream's layout
 ) -> tuple[torch.Tensor, KVCache | None]:
+    x, whole = seq_whole(x, specs)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     G = H // KV
@@ -198,8 +220,8 @@ def gqa_apply(
                                 window=window)
         new_cache = None
 
-    y = proj(out.reshape(B, S, H * hd), p.wo)
-    return y, new_cache
+    return _out_proj(out.reshape(B, S, H * hd), p.wo, specs, mode,
+                     whole), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -217,15 +239,15 @@ class MLA(torch.nn.Module):
         r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
         nd = cfg.qk_nope_dim or hd
         if cfg.q_lora_rank:
-            self.wdq = linear_init(d, cfg.q_lora_rank, device)
+            self.wdq = linear_init(d, cfg.q_lora_rank, device, (FSDP, None))
             self.wuq = linear_init(cfg.q_lora_rank, H * (nd + rd), device)
         else:
             self.wq = linear_init(d, H * (nd + rd), device)
-        self.wdkv = linear_init(d, r, device)
-        self.wkr = linear_init(d, rd, device)
+        self.wdkv = linear_init(d, r, device, (FSDP, None))
+        self.wkr = linear_init(d, rd, device, (FSDP, None))
         self.wuk = linear_init(r, H * nd, device)
         self.wuv = linear_init(r, H * hd, device)
-        self.wo = linear_init(H * hd, d, device)
+        self.wo = linear_init(H * hd, d, device, (TP, FSDP))
 
 
 def mla_apply(
@@ -236,7 +258,9 @@ def mla_apply(
     mode: str,
     positions: torch.Tensor | None = None,
     cache: KVCache | None = None,
+    specs=None,                # ActSpecs: on a mesh, the stream's layout
 ) -> tuple[torch.Tensor, KVCache | None]:
+    x, whole = seq_whole(x, specs)
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
@@ -292,8 +316,8 @@ def mla_apply(
         ).reshape(B, S, H, hd)
         new_cache = None
 
-    y = proj(out.reshape(B, S, H * hd), p.wo)
-    return y, new_cache
+    return _out_proj(out.reshape(B, S, H * hd), p.wo, specs, mode,
+                     whole), new_cache
 
 
 def init_gqa_cache(cfg, B: int, S: int, dtype: torch.dtype, device=None,

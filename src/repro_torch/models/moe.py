@@ -9,10 +9,22 @@ rank >= C (the capacity, from the static T) drop. The experts' GEMMs are
 batched over a dense (E, C, d) layout, and ``n_shared_experts`` always-on
 experts run as one dense SwiGLU of width shared * d_ff_expert.
 
-The reference's other schedule, ``"a2a"`` (local tables, an all-to-all
-over the mesh's tensor-parallel axis), needs a mesh (ROADMAP item 11c);
-without one the reference takes the gather path for every
-``moe_impl``, and so does the port.
+``cfg.moe_impl`` selects the dispatch on a mesh (``specs.mesh``), as the
+reference's does:
+
+* ``"gather"``, and every case ``_a2a_applicable`` refuses (no mesh, a
+  decode step's S = 1): the global-capacity table over every token of
+  the batch. On a mesh the rank's tokens are all-gathered first, the
+  dispatch runs on all of them (the reference's arithmetic: one global
+  capacity) and the rank keeps its block of the output.
+* ``"a2a"``: tokens stay split over (dp on batch, tp on sequence); each
+  rank builds local (E, C_dev) tables from its own tokens (capacity per
+  device, GShard's group semantics), all-to-alls the (E, C_dev, d) slabs
+  over the tp group, so each rank runs its own E/tp experts on what
+  every rank of the group sent them, with no gather of the experts'
+  weights, and reverses the all-to-all. The load-balance aux loss comes
+  from the global counts and prob sums, one all-reduce over the axes
+  the tokens are split over.
 
 Every table is built with static shapes and no host read: a dropped slot
 is written to a spare column that is sliced away, and each token's k
@@ -26,7 +38,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .modules import _param, linear_init
+from repro_torch.parallel import group as _group
+
+from .modules import FSDP, TP, P, _param, full_dim, linear_init, maybe_shard
 
 
 class MoE(torch.nn.Module):
@@ -37,13 +51,14 @@ class MoE(torch.nn.Module):
         super().__init__()
         d, E = cfg.d_model, cfg.n_experts
         ff = cfg.d_ff_expert or cfg.d_ff
-        self.router = linear_init(d, E, device)
-        self.wi = _param((E, d, 2 * ff), device)
-        self.wo = _param((E, ff, d), device)
+        self.router = linear_init(d, E, device, (FSDP, None))
+        # experts: fused gate+up (E, d, 2ff), down (E, ff, d); E over TP
+        self.wi = _param((E, d, 2 * ff), device, (TP, FSDP, None))
+        self.wo = _param((E, ff, d), device, (TP, None, FSDP))
         if cfg.n_shared_experts:
             sh_ff = cfg.n_shared_experts * ff
             self.shared_wi = linear_init(d, 2 * sh_ff, device)
-            self.shared_wo = linear_init(sh_ff, d, device)
+            self.shared_wo = linear_init(sh_ff, d, device, (TP, FSDP))
 
 
 def _swiglu(x: torch.Tensor) -> torch.Tensor:
@@ -114,31 +129,96 @@ def _moe_gather(p: MoE, xt: torch.Tensor, cfg
     aux = E * torch.sum((counts / T) * (prob_sum / T))
     C = max(1, int(T * k / E * cfg.capacity_factor))
     table, gtable, slots = _dispatch(expert_ids, gate_vals, counts, E, C, T)
+    ye = _expert_ffn(_rows(xt, table), p.wi, p.wo)            # (E, C, d)
+    return _combine(ye, gtable, slots), aux
 
-    xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    ye = _expert_ffn(xpad[table], p.wi, p.wo)                 # (E, C, d)
+
+def _rows(xt: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The (E, C, d) expert inputs: the table's token rows, the zero row
+    for an empty slot."""
+    xpad = torch.cat([xt, xt.new_zeros((1, xt.shape[1]))], dim=0)
+    return xpad[table]
+
+
+def _combine(ye: torch.Tensor, gtable: torch.Tensor, slots: torch.Tensor
+             ) -> torch.Tensor:
+    """Each token's k slots of ``ye`` (E, C, d), gated, added in the
+    table's order, in ye's dtype: (T, d)."""
+    E, C, d = ye.shape
     ye = ye * gtable[..., None].to(ye.dtype)
-    # each token's k slots added in the table's order, in ye's dtype
     ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))], dim=0)
     y = ye[slots[:, 0]]
-    for j in range(1, k):
+    for j in range(1, slots.shape[1]):
         y = y + ye[slots[:, j]]
-    return y, aux
+    return y
 
 
-def _a2a_applicable(cfg, mesh, S: int) -> bool:
-    """Whether the all-to-all schedule runs: never without a mesh, as the
-    reference's decides when ``specs.mesh is None``; over a mesh's
-    tensor-parallel axis it is ROADMAP item 11c."""
-    return mesh is not None and cfg.moe_impl == "a2a"
+def _a2a_applicable(cfg, specs, S: int) -> bool:
+    """Whether the all-to-all schedule runs: on a mesh with a tp axis of
+    more than one rank that divides the experts, and a sequence S that
+    splits over it (train and prefill); decode (S = 1) keeps the gather
+    path, whose global capacity drops fewer tokens at tiny T."""
+    if (cfg.moe_impl != "a2a" or specs is None or specs.mesh is None
+            or specs.tp is None):
+        return False
+    tp_n = int(specs.mesh.axis_size(specs.tp))
+    return cfg.n_experts % tp_n == 0 and tp_n > 1 and S % tp_n == 0
 
 
-def moe_apply(p: MoE, x: torch.Tensor, cfg
+def _moe_a2a(p: MoE, x: torch.Tensor, cfg, specs
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local dispatch -> all-to-all -> the rank's expert GEMMs ->
+    all-to-all -> combine. x: the rank's block in ``specs.hid``; its
+    tokens split over (``hid``'s batch entry, tp on the sequence) for the
+    exchange. ``p.wi``/``p.wo`` are the rank's expert slabs (E/tp, ...),
+    or whole (its slab is taken)."""
+    mesh, tp = specs.mesh, specs.tp
+    E, k = cfg.n_experts, cfg.top_k
+    bdim = specs.hid[0]
+    x_spec = P(bdim, tp, None)
+    T_global = (full_dim(x.shape[0], bdim, mesh)
+                * full_dim(x.shape[1], specs.hid[1], mesh))
+    xs = maybe_shard(x, x_spec, mesh, specs.hid)
+    Bl, Sl, d = xs.shape
+    T = Bl * Sl
+    xt = xs.reshape(T, d)
+    gate_vals, expert_ids, counts, prob_sum = _route(xt, p.router, E, k)
+    # load-balance aux from the GLOBAL stats (one all-reduce of (2E,))
+    stat_axes = _group.entry_axes(bdim) + (tp,)
+    g_counts, g_prob = _group.all_reduce_sum(
+        counts, prob_sum, group=_group.axes_group(mesh, stat_axes))
+    aux = E * torch.sum((g_counts / T_global) * (g_prob / T_global))
+
+    C = max(1, int(T * k / E * cfg.capacity_factor))
+    table, gtable, slots = _dispatch(expert_ids, gate_vals, counts, E, C, T)
+    group = mesh.group(tp)
+    # exchange: every rank sends expert block j to tp rank j
+    xe = _group.all_to_all(_rows(xt, table), group, 0, 1)  # (E/tp, C tp, d)
+    E_loc, r = E // group.size, mesh.axis_index(tp)
+    wi, wo = p.wi, p.wo
+    if wi.shape[0] == E:
+        wi, wo = wi.narrow(0, r * E_loc, E_loc), wo.narrow(0, r * E_loc, E_loc)
+    ye = _expert_ffn(xe, wi, wo)
+    ye = _group.all_to_all(ye, group, 1, 0)                 # (E, C, d)
+    y = _combine(ye, gtable, slots).reshape(Bl, Sl, d)
+    return maybe_shard(y, specs.hid, mesh, x_spec), aux
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg, *, specs=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, d), aux_loss). x: (B, S, d)."""
+    """Returns (y (B, S, d), aux_loss). x: (B, S, d); on a mesh
+    (``specs.mesh``) the rank's block in ``specs.hid``, and so is y."""
     B, S, d = x.shape
-    y, aux = _moe_gather(p, x.reshape(B * S, d), cfg)
-    y = y.reshape(B, S, d)
+    mesh = None if specs is None else specs.mesh
+    if mesh is None:
+        y, aux = _moe_gather(p, x.reshape(B * S, d), cfg)
+        y = y.reshape(B, S, d)
+    elif _a2a_applicable(cfg, specs, full_dim(S, specs.hid[1], mesh)):
+        y, aux = _moe_a2a(p, x, cfg, specs)
+    else:
+        xf = maybe_shard(x, P(), mesh, specs.hid)             # every token
+        y, aux = _moe_gather(p, xf.reshape(-1, d), cfg)
+        y = maybe_shard(y.reshape(xf.shape), specs.hid, mesh, P())
     if cfg.n_shared_experts:
         sh = _swiglu(torch.matmul(x, p.shared_wi.to(x.dtype)))
         y = y + torch.matmul(sh, p.shared_wo.to(x.dtype))

@@ -15,7 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from .modules import _param, activation, linear_init, proj
+from .modules import (FSDP, TP, _param, activation, linear_init, proj,
+                      seq_whole, to_stream)
 from .ssm import _advance, _causal_conv, softplus
 from .ssm import _ssm_scan_chunked as _lru_scan_chunked
 
@@ -38,17 +39,18 @@ class RGLRU(torch.nn.Module):
         dr = cfg.d_rnn or d
         self.in_x = linear_init(d, dr, device)
         self.in_gate = linear_init(d, dr, device)
-        self.conv_w = _param((cfg.ssm_conv, dr), device)
-        self.w_a = linear_init(dr, dr, device)
-        self.w_i = linear_init(dr, dr, device)
-        self.lam = _param((dr,), device)
-        self.out = linear_init(dr, d, device)
+        self.conv_w = _param((cfg.ssm_conv, dr), device, (None, TP))
+        self.w_a = linear_init(dr, dr, device, (None, TP))
+        self.w_i = linear_init(dr, dr, device, (None, TP))
+        self.lam = _param((dr,), device, (TP,))
+        self.out = linear_init(dr, d, device, (TP, FSDP))
 
 
 def rglru_apply(p: RGLRU, x: torch.Tensor, cfg, *, mode: str,
-                cache: RGLRUCache | None = None
+                cache: RGLRUCache | None = None, specs=None
                 ) -> tuple[torch.Tensor, RGLRUCache | None]:
-    """x (B, S, d); the modes as ``ssm.ssm_apply``'s."""
+    """x (B, S, d); the modes and the mesh as ``ssm.ssm_apply``'s."""
+    x, whole = seq_whole(x, specs)
     B, S, d = x.shape
     dr = cfg.d_rnn or d
     decode = mode == "decode"
@@ -74,7 +76,7 @@ def rglru_apply(p: RGLRU, x: torch.Tensor, cfg, *, mode: str,
         new_cache = None
 
     y = hs.to(x.dtype) * gate
-    return proj(y, p.out), new_cache
+    return to_stream(proj(y, p.out), specs, whole), new_cache
 
 
 def init_rglru_cache(cfg, B: int, dtype: torch.dtype, device=None

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .modules import _param, linear_init, proj
+from .modules import (FSDP, TP, _param, linear_init, proj, seq_whole,
+                      to_stream)
 
 
 class SSMCache(NamedTuple):
@@ -35,12 +36,12 @@ class SSM(torch.nn.Module):
         d, di, n, dtr, ck = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                              cfg.dt_rank, cfg.ssm_conv)
         self.in_proj = linear_init(d, 2 * di, device)
-        self.conv_w = _param((ck, di), device)
-        self.x_proj = linear_init(di, dtr + 2 * n, device)
-        self.dt_proj = linear_init(dtr, di, device)
-        self.A_log = _param((di, n), device)
-        self.D = _param((di,), device)
-        self.out_proj = linear_init(di, d, device)
+        self.conv_w = _param((ck, di), device, (None, TP))
+        self.x_proj = linear_init(di, dtr + 2 * n, device, (TP, None))
+        self.dt_proj = linear_init(dtr, di, device, (None, TP))
+        self.A_log = _param((di, n), device, (TP, None))
+        self.D = _param((di,), device, (TP,))
+        self.out_proj = linear_init(di, d, device, (TP, FSDP))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -106,11 +107,14 @@ def _advance(cache, h: torch.Tensor, x_new: torch.Tensor):
 
 
 def ssm_apply(p: SSM, x: torch.Tensor, cfg, *, mode: str,
-              cache: SSMCache | None = None
+              cache: SSMCache | None = None, specs=None
               ) -> tuple[torch.Tensor, SSMCache | None]:
     """x (B, S, d). ``mode="decode"`` (S = 1) steps ``cache`` in place and
     returns it with the length advanced; every other mode scans the
-    sequence from a zero state and returns no cache."""
+    sequence from a zero state and returns no cache. On a mesh
+    (``specs.mesh``) x is the rank's block in ``specs.hid``: the scan
+    runs on its whole sequence, and the output returns to that layout."""
+    x, whole = seq_whole(x, specs)
     B, S, _ = x.shape
     di, n, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
 
@@ -138,7 +142,7 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *, mode: str,
 
     y = y + xc.float() * p.D.float()
     y = y.to(x.dtype) * F.silu(z)
-    return proj(y, p.out_proj), new_cache
+    return to_stream(proj(y, p.out_proj), specs, whole), new_cache
 
 
 def init_ssm_cache(cfg, B: int, dtype: torch.dtype, device=None) -> SSMCache:

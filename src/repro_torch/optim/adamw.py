@@ -20,18 +20,32 @@ reference's layout.
 
 ``grad_compress="int8"`` quantizes each leaf's gradient to int8 with
 one scale a leaf, a stacked leaf's layers together, and stochastic
-rounding: uniform noise in [-0.5, 0.5) drawn in the leaf's stacked shape
-from ``fold_in(fold_in(key(17), step), i)`` (``repro_torch.prng``), i
-the leaf's index; then dequantizes it before the clip.
+rounding: uniform noise in [-0.5, 0.5) drawn from ``fold_in(fold_in(
+key(17), step), i)`` (``repro_torch.prng``), i the leaf's index, a
+stacked leaf's layer l from ``fold_in`` of that and l; then dequantizes
+it before the clip.
+
+On a mesh (``update(..., mesh=, shardings=)``, ``shardings`` one
+``parallel.Sharding`` a tensor of each leaf) the parameters, gradients
+and moments are each rank's slices and every step is the unsharded
+step's: the global norm sums each slice's squares once (on the first of
+the ranks holding it) and all-reduces; an int8 scale's max|g| is taken
+over the whole leaf (one all-gather of every leaf's local max); each
+tensor's noise is drawn in its whole shape and sliced, so q is the
+unsharded q bitwise on the same gradient (a tensor whose whole float32
+noise passes ``NOISE_LIMIT_BYTES`` raises: it would not fit beside the
+rank's state).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
 from repro_torch import prng
+from repro_torch.parallel import group as _group
 
 
 def _parts(leaf) -> list[torch.Tensor]:
@@ -45,44 +59,95 @@ def _like(leaf, make):
     return make(leaf)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
+def global_norm(grads: dict, mesh=None, shardings: dict | None = None
+                ) -> torch.Tensor:
     """sqrt of the sum over every tensor of its float32 sum of squares.
     Each sum of squares is ``sum()``'s (a cascade on the CPU): the CPU's
     float32 ``norm`` accumulates serially and is 1.5e-3 off at 28 M
-    elements (smollm-135m's embedding)."""
+    elements (smollm-135m's embedding). On a mesh a slice counts on the
+    first rank of those holding it (``parallel.is_owner``), and the
+    ranks' sums are all-reduced."""
     sums = []
     for k in sorted(grads):
         parts = [g.float() for g in _parts(grads[k])]
-        sums += [sq.sum() for sq in torch._foreach_mul(parts, parts)]
-    return torch.stack(sums).sum().sqrt()
+        sq = [t.sum() for t in torch._foreach_mul(parts, parts)]
+        if mesh is not None:
+            sq = [t for t, sh in zip(sq, _parts(shardings[k]))
+                  if _group.is_owner(sh.spec, mesh)]
+        sums += sq
+    if mesh is None:
+        return torch.stack(sums).sum().sqrt()
+    # a rank may own no slice (every leaf it holds has a first holder)
+    total = torch.stack(sums).sum() if sums else torch.zeros(
+        (), device=_parts(grads[min(grads)])[0].device)
+    return _group.all_reduce_sum(total).sqrt()
 
 
-def quantize_int8(g: torch.Tensor, noise: torch.Tensor
+def quantize_int8(g: torch.Tensor, noise: torch.Tensor,
+                  amax: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stochastic int8 rounding of ``g`` on one scale, ``max|g| / 127``;
-    ``noise``: uniform in [-0.5, 0.5), ``g``'s shape (pre-drawn, as the
-    port's kernels take their uniforms). Returns (q int8, scale)."""
-    scale = g.abs().max() / 127.0 + 1e-30
+    """Stochastic int8 rounding of ``g`` on one scale, ``max|g| / 127``
+    (``amax``: max|g| when g is a slice of the leaf); ``noise``: uniform
+    in [-0.5, 0.5), ``g``'s shape (pre-drawn, as the port's kernels take
+    their uniforms). Returns (q int8, scale)."""
+    scale = (g.abs().max() if amax is None else amax) / 127.0 + 1e-30
     q = torch.clamp(torch.round(g / scale + noise), -127, 127)
     return q.to(torch.int8), scale
 
 
-def _compress_int8(grads: dict, step: int) -> dict:
-    """Each leaf quantized and dequantized on its own scale, its noise
-    drawn on its device in its stacked shape."""
+# int8 compression on a mesh draws each tensor's noise whole on every rank
+# and keeps the rank's slice: a draw is held to a quarter of an H100's
+# 80 GB (a stacked leaf draws a layer at a time)
+NOISE_LIMIT_BYTES = 20 * 10**9
+
+
+def _compress_int8(grads: dict, step: int, mesh=None,
+                   shardings: dict | None = None) -> dict:
+    """Each leaf quantized and dequantized on its own scale, a stacked
+    leaf's layers together. The noise of leaf i is drawn on its device
+    from ``fold_in(fold_in(key(17), step), i)``, a stacked leaf's layer
+    l from ``fold_in`` of that and l; on a mesh it is drawn in the
+    tensor's whole shape and sliced to the rank's part, and a draw of
+    more than ``NOISE_LIMIT_BYTES`` raises."""
     key = prng.fold_in(prng.key(17), step)
+    keys = sorted(grads)
+    amax = None
+    if mesh is not None:
+        for k in keys:
+            for sh in _parts(shardings[k]):
+                if 4 * math.prod(sh.shape) > NOISE_LIMIT_BYTES:
+                    raise ValueError(
+                        f"int8 compression on a mesh: leaf {k}'s noise, "
+                        f"drawn whole in float32 {tuple(sh.shape)}, passes "
+                        f"NOISE_LIMIT_BYTES = {NOISE_LIMIT_BYTES}")
+        local = torch.stack([torch.stack([t.float().abs().max()
+                                          for t in _parts(grads[k])]).max()
+                             for k in keys])
+        amax = _group.all_gather_rows(local[None]).amax(dim=0)
     out = {}
-    for i, k in enumerate(sorted(grads)):
+    for i, k in enumerate(keys):
         leaf = grads[k]
-        g = torch.stack([t.float() for t in leaf]) \
-            if isinstance(leaf, (list, tuple)) else leaf.float()
-        gen = prng.generator(prng.fold_in(key, i), g.device)
-        noise = torch.rand(g.shape, generator=gen, device=g.device,
-                           dtype=torch.float32) - 0.5
-        q, scale = quantize_int8(g, noise)
+        stacked = isinstance(leaf, (list, tuple))
+        parts = _parts(leaf)
+        shs = _parts(shardings[k]) if mesh is not None else [None] * len(parts)
+        noise = []
+        for j, (t, sh) in enumerate(zip(parts, shs)):
+            gen = prng.generator(prng.fold_in(prng.fold_in(key, i), j)
+                                 if stacked else prng.fold_in(key, i),
+                                 t.device)
+            n = torch.rand(t.shape if sh is None else sh.shape,
+                           generator=gen, device=t.device,
+                           dtype=torch.float32).sub_(0.5)
+            noise.append(n if sh is None
+                         else _group.shard_tensor(n, sh.spec, mesh))
+            del n  # a whole draw is freed before the next one is made
+        g = torch.stack([t.float() for t in parts]) if stacked \
+            else leaf.float()
+        noise = torch.stack(noise) if stacked else noise[0]
+        q, scale = quantize_int8(g, noise,
+                                 None if amax is None else amax[i])
         deq = q.float() * scale
-        out[k] = list(deq.unbind(0)) if isinstance(leaf, (list, tuple)) \
-            else deq
+        out[k] = list(deq.unbind(0)) if stacked else deq
     return out
 
 
@@ -110,15 +175,16 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: dict
+    def update(self, params: dict, grads: dict, state: dict, *,
+               mesh=None, shardings: dict | None = None
                ) -> tuple[dict, dict]:
         step = state["step"] + 1
         if self.grad_compress == "int8":
-            grads = _compress_int8(grads, int(step))
+            grads = _compress_int8(grads, int(step), mesh, shardings)
         elif self.grad_compress != "none":
             raise ValueError(f"grad_compress={self.grad_compress!r} is "
                              f"neither 'none' nor 'int8'")
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh, shardings)
         scale = torch.clamp_max(self.clip_norm / (gnorm + 1e-9), 1.0)
         lr = _f32(self.lr(step) if callable(self.lr) else self.lr)
         b1, b2 = self.b1, self.b2

@@ -25,9 +25,25 @@ The counterpart of what ``repro/compat.py`` and the mesh construction of
   the default group.
 * ``all_reduce_sum`` and ``all_gather_rows`` run over a ``Group``
   (``group=``; default the world). They carry every collective of the
-  sampler, and count their calls and host seconds in all and by group
-  name (``collective_counts``, ``collective_seconds``), as the kernel
-  wrappers count their launches. ``barrier`` waits for the world.
+  sampler. The LM on a mesh adds ``all_gather`` and ``reduce_scatter``
+  along any dim and ``all_to_all`` (JAX's tiled ``all_to_all``); these
+  three, and ``all_reduce_sum`` of a tensor that requires grad, are
+  ``torch.autograd.Function``s: all-gather and reduce-scatter are each
+  other's backward, an all-to-all's is the reverse all-to-all, an
+  all-reduce's is the all-reduce of the gradients. Every collective
+  counts its calls and host seconds in all and by group name
+  (``collective_counts``, ``collective_seconds``), backward ones
+  included, as the kernel wrappers count their launches. Under gloo a
+  CUDA tensor goes through its host copy in the LM's three collectives
+  and in ``all_gather_rows`` (gloo has no all-gather of CUDA tensors),
+  by rule, logged once. ``barrier`` waits for the world.
+* ``Sharding`` says where each rank's slice of a tensor lies on a mesh;
+  ``shard_tensor``, ``gather_tensor`` (``gather_tensors``: many, one
+  all-gather an axis) and ``slice_tensor`` move a tensor between
+  layouts; ``fit_spec`` is the divisibility fallback of every layout (an
+  entry whose axes do not divide its dim becomes None). ``shard_model``
+  keeps each rank's slice of every parameter of a model and
+  ``unshard_model`` gathers them back.
 * ``spawn`` runs a function on every rank of a new group of processes,
   for tests and for ``chip_smoke.py``.
 """
@@ -42,6 +58,7 @@ import queue
 import tempfile
 import time
 import traceback
+from collections.abc import Mapping
 from typing import Any, Callable
 
 import numpy as np
@@ -110,7 +127,8 @@ class Mesh:
 
 _WORLD: World | None = None
 _MESHES: dict[tuple, Mesh] = {}
-OPS = ("all_reduce_sum", "all_gather_rows")
+OPS = ("all_reduce_sum", "all_gather_rows", "all_gather", "reduce_scatter",
+       "all_to_all")
 _WORLD_NAME = "world"  # the counters' name of the default group
 # calls and host seconds of each collective, in all (key None) and by
 # group name
@@ -257,20 +275,68 @@ def _pg(group: Group | None):
     return None if group is None else group.pg
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The all-reduce of a payload that requires grad; its backward is the
+    all-reduce of the gradients (each rank's result feeds that rank's
+    loss)."""
+
+    @staticmethod
+    def forward(ctx, flat, group):
+        ctx.group = group
+        return _all_reduce(flat.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group), None
+
+
+def _all_reduce(flat: torch.Tensor, group: Group | None) -> torch.Tensor:
+    t0 = time.perf_counter()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_pg(group))
+    _count("all_reduce_sum", group, t0)
+    return flat
+
+
 def all_reduce_sum(*tensors: torch.Tensor, group: Group | None = None):
     """The sum over the ranks of ``group`` (default: the world) of each
     tensor, in ONE collective: the tensors (one dtype) are flattened into
     one payload in argument order, reduced and split back. Returns one
-    tensor, or a tuple for several."""
-    t0 = time.perf_counter()
+    tensor, or a tuple for several. Differentiable when a tensor
+    requires grad."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_pg(group))
+    if flat.requires_grad and torch.is_grad_enabled():
+        flat = _AllReduceSum.apply(flat, group)
+    else:
+        flat = _all_reduce(flat, group)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape))
         i += t.numel()
-    _count("all_reduce_sum", group, t0)
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a collective's payload: contiguous, and under gloo on the
+    host (gloo gathers, scatters and exchanges no CUDA tensor), by rule;
+    under nccl on the rank's card."""
+    w = _WORLD
+    src = t.contiguous()
+    if w is not None and w.backend == "gloo" and src.is_cuda:
+        if not _STAGED_LOGGED:
+            _STAGED_LOGGED.append(True)
+            log.info("gloo: CUDA payloads of all-gathers, reduce-scatters "
+                     "and all-to-alls go through their host copies")
+        src = src.cpu()
+    elif w is not None and w.backend == "nccl" and not src.is_cuda:
+        src = src.to(w.device)
+    return src
+
+
+_STAGED_LOGGED: list = []
+
+
+def _size(group: Group | None) -> int:
+    return dist.get_world_size() if group is None else group.size
 
 
 def all_gather_rows(t: torch.Tensor, group: Group | None = None
@@ -283,18 +349,119 @@ def all_gather_rows(t: torch.Tensor, group: Group | None = None
     tensor through its copy on the rank's card.
     """
     t0 = time.perf_counter()
-    w = _WORLD
-    src = t.contiguous()
-    if w is not None and w.backend == "gloo" and src.is_cuda:
-        src = src.cpu()
-    elif w is not None and w.backend == "nccl" and not src.is_cuda:
-        src = src.to(w.device)
-    n = dist.get_world_size() if group is None else group.size
-    parts = [torch.empty_like(src) for _ in range(n)]
+    src = _staged(t)
+    parts = [torch.empty_like(src) for _ in range(_size(group))]
     dist.all_gather(parts, src, group=_pg(group))
     out = torch.cat(parts).to(t.device)
     _count("all_gather_rows", group, t0)
     return out
+
+
+def _gather(x: torch.Tensor, group: Group | None, dim: int) -> torch.Tensor:
+    t0 = time.perf_counter()
+    src = _staged(x.movedim(dim, 0))
+    parts = [torch.empty_like(src) for _ in range(_size(group))]
+    dist.all_gather(parts, src, group=_pg(group))
+    out = torch.cat(parts).to(x.device).movedim(0, dim)
+    _count("all_gather", group, t0)
+    return out
+
+
+# reduce_scatter_tensor is deprecated under this name in newer torch
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
+
+
+def _scatter(x: torch.Tensor, group: Group | None, dim: int) -> torch.Tensor:
+    """The sum over the group, then this rank's chunk along ``dim``; a
+    half-precision payload is summed in float32."""
+    t0 = time.perf_counter()
+    n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    src = _staged(wide.movedim(dim, 0))
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    _reduce_scatter_single(out, src, group=_pg(group))
+    out = out.to(device=x.device, dtype=x.dtype).movedim(0, dim)
+    _count("reduce_scatter", group, t0)
+    return out
+
+
+def _exchange(x: torch.Tensor, group: Group | None, split_dim: int,
+              concat_dim: int) -> torch.Tensor:
+    t0 = time.perf_counter()
+    n = _size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    src = _staged(x.movedim(split_dim, 0))
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=_pg(group))
+    parts = out.to(x.device).chunk(n, dim=0)
+    out = torch.cat([p.movedim(0, split_dim) for p in parts], dim=concat_dim)
+    _count("all_to_all", group, t0)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _exchange(g, ctx.group, concat_dim, split_dim), None, None, None
+
+
+def all_gather(x: torch.Tensor, group: Group | None = None, dim: int = 0
+               ) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` (default: the world) concatenated
+    along ``dim`` in the group's rank order. Its backward is
+    ``reduce_scatter``."""
+    return _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group: Group | None = None,
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, of which this rank
+    keeps chunk ``i`` along ``dim``, i its place in the group. Its
+    backward is ``all_gather``."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group: Group | None = None,
+               split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
+    """JAX's tiled ``all_to_all``: ``x`` split along ``split_dim`` into
+    one chunk a rank of ``group``, chunk j sent to rank j; the chunks
+    received concatenated along ``concat_dim`` in rank order. Its
+    backward is the reverse exchange."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 def barrier() -> None:
@@ -305,6 +472,197 @@ def barrier() -> None:
         dist.barrier(device_ids=[w.device.index])
     else:
         dist.barrier()
+
+
+# --------------------------------------------------------------------------
+# layouts on a mesh: a tensor's slices, a model's parameters
+# --------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry: None -> (), ``"a"`` -> ("a",),
+    ``("a", "b")`` as it is."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axes_size(mesh, entry) -> int:
+    """The product of the sizes of the axes of one spec entry (1 for
+    None). ``mesh``: anything with ``axis_names`` and ``shape``, the
+    sizes by axis name (a mapping) or in ``axis_names``' order (a
+    ``Mesh``'s tuple)."""
+    sizes = mesh.shape
+    if not isinstance(sizes, Mapping):
+        sizes = dict(zip(mesh.axis_names, sizes))
+    return math.prod(int(sizes[a]) for a in entry_axes(entry))
+
+
+def fit_entry(entry, dim: int, mesh):
+    """``entry`` where its axes' product divides ``dim``, else None: the
+    reference's divisibility fallback to replication."""
+    return entry if dim % axes_size(mesh, entry) == 0 else None
+
+
+def fit_spec(spec, shape, mesh) -> tuple:
+    """``spec`` padded with None to ``shape``'s rank, each entry fitted
+    to its dim of the full ``shape`` (``fit_entry``)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(fit_entry(e, n, mesh) for e, n in zip(spec, shape))
+
+
+def axes_group(mesh: Mesh, axes) -> Group | None:
+    """The group of the ranks that differ from this one along ``axes``
+    only: one axis's ``Group``, or None (the default group) for every
+    axis of the mesh in its order. Other sets of axes have no group (a
+    mesh makes one an axis)."""
+    axes = entry_axes(axes)
+    if len(axes) == 1:
+        return mesh.group(axes[0])
+    if axes == tuple(mesh.axis_names):
+        return None
+    raise NotImplementedError(
+        f"no group over the axes {axes} of the mesh {mesh.axis_names}: a "
+        f"mesh makes one group an axis and the world")
+
+
+def _entry_index(mesh: Mesh, axes: tuple[str, ...]) -> tuple[int, int]:
+    """(this rank's place, the count of places) along ``axes``, row-major
+    in their order: the chunk of a dim split over them that it holds."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+        n *= mesh.axis_size(a)
+    return idx, n
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a tensor of the full ``shape`` lies on a mesh: ``spec`` has
+    one entry a dim (missing entries are None), None for a dim every rank
+    holds whole, else the axis name (or names) the dim is split over in
+    contiguous chunks, this rank's chunk its row-major place along them.
+    Every split dim divides (``parallel.mesh``'s resolvers fit the
+    specs)."""
+
+    spec: tuple
+    shape: tuple
+
+
+def replica_axes(spec, mesh: Mesh) -> tuple[str, ...]:
+    """The mesh's axes that no entry of ``spec`` splits over: the ranks
+    along them hold the same slice."""
+    used = {a for e in spec for a in entry_axes(e)}
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def is_owner(spec, mesh: Mesh) -> bool:
+    """Whether this rank is the first of the ranks holding its slice (its
+    coordinate 0 along every replica axis), which counts the slice once
+    where a sum over the world would count it once a copy."""
+    return all(mesh.axis_index(a) == 0 for a in replica_axes(spec, mesh))
+
+
+def slice_tensor(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a tensor every rank holds whole: each dim
+    narrowed to its chunk along the axes of its entry (differentiable:
+    the backward pads with zeros)."""
+    for dim, e in enumerate(spec):
+        axes = entry_axes(e)
+        if axes:
+            i, n = _entry_index(mesh, axes)
+            c = t.shape[dim] // n
+            t = t.narrow(dim, i * c, c)
+    return t
+
+
+def shard_tensor(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """``slice_tensor``'s slice as a tensor of its own (a copy)."""
+    with torch.no_grad():
+        return slice_tensor(t, spec, mesh).clone()
+
+
+def gather_tensor(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from this rank's slice ``t`` laid out by ``spec``:
+    one all-gather a split dim (differentiable: the backward
+    reduce-scatters); ``gather_tensors``' for one tensor."""
+    return gather_tensors([t], [spec], mesh)[0]
+
+
+# gather_tensors' payload cap: a bucket of small slices is one collective;
+# a large slice goes alone, so no copy of it is made on the way
+BUCKET_BYTES = 64 * 2**20
+
+
+def gather_tensors(tensors: list, specs: list, mesh: Mesh) -> list:
+    """``gather_tensor`` of each tensor with its spec, in few all-gathers:
+    a mesh axis at a time, the slices split along it (one dtype) flattened
+    into payloads of up to ``BUCKET_BYTES``, each gathered in one
+    collective and put back in place (differentiable: a reduce-scatter a
+    payload in the backward). An entry names one axis."""
+    out = list(tensors)
+    for axis in mesh.axis_names:
+        buckets: list[list] = []
+        filling: dict[torch.dtype, list] = {}   # the open bucket a dtype
+        filled: dict[torch.dtype, int] = {}
+        for i, (t, spec) in enumerate(zip(out, specs)):
+            for d, e in enumerate(spec):
+                axes = entry_axes(e)
+                if len(axes) > 1:
+                    raise NotImplementedError(
+                        f"gather_tensors: the entry {e} names several axes")
+                if axes != (axis,):
+                    continue
+                nbytes = t.numel() * t.element_size()
+                if t.dtype not in filling or \
+                        filled[t.dtype] + nbytes > BUCKET_BYTES:
+                    filling[t.dtype] = []
+                    filled[t.dtype] = 0
+                    buckets.append(filling[t.dtype])
+                filling[t.dtype].append((i, d))
+                filled[t.dtype] += nbytes
+        n = mesh.axis_size(axis)
+        for items in buckets:
+            flat = torch.cat([out[i].movedim(d, 0).reshape(-1)
+                              for i, d in items]) if len(items) > 1 \
+                else out[items[0][0]].movedim(items[0][1], 0).reshape(-1)
+            whole = all_gather(flat, mesh.group(axis), 0).view(n, -1)
+            at = 0
+            for i, d in items:
+                t = out[i].movedim(d, 0)
+                part = whole[:, at:at + t.numel()].reshape(n, *t.shape)
+                out[i] = part.reshape(n * t.shape[0], *t.shape[1:]) \
+                    .movedim(0, d)
+                at += t.numel()
+    return out
+
+
+def shard_model(model: torch.nn.Module, mesh: Mesh, pspecs: dict
+                ) -> torch.nn.Module:
+    """Keep only this rank's slice of every parameter of ``model``, in
+    place: ``pspecs`` maps each parameter's name to its resolved spec
+    (``parallel.mesh.resolve_param_specs``). Records the layout as
+    ``model.mesh_layout`` ({name: Sharding}) for the steps, the optimizer
+    and ``unshard_model``. Returns ``model``."""
+    if hasattr(model, "mesh_layout"):
+        raise ValueError("shard_model: the model is sharded already")
+    layout = {}
+    for name, p in model.named_parameters():
+        spec = tuple(pspecs[name])
+        layout[name] = Sharding(spec, tuple(p.shape))
+        p.data = shard_tensor(p.data, spec, mesh)
+    model.mesh_layout = layout
+    return model
+
+
+def unshard_model(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """The inverse of ``shard_model``: every parameter gathered whole on
+    every rank, in place. Returns ``model``."""
+    layout = model.__dict__.pop("mesh_layout")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = gather_tensor(p.data, layout[name].spec, mesh)
+    return model
 
 
 # --------------------------------------------------------------------------

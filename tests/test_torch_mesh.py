@@ -96,7 +96,7 @@ def assert_state(got: dict, ss, gs: dict, rtol: float, tag: str,
                                        atol=atol, err_msg=f"{tag} {f}")
 
 
-NONE = {"all_reduce_sum": 0, "all_gather_rows": 0}
+NONE = dict.fromkeys(parallel.group.OPS, 0)
 
 
 @pytest.mark.parametrize("data,P,C", [("shardmap", 1, 2), ("vmap", 3, 2)],
@@ -143,8 +143,8 @@ def test_mesh_2x2_replicates_each_chain_and_never_crosses_chains(
     for r in res:
         for i, st in enumerate(r["steps"]):
             assert st["counts"]["chains"] == NONE, (r["coords"], i)
-            assert st["counts"]["data"] == {
-                "all_reduce_sum": all_reduces, "all_gather_rows": 0}
+            assert st["counts"]["data"] == dict(
+                NONE, all_reduce_sum=all_reduces)
             assert st["counts"][None] == st["counts"]["data"]
             # the rank of the other shard of this chain holds its bits
             peer = res[2 * r["coords"][0] + 1 - r["coords"][1]]
