@@ -233,6 +233,31 @@ Phases, each of which raises on failure (exit code non-zero):
    the gather dispatch at capacity E / top_k (loss, aux, gradients).
    Logged after phase 17.
 
+19. The dry run (repro_torch.launch.dryrun) on the card: the fake
+   process group and fake tensors import, or the phase fails. The IBP
+   cell at pod1 (2^20 Cambridge rows over a fake world of 256 ranks,
+   this process rank p′ = 0 running one real iteration of its 4096 rows
+   at K_max=64, K_tail=8, L=5), staged and fused: 3 and 1 all-reduces,
+   and gibbs_flip L, collapsed_scan L, feature_stats 1 and gaussian_sse
+   1 (staged) or 0 (fused) launches, else it raises; the four kernels at
+   the cell's shapes against their plain versions (a vmap sampler on
+   the same 4096 rows after 3 iterations; the scan on a planted tail of
+   4096 rows at K=8, D=36, held on its first 1024). Three LM cells at
+   full width on fake cuda tensors, cut in depth to the reference's two
+   depth probes (run_probe: 1 and 2 layers at the full model's
+   parameter bytes; the sweep of every cell at full depth is its own
+   command, README), each "ok" with the device's allocated memory
+   unchanged: smollm-135m train_4k pod1, phi3.5-moe-42b-a6.6b
+   decode_32k pod1, deepseek-v2-236b prefill_32k pod2 (past the serve
+   weight budget: inference-FSDP). Against phase
+   18: the dry run of its bf16 step (the same (4, 2) mesh, B=8, S=256,
+   remat) makes the same collectives by kind and group as each of
+   phase 18's counted steps, and its peak estimate lies within
+   DRYRUN["peak_band"] of rank 0's measured peak; the same step on real
+   tensors of the card in a fake world: the tracker's peak over it equal
+   to the estimate less its cuBLAS workspaces, the allocator's within 1%
+   of the tracker's.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON, and before that the card's name and power limit and the
 script's total wall time. Run from the root of a checkout: python3
@@ -452,6 +477,21 @@ LM_MESH = dict(shape=(4, 2), arch="smollm-135m", steps=3, batch=8, seq=256,
                grad_rel=1e-4, adam_rel=1e-4, adam_moved_rel=1e-3, decode_B=4,
                decode_steps=4, tie_gap=1e-3,
                moe="phi3.5-moe-42b-a6.6b", moe_B=2, moe_S=32)
+
+
+# phase 19: the dry run on the card: the IBP cell at ibp_mesh under each
+# sync (the cell's own widths: 2^20 rows, K_max=64, K_tail=8, L=5, rank
+# p' = 0), the kernels held at its shapes on a vmap sampler over the same
+# N_p rows after hold_iters iterations (the scan on scan_hold_rows of a
+# planted tail of N_p rows), the LM cells' depth probes on fake cuda
+# tensors (cut from the full depth, 24-42 s a cell on the card's host, to
+# keep the run inside its time limit), and phase 18's bf16 step dry-run,
+# its peak estimate within peak_band of phase 18's measured peak
+DRYRUN = dict(ibp_mesh="pod1", N=1 << 20, K_max=64, K_tail=8, L=5,
+              hold_iters=3, scan_hold_rows=1024, peak_band=(0.75, 1.25),
+              cells=(("smollm-135m", "train_4k", "pod1"),
+                     ("phi3.5-moe-42b-a6.6b", "decode_32k", "pod1"),
+                     ("deepseek-v2-236b", "prefill_32k", "pod2")))
 
 
 T_START = time.perf_counter()
@@ -5007,6 +5047,211 @@ def log_train(tr: dict, smi: str) -> None:
         f"{a['cpu_update_seconds'] * 1e3:.0f} ms on the CPU")
 
 
+# --------------------------------------------------------------------------
+# phase 19: the dry run on the card
+# --------------------------------------------------------------------------
+
+
+def kinds(counts: dict) -> dict:
+    """Counts by the port's collective names as the dry run's kinds
+    (nonzero only)."""
+    from repro_torch.launch import dryrun
+
+    out: dict = {}
+    for op, n in counts.items():
+        if n:
+            out[dryrun.KIND[op]] = out.get(dryrun.KIND[op], 0) + n
+    return out
+
+
+def dryrun_ibp(dev, tmp: Path) -> tuple[dict, dict]:
+    """The IBP cell under each sync, its launches and all-reduces held;
+    then the four kernels at its shapes against their plain versions.
+    Returns (the cells' records and holds, the launches of both cells)."""
+    import torch
+
+    from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
+    from repro_torch.data import cambridge_data
+    from repro_torch.launch import dryrun
+
+    d, L = DRYRUN, DRYRUN["L"]
+    out, launches = {}, {}
+    for sync in ("staged", "fused"):
+        rec = dryrun.run_ibp_cell(d["ibp_mesh"], N=d["N"], K_max=d["K_max"],
+                                  K_tail=d["K_tail"], L=L, sync=sync,
+                                  device=dev, force=True, out_dir=str(tmp))
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 19: the IBP cell ({sync}): "
+                                 f"{rec.get('error')}\n{rec.get('traceback')}")
+        want = dict(gibbs_flip=L, collapsed_scan=L, feature_stats=1,
+                    gaussian_sse=1 if sync == "staged" else 0)
+        want = {k: v for k, v in want.items() if v}
+        ar = rec["collectives"]["counts"]["all-reduce"]
+        if rec["launches"] != want or ar != (3 if sync == "staged" else 1):
+            raise AssertionError(
+                f"phase 19: the IBP cell ({sync}) launched "
+                f"{rec['launches']} (want {want}) with {ar} all-reduces")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out[sync] = rec
+        stamp(f"[19] IBP cell {sync}")
+    N_p = d["N"] // out["staged"]["P"]
+    X = cambridge_data(N=d["N"], seed=0)[0][:N_p]
+    s = build_sampler(SamplerSpec(P=1, L=L, K_max=d["K_max"],
+                                  K_tail=d["K_tail"]), IBPHypers(), X,
+                      device=dev)
+    gs, ss = s.init()
+    for _ in range(d["hold_iters"]):
+        gs, ss = s.step(gs, ss)
+    torch.cuda.synchronize()
+    out["kernels"] = rank_kernels(s, gs, ss, 19)
+    out["scan"] = scan_variant(dev, N_p, d["K_tail"], X.shape[1], 119,
+                               hold_rows=d["scan_hold_rows"])
+    for r in (*out["kernels"].values(), out["scan"]):
+        r["shape"] += " (phase 19: the IBP cell's shapes)"
+    return out, launches
+
+
+def dryrun_lm(dev, tmp: Path, lm_mesh: dict) -> dict:
+    """The LM cells' depth probes on fake cuda tensors, each ok with the
+    device's allocated memory unchanged; phase 18's bf16 step dry-run
+    against phase 18's counted steps and rank 0's measured peak, and the
+    same step on real tensors against the tracker."""
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.configs import ALL_SHAPES, ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import mesh as pmesh
+
+    out = dict(cells=[])
+    for arch, shape, mesh in DRYRUN["cells"]:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        rec = dryrun.run_probe(arch, next(x for x in ALL_SHAPES
+                                          if x.name == shape), mesh,
+                               force=True, device=dev, out_dir=str(tmp))
+        rec["allocated_change"] = torch.cuda.memory_allocated(dev) - before
+        if rec["status"] != "ok" or rec["allocated_change"]:
+            raise AssertionError(
+                f"phase 19: {arch} {shape} {mesh}: {rec.get('error')} "
+                f"(allocated change {rec['allocated_change']})\n"
+                f"{rec.get('traceback')}")
+        out["cells"].append(rec)
+        stamp(f"[19] {arch} {shape} {mesh}")
+    s = LM_MESH
+    cfg = get_config(s["arch"])
+    shape = ShapeConfig("phase18", s["seq"], s["batch"], "train")
+    before = torch.cuda.memory_allocated(dev)
+    rec = dryrun.trace_step(cfg, shape,
+                            pmesh.mesh_shape(s["shape"], ("data", "model")),
+                            device=dev)
+    rec["allocated_change"] = torch.cuda.memory_allocated(dev) - before
+    # the same step on real tensors of the card, rank 0 of the same fake
+    # world: the allocator's peak over it above what was allocated before
+    # its build, less what stays allocated once the step's tensors are
+    # freed (cuBLAS workspaces this process had not made yet: the
+    # tracker does not count them), against the tracker's peak
+    with parallel.fake_world(0, math.prod(s["shape"]), dev) as w:
+        mesh = parallel.make_mesh(s["shape"], ("data", "model"))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step, args = dryrun.build_step(cfg, shape, mesh, device=w.device)
+        _, _, mem, _ = dryrun.measure(step, args, w.device.type)
+        torch.cuda.synchronize()
+        peak_real = torch.cuda.max_memory_allocated(dev) - base
+        del step, args
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated(dev) - base
+    real = dict(allocator=peak_real - kept, kept=kept, tracker=mem.peak)
+    torch.cuda.empty_cache()
+    if abs(real["allocator"] - real["tracker"]) > 0.01 * real["tracker"] \
+            or real["tracker"] != (rec["memory"]["peak_bytes"]
+                                   - rec["memory"]["workspace_bytes"]):
+        raise AssertionError(f"phase 19: phase 18's step on real tensors: "
+                             f"{real} against the estimate {rec['memory']}")
+    got = {g: {k: v for k, v in c["counts"].items() if v}
+           for g, c in rec["collectives_by_group"].items()}
+    got["all"] = {k: v for k, v in rec["collectives"]["counts"].items()
+                  if v}
+    r0 = lm_mesh["ranks"][0]
+    steps = [{g: kinds(c) for g, c in st["collectives"].items() if kinds(c)}
+             for st in r0["bf16"]["steps"]]
+    peak = r0["bf16"]["peak"]
+    ratio = rec["memory"]["peak_bytes"] / peak
+    lo, hi = DRYRUN["peak_band"]
+    if any(st != got for st in steps) or not lo <= ratio <= hi or \
+            rec["allocated_change"]:
+        raise AssertionError(
+            f"phase 19: phase 18's step dry-run: collectives {got} vs "
+            f"phase 18's {steps}; peak estimate {rec['memory']} against "
+            f"{peak} ({ratio:.4f}, band {DRYRUN['peak_band']}); allocated "
+            f"change {rec['allocated_change']}")
+    out["phase18"] = dict(rec, counts=got, measured_peak=peak, ratio=ratio,
+                          peaks=[r["bf16"]["peak"] for r in
+                                 lm_mesh["ranks"]], real=real)
+    return out
+
+
+def run_dryrun(dev, lm_mesh: dict) -> tuple[dict, dict]:
+    """Phase 19 (the module docstring says what it runs). Returns (its
+    results, the kernels' launches in the IBP cells)."""
+    try:
+        from torch._subclasses.fake_tensor import FakeTensorMode  # noqa
+        from torch.testing._internal.distributed.fake_pg import (  # noqa
+            FakeStore,
+        )
+    except ImportError as e:
+        raise AssertionError(f"phase 19: this torch lacks the fake process "
+                             f"group or fake tensors: {e}") from e
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ibp, launches = dryrun_ibp(dev, Path(tmpdir))
+        lm = dryrun_lm(dev, Path(tmpdir), lm_mesh)
+    return dict(ibp=ibp, **lm), launches
+
+
+def log_dryrun(v: dict, smi: str) -> None:
+    for sync in ("staged", "fused"):
+        r = v["ibp"][sync]
+        c = r["collectives"]
+        log(f"[19] IBP cell {r['mesh']} ({sync}): N={r['global_batch']} "
+            f"over P={r['P']} (rank {r['rank']}: {r['rows_per_rank']} rows, "
+            f"D={r['seq_len']}, K_max={r['K_max']}, K_tail={r['K_tail']}, "
+            f"L={r['L']}): one real iteration {r['wall_s']:.4f} s, launches "
+            f"{r['launches']}, collectives {c['counts']} ({c['total']} "
+            f"bytes), peak device memory {r['memory']['peak_bytes']} bytes, "
+            f"aten FLOPs {r['flops']:.4g}; the whole cell {r['trace_s']} s; "
+            f"gpu: {smi}")
+    for name, r in (*v["ibp"]["kernels"].items(),
+                    ("collapsed_scan", v["ibp"]["scan"])):
+        log(f"[19] {name} {r['shape']}: ms={r['ms']:.4f} call_ms="
+            f"{r['call_ms']:.4f} plain_ms={r.get('plain_ms', 0.0):.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) library_ms="
+            f"{r.get('library_ms')} max_abs_err={r.get('max_abs_err')}")
+    for r in v["cells"]:
+        p, L1, L2 = r["probes"], r["L1"], r["L2"]
+        f1, f2 = p[str(L1)]["flops"], p[str(L2)]["flops"]
+        full = f1 + (r["L"] - L1) / (L2 - L1) * (f2 - f1)
+        log(f"[19] {r['arch']} {r['shape']} {r['mesh']} at full width on "
+            f"fake cuda tensors, the depth probes of {L1} and {L2} layers "
+            f"(the full model's parameter bytes): {r['status']}, "
+            f"{json.dumps(p)}; extrapolated to {r['L']} layers {full:.6g} "
+            f"FLOPs a card; allocated change {r['allocated_change']}")
+    p = v["phase18"]
+    log(f"[19] phase 18's bf16 step dry-run ({LM_MESH['arch']}, "
+        f"{LM_MESH['shape']} mesh, B={LM_MESH['batch']} "
+        f"S={LM_MESH['seq']}): collectives {p['counts']}, equal to each "
+        f"of phase 18's steps; peak estimate {p['memory']['peak_bytes']} "
+        f"bytes ({p['memory']['workspace_bytes']} of them cuBLAS "
+        f"workspaces) against rank 0's measured {p['measured_peak']} "
+        f"({p['ratio']:.4f}; band {DRYRUN['peak_band']}; the ranks' "
+        f"{p['peaks']}); in {p['trace_s']} s. The same step on real "
+        f"tensors of the card in a fake world: the allocator's peak above "
+        f"its base {p['real']['allocator']} bytes ({p['real']['kept']} "
+        f"more kept after it), the tracker's {p['real']['tracker']}")
+
+
 def main() -> int:
     import torch
 
@@ -5510,6 +5755,14 @@ def main() -> int:
     log_lm_mesh(lm_mesh, smi)
     log(f"[18] phase took {time.perf_counter() - t0:.1f} s here")
 
+    # phase 19: the dry run on the card
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    dry, dry_counts = run_dryrun(dev, lm_mesh)
+    log_dryrun(dry, smi)
+    log(f"[19] launches in the IBP cells {dry_counts}; phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # phase 6: the main paths went through every kernel that carries them
     for tpu, name in CARRIED_BY.items():
         log(f"[6] {tpu} runs as {name} on the main path")
@@ -5559,16 +5812,20 @@ def main() -> int:
     later = {"gibbs_flip": [grown["gibbs_flip"], base_sweep,
                             *serving["gibbs_flip_naive"],
                             shard["kernels"]["gibbs_flip"],
-                            mesh["kernels"]["gibbs_flip"]],
+                            mesh["kernels"]["gibbs_flip"],
+                            dry["ibp"]["kernels"]["gibbs_flip"]],
              "collapsed_scan": [coll["scan_kernel"], coll["scan_prefix"],
                                 *packed["holds"], *multi["holds"],
-                                *multi["timing"], mesh["scan"]],
+                                *multi["timing"], mesh["scan"],
+                                dry["ibp"]["scan"]],
              "feature_stats": [grown["feature_stats"], *coll["stats"],
                                shard["kernels"]["feature_stats"],
-                               mesh["kernels"]["feature_stats"]],
+                               mesh["kernels"]["feature_stats"],
+                               dry["ibp"]["kernels"]["feature_stats"]],
              "gaussian_sse": [grown["gaussian_sse"],
                               shard["kernels"]["gaussian_sse"],
-                              mesh["kernels"]["gaussian_sse"]]}
+                              mesh["kernels"]["gaussian_sse"],
+                              dry["ibp"]["kernels"]["gaussian_sse"]]}
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -5598,6 +5855,7 @@ def main() -> int:
             launches_lm=lm_counts.get(name, 0),
             launches_lm_mixers=mixer_counts.get(name, 0),
             launches_lm_train=train_counts.get(name, 0),
+            launches_dryrun=dry_counts.get(name, 0),
             on_main_path=name in MAIN_PATH,
             variants=r.get("variants", []) + later.get(name, [])))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

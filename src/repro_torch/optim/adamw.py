@@ -172,7 +172,7 @@ class AdamW:
                 p, dtype=torch.float32, requires_grad=False))
         return {"m": {k: zeros(v) for k, v in params.items()},
                 "v": {k: zeros(v) for k, v in params.items()},
-                "step": torch.zeros((), dtype=torch.int32)}
+                "step": torch.tensor(0, dtype=torch.int32)}
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict, *,

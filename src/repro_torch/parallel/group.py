@@ -20,9 +20,12 @@ The counterpart of what ``repro/compat.py`` and the mesh construction of
   reference's device mesh: rank r sits at ``numpy.unravel_index(r,
   shape)`` (row-major), and holds one ``Group`` an axis, the ranks that
   differ from it along that axis only (``Mesh.group``; its coordinate
-  there is ``Mesh.axis_index``). Every rank makes every group, in one
-  order, as ``dist.new_group`` requires; a group of the whole world is
-  the default group.
+  there is ``Mesh.axis_index``), and one a run of two or more
+  consecutive axes short of all of them (a mesh of three axes: ``"pod+data"``
+  and ``"data+model"``), for the layouts that split a dim over several
+  axes. Every rank makes every group, in one order, as
+  ``dist.new_group`` requires; a group of the whole world is the default
+  group.
 * ``all_reduce_sum`` and ``all_gather_rows`` run over a ``Group``
   (``group=``; default the world). They carry every collective of the
   sampler. The LM on a mesh adds ``all_gather`` and ``reduce_scatter``
@@ -31,9 +34,12 @@ The counterpart of what ``repro/compat.py`` and the mesh construction of
   ``torch.autograd.Function``s: all-gather and reduce-scatter are each
   other's backward, an all-to-all's is the reverse all-to-all, an
   all-reduce's is the all-reduce of the gradients. Every collective
-  counts its calls and host seconds in all and by group name
-  (``collective_counts``, ``collective_seconds``), backward ones
-  included, as the kernel wrappers count their launches. Under gloo a
+  counts its calls, bytes and host seconds in all and by group name
+  (``collective_counts``, ``collective_bytes``, ``collective_seconds``),
+  backward ones included, as the kernel wrappers count their launches.
+  A call's bytes are those of its result, the reference dry run's
+  convention: an all-gather's gathered tensor, an all-reduce's reduced
+  payload, a reduce-scatter's shard, an all-to-all's result. Under gloo a
   CUDA tensor goes through its host copy in the LM's three collectives
   and in ``all_gather_rows`` (gloo has no all-gather of CUDA tensors),
   by rule, logged once. ``barrier`` waits for the world.
@@ -46,9 +52,16 @@ The counterpart of what ``repro/compat.py`` and the mesh construction of
   ``unshard_model`` gathers them back.
 * ``spawn`` runs a function on every rank of a new group of processes,
   for tests and for ``chip_smoke.py``.
+* ``fake_world`` makes this one process rank r of a simulated world
+  under PyTorch's ``"fake"`` backend: every collective returns at once
+  and moves nothing (an all-reduce leaves its payload as it was; a
+  gather's output is zeros). Meshes, groups and the counters work as in
+  a real world, which is what the dry run (``launch/dryrun.py``) reads.
+  Only the dry run asks for it; nothing falls back to or from it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import logging
@@ -100,13 +113,16 @@ class Group:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place in a mesh of the world's ranks: the mesh's
-    ``shape`` and ``axis_names``, this rank's ``coords``, and its
-    ``Group`` along each axis."""
+    ``shape`` and ``axis_names``, this rank's ``coords``, its ``Group``
+    along each axis, and its ``Group`` along each run of consecutive
+    axes short of the whole mesh (``spans``: (axes, group) pairs; none
+    for a mesh of two axes or fewer)."""
 
     shape: tuple[int, ...]
     axis_names: tuple[str, ...]
     coords: tuple[int, ...]
     groups: tuple[Group, ...]
+    spans: tuple = ()
 
     def _axis(self, name: str) -> int:
         if name not in self.axis_names:
@@ -130,9 +146,11 @@ _MESHES: dict[tuple, Mesh] = {}
 OPS = ("all_reduce_sum", "all_gather_rows", "all_gather", "reduce_scatter",
        "all_to_all")
 _WORLD_NAME = "world"  # the counters' name of the default group
-# calls and host seconds of each collective, in all (key None) and by
-# group name
+FAKE = "fake"          # the simulated backend of ``fake_world``
+# calls, bytes and host seconds of each collective, in all (key None) and
+# by group name
 _CALLS: dict[str | None, dict[str, int]] = {}
+_BYTES: dict[str | None, dict[str, int]] = {}
 _SECONDS: dict[str | None, dict[str, float]] = {}
 
 
@@ -200,6 +218,40 @@ def init_group(rank: int | None = None, world_size: int | None = None,
     return _WORLD
 
 
+@contextlib.contextmanager
+def fake_world(rank: int, world_size: int, device="cuda"):
+    """This process as rank ``rank`` of a simulated world of
+    ``world_size`` ranks, joined to PyTorch's ``"fake"`` backend through
+    a ``FakeStore``; the group is left on exit. ``device`` (default
+    ``cuda``: the current card; ``device.resolve``'s rule, so no GPU
+    raises) is the rank's device. Yields the ``World``.
+
+    Every collective returns at once and moves nothing: an all-reduce
+    leaves its payload as this rank's, and an all-gather, reduce-scatter
+    or all-to-all returns zeros (its output buffer, zero-filled in this
+    world only, so that a real tensor that feeds a step is defined). The
+    counters count as in a real world."""
+    global _WORLD
+    if _WORLD is not None or dist.is_initialized():
+        raise RuntimeError("fake_world: this process is already in a group")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dev = _device.resolve(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(FAKE, store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    _WORLD = World(rank=rank, size=world_size, local_rank=rank, device=dev,
+                   backend=FAKE)
+    try:
+        yield _WORLD
+    finally:
+        destroy_group()
+
+
 def destroy_group() -> None:
     """Leave the group (each rank, at its end)."""
     global _WORLD
@@ -224,40 +276,64 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
                          f"does not lay out a world of {_WORLD.size} ranks")
     coords = tuple(int(c) for c in np.unravel_index(_WORLD.rank, shape))
     grid = np.arange(_WORLD.size).reshape(shape)
-    groups = []
-    for a, name in enumerate(axis_names):
+    n = len(shape)
+    runs = [(a,) for a in range(n)] + [
+        tuple(range(a, a + k)) for k in range(2, n) for a in range(n - k + 1)]
+    made = []
+    for run in runs:
+        name = "+".join(axis_names[a] for a in run)
         mine = None
-        # every line of the grid along axis a, in row-major order of the
-        # other coordinates
-        lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
-        for line in lines:
-            ranks = tuple(int(r) for r in line)
+        # every block of the grid along the run's axes, in row-major
+        # order of the other coordinates, its ranks row-major in the run
+        rest = [a for a in range(n) if a not in run]
+        blocks = grid.transpose(rest + list(run)).reshape(
+            -1, math.prod(shape[a] for a in run))
+        for block in blocks:
+            ranks = tuple(int(r) for r in block)
             if len(ranks) == _WORLD.size:
                 pg = None
             else:
                 pg = dist.new_group(list(ranks))
             if _WORLD.rank in ranks:
                 mine = Group(name, ranks, pg)
-        groups.append(mine)
-    mesh = Mesh(shape, axis_names, coords, tuple(groups))
+        made.append(mine)
+    mesh = Mesh(shape, axis_names, coords, tuple(made[:n]),
+                tuple((tuple(axis_names[a] for a in run), g)
+                      for run, g in zip(runs[n:], made[n:])))
     _MESHES[(shape, axis_names)] = mesh
     return mesh
 
 
-def _count(name: str, group: Group | None, t0: float) -> None:
+def _count(name: str, group: Group | None, t0: float,
+           result: torch.Tensor) -> None:
+    """One call of collective ``name`` over ``group``, begun at ``t0``,
+    whose result (its bytes counted) is ``result``."""
     dt = time.perf_counter() - t0
+    nbytes = result.numel() * result.element_size()
     for key in (None, _WORLD_NAME if group is None else group.name):
-        calls = _CALLS.setdefault(key, dict.fromkeys(OPS, 0))
-        secs = _SECONDS.setdefault(key, dict.fromkeys(OPS, 0.0))
-        calls[name] += 1
-        secs[name] += dt
+        _CALLS.setdefault(key, dict.fromkeys(OPS, 0))[name] += 1
+        _BYTES.setdefault(key, dict.fromkeys(OPS, 0))[name] += nbytes
+        _SECONDS.setdefault(key, dict.fromkeys(OPS, 0.0))[name] += dt
 
 
 def collective_counts(group: str | None = None) -> dict[str, int]:
     """Calls of each collective since the last reset: in all, or over the
-    groups named ``group`` (an axis name, or ``"world"`` for the default
-    group)."""
+    groups named ``group`` (an axis name, a run of axes such as
+    ``"pod+data"``, or ``"world"`` for the default group)."""
     return dict(_CALLS.get(group, dict.fromkeys(OPS, 0)))
+
+
+def collective_bytes(group: str | None = None) -> dict[str, int]:
+    """Bytes of each collective's results since the last reset (in all,
+    or over the groups named ``group``): the module docstring's
+    convention."""
+    return dict(_BYTES.get(group, dict.fromkeys(OPS, 0)))
+
+
+def collective_groups() -> tuple[str, ...]:
+    """The names of the groups a collective ran over since the last
+    reset."""
+    return tuple(sorted(k for k in _CALLS if k is not None))
 
 
 def collective_seconds(group: str | None = None) -> dict[str, float]:
@@ -268,6 +344,7 @@ def collective_seconds(group: str | None = None) -> dict[str, float]:
 
 def reset_collective_counts() -> None:
     _CALLS.clear()
+    _BYTES.clear()
     _SECONDS.clear()
 
 
@@ -293,7 +370,7 @@ class _AllReduceSum(torch.autograd.Function):
 def _all_reduce(flat: torch.Tensor, group: Group | None) -> torch.Tensor:
     t0 = time.perf_counter()
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_pg(group))
-    _count("all_reduce_sum", group, t0)
+    _count("all_reduce_sum", group, t0, flat)
     return flat
 
 
@@ -335,6 +412,15 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 _STAGED_LOGGED: list = []
 
 
+def _output_like(src: torch.Tensor, shape=None) -> torch.Tensor:
+    """A collective's output buffer like ``src`` (of ``shape``): empty,
+    or zeros in a fake world, whose collectives write nothing."""
+    shape = src.shape if shape is None else shape
+    if _WORLD is not None and _WORLD.backend == FAKE:
+        return src.new_zeros(shape)
+    return src.new_empty(shape)
+
+
 def _size(group: Group | None) -> int:
     return dist.get_world_size() if group is None else group.size
 
@@ -350,20 +436,20 @@ def all_gather_rows(t: torch.Tensor, group: Group | None = None
     """
     t0 = time.perf_counter()
     src = _staged(t)
-    parts = [torch.empty_like(src) for _ in range(_size(group))]
+    parts = [_output_like(src) for _ in range(_size(group))]
     dist.all_gather(parts, src, group=_pg(group))
     out = torch.cat(parts).to(t.device)
-    _count("all_gather_rows", group, t0)
+    _count("all_gather_rows", group, t0, out)
     return out
 
 
 def _gather(x: torch.Tensor, group: Group | None, dim: int) -> torch.Tensor:
     t0 = time.perf_counter()
     src = _staged(x.movedim(dim, 0))
-    parts = [torch.empty_like(src) for _ in range(_size(group))]
+    parts = [_output_like(src) for _ in range(_size(group))]
     dist.all_gather(parts, src, group=_pg(group))
     out = torch.cat(parts).to(x.device).movedim(0, dim)
-    _count("all_gather", group, t0)
+    _count("all_gather", group, t0, out)
     return out
 
 
@@ -382,10 +468,10 @@ def _scatter(x: torch.Tensor, group: Group | None, dim: int) -> torch.Tensor:
                          f"does not split over {n} ranks")
     wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
     src = _staged(wide.movedim(dim, 0))
-    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
-    _reduce_scatter_single(out, src, group=_pg(group))
-    out = out.to(device=x.device, dtype=x.dtype).movedim(0, dim)
-    _count("reduce_scatter", group, t0)
+    shard = _output_like(src, (src.shape[0] // n, *src.shape[1:]))
+    _reduce_scatter_single(shard, src, group=_pg(group))
+    out = shard.to(device=x.device, dtype=x.dtype).movedim(0, dim)
+    _count("reduce_scatter", group, t0, shard)
     return out
 
 
@@ -397,11 +483,11 @@ def _exchange(x: torch.Tensor, group: Group | None, split_dim: int,
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
     src = _staged(x.movedim(split_dim, 0))
-    out = torch.empty_like(src)
+    out = _output_like(src)
     dist.all_to_all_single(out, src, group=_pg(group))
     parts = out.to(x.device).chunk(n, dim=0)
     out = torch.cat([p.movedim(0, split_dim) for p in parts], dim=concat_dim)
-    _count("all_to_all", group, t0)
+    _count("all_to_all", group, t0, out)
     return out
 
 
@@ -513,17 +599,22 @@ def fit_spec(spec, shape, mesh) -> tuple:
 
 def axes_group(mesh: Mesh, axes) -> Group | None:
     """The group of the ranks that differ from this one along ``axes``
-    only: one axis's ``Group``, or None (the default group) for every
-    axis of the mesh in its order. Other sets of axes have no group (a
-    mesh makes one an axis)."""
+    only: one axis's ``Group``, a run of consecutive axes' (``Mesh.spans``),
+    or None (the default group) for every axis of the mesh in its order.
+    Other sets of axes have no group (a mesh makes one an axis and a run
+    of axes, and the world)."""
     axes = entry_axes(axes)
     if len(axes) == 1:
         return mesh.group(axes[0])
     if axes == tuple(mesh.axis_names):
         return None
+    for span, group in mesh.spans:
+        if span == axes:
+            return group
     raise NotImplementedError(
         f"no group over the axes {axes} of the mesh {mesh.axis_names}: a "
-        f"mesh makes one group an axis and the world")
+        f"mesh makes one group an axis and a run of consecutive axes, and "
+        f"the world")
 
 
 def _entry_index(mesh: Mesh, axes: tuple[str, ...]) -> tuple[int, int]:
@@ -596,22 +687,22 @@ BUCKET_BYTES = 64 * 2**20
 
 def gather_tensors(tensors: list, specs: list, mesh: Mesh) -> list:
     """``gather_tensor`` of each tensor with its spec, in few all-gathers:
-    a mesh axis at a time, the slices split along it (one dtype) flattened
-    into payloads of up to ``BUCKET_BYTES``, each gathered in one
-    collective and put back in place (differentiable: a reduce-scatter a
-    payload in the backward). An entry names one axis."""
+    an entry at a time (in the mesh's order of their axes), the slices
+    split by it (one dtype) flattened into payloads of up to
+    ``BUCKET_BYTES``, each gathered in one collective over the entry's
+    group (``axes_group``) and put back in place (differentiable: a
+    reduce-scatter a payload in the backward)."""
     out = list(tensors)
-    for axis in mesh.axis_names:
+    entries = sorted({entry_axes(e) for spec in specs for e in spec} - {()},
+                     key=lambda axes: [mesh.axis_names.index(a)
+                                       for a in axes])
+    for axes in entries:
         buckets: list[list] = []
         filling: dict[torch.dtype, list] = {}   # the open bucket a dtype
         filled: dict[torch.dtype, int] = {}
         for i, (t, spec) in enumerate(zip(out, specs)):
             for d, e in enumerate(spec):
-                axes = entry_axes(e)
-                if len(axes) > 1:
-                    raise NotImplementedError(
-                        f"gather_tensors: the entry {e} names several axes")
-                if axes != (axis,):
+                if entry_axes(e) != axes:
                     continue
                 nbytes = t.numel() * t.element_size()
                 if t.dtype not in filling or \
@@ -621,12 +712,13 @@ def gather_tensors(tensors: list, specs: list, mesh: Mesh) -> list:
                     buckets.append(filling[t.dtype])
                 filling[t.dtype].append((i, d))
                 filled[t.dtype] += nbytes
-        n = mesh.axis_size(axis)
+        n = axes_size(mesh, axes)
+        group = axes_group(mesh, axes)
         for items in buckets:
             flat = torch.cat([out[i].movedim(d, 0).reshape(-1)
                               for i, d in items]) if len(items) > 1 \
                 else out[items[0][0]].movedim(items[0][1], 0).reshape(-1)
-            whole = all_gather(flat, mesh.group(axis), 0).view(n, -1)
+            whole = all_gather(flat, group, 0).view(n, -1)
             at = 0
             for i, d in items:
                 t = out[i].movedim(d, 0)

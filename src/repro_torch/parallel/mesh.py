@@ -57,6 +57,19 @@ def mesh_shape(sizes: tuple[int, ...], axis_names: tuple[str, ...]
     return MeshShape(dict(zip(axis_names, sizes)), tuple(axis_names))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The production meshes of H100 clusters, shape only (the
+    counterpart of the reference's TPU pods (16, 16) and (2, 16, 16),
+    whose names ``pod1`` and ``pod2`` the dry run keeps so that its
+    records line up with the reference's): ``pod1`` is (32, 8) over
+    ("data", "model"), 256 cards as 32 nodes of 8, tensor parallelism
+    inside a node's NVLink domain; ``multi_pod`` gives ``pod2``, (2, 32,
+    8) over ("pod", "data", "model"), 512 cards."""
+    if multi_pod:
+        return mesh_shape((2, 32, 8), ("pod", "data", "model"))
+    return mesh_shape((32, 8), ("data", "model"))
+
+
 def mesh_axes(mesh) -> dict[str, Any]:
     multi = "pod" in mesh.axis_names
     dp = ("pod", "data") if multi else ("data",)

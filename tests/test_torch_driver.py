@@ -192,8 +192,10 @@ MESH_NO_GROUP = (r"chains='mesh' x data={data} with n_chains=2{p} needs a "
      ValueError, MESH_NO_GROUP.format(data="'shardmap'", p=", P=4", n=8,
                                       P=4)),
     (lambda X: MCMCDriver(X, DriverConfig(driver="shardmap"), device="cpu"),
-     ValueError, NO_GROUP)], ids=[f"<lambda>{i}" for i in range(4)])
-def test_spec_rejects_what_is_not_ported(make, exc, words, X):
+     ValueError, NO_GROUP)],
+    ids=["shardmap", "chains-mesh", "chains-mesh-x-shardmap",
+         "driver-shardmap"])
+def test_distributed_layout_refuses_outside_its_group(make, exc, words, X):
     with pytest.raises(exc, match=words):
         make(X)
 

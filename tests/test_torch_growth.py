@@ -304,8 +304,10 @@ def test_driver_config_maps_onto_the_reference_spec(tmp_path):
     (dict(driver="mesh", sync="fused", n_chains=4), "mesh"),
     (dict(driver="shardmap", stale_sync=1), "none"),
     (dict(driver="mesh", n_chains=2, stale_sync=1), "mesh")],
-    ids=[f"kw{i}-item 8b" for i in range(7)])
-def test_driver_config_refuses_what_is_not_ported(kw, chains, X):
+    ids=["shardmap", "mesh", "mesh-C2", "shardmap-fused", "mesh-fused-C4",
+         "shardmap-stale1", "mesh-C2-stale1"])
+def test_driver_config_maps_layout_and_refuses_outside_its_group(kw, chains,
+                                                                  X):
     spec, ref = DriverConfig(**kw).to_spec(), JConfig(**kw).to_spec()
     C = kw.get("n_chains", 1)
     got = (spec.chains, spec.n_chains, spec.data, spec.sync, spec.stale_sync,
