@@ -1,0 +1,9 @@
+"""The tail scan's births: the MH proposal, its acceptance and the new
+columns' placement; cycles a row (thread 0's clock64() at the row
+loop's barriers), in the traced window's last tail run again after
+it."""
+from portbench import spans
+
+
+def read(facts):
+    return spans.scan_cycles(facts, "birth")

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch import parallel, prng
+from repro_torch import parallel, prng, tracing
 from repro_torch.kernels.gibbs_flip import gibbs_flip_max_k
 
 from .collapsed import COLLAPSED_BACKENDS, DEFAULT_REFRESH, K_LIVE_MODES
@@ -311,7 +311,8 @@ class Sampler:
 
     def step(self, gs: HybridGlobal, ss: HybridShard):
         """One full hybrid iteration (sub-iterations + master sync)."""
-        return self._fns.step(self.Xs, gs, ss)
+        with tracing.span("iteration"):
+            return self._fns.step(self.Xs, gs, ss)
 
     def stale(self, gs: HybridGlobal, ss: HybridShard):
         """One bounded-staleness pass: sub-iterations, no sync (non-exact)."""

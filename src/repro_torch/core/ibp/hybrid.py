@@ -59,7 +59,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import parallel, prng
+from repro_torch import parallel, prng, tracing
 from repro_torch.kernels.feature_stats import feature_stats
 from repro_torch.kernels.gaussian_sse import gaussian_sse
 
@@ -158,10 +158,12 @@ def init_hybrid(
     active[:K_init] = 1.0
     pi = torch.zeros((K_max,), dtype=dt, device=dev)
     pi[:K_init] = 0.5
-    scalar = lambda v: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
+    with tracing.transfer("init", 3):
+        alpha, sigma_x, sigma_a = (torch.tensor(v, dtype=dt, device=dev)
+                                   for v in (alpha, sigma_x, sigma_a))
     gs = HybridGlobal(
-        A=A, pi=pi, active=active, alpha=scalar(alpha),
-        sigma_x=scalar(sigma_x), sigma_a=scalar(sigma_a), key=k2,
+        A=A, pi=pi, active=active, alpha=alpha,
+        sigma_x=sigma_x, sigma_a=sigma_a, key=k2,
         p_prime=_host_int(0), it=_host_int(0),
         overflow=torch.zeros((), dtype=torch.int32, device=dev),
         tail_sat=torch.zeros((), dtype=torch.int32, device=dev),
@@ -302,30 +304,43 @@ def shard_sub_iterations(
     k_shard = [[prng.fold_in(gs.key[c], p) for p in shards]
                for c in range(C)]
     for l in range(L):
-        kl = [[prng.split(prng.fold_in(k, l), 2) for k in ks]
-              for ks in k_shard]
-        for c in range(C):
-            Zf[c] = uncollapsed_sweep(
-                Xf, Zf[c], gs.A[c], gs.pi[c], gs.active[c], gs.sigma_x[c],
-                [prng.generator(ku, dev) for ku, _ in kl[c]])
+        with tracing.span("sweep"):
+            kl = [[prng.split(prng.fold_in(k, l), 2) for k in ks]
+                  for ks in k_shard]
+            for c in range(C):
+                Zf[c] = uncollapsed_sweep(
+                    Xf, Zf[c], gs.A[c], gs.pi[c], gs.active[c],
+                    gs.sigma_x[c],
+                    [prng.generator(ku, dev) for ku, _ in kl[c]])
         if not pps:
             continue
-        # gathered and scattered by host indices (views and copies on
-        # the device), so no index tensor is copied to the device
-        Zt, ta, sat = _chain_tails(
-            torch.stack([X_shards[i] for i in pps]),
-            torch.stack([Zf[c].view(S, N_p, -1)[i]
-                         for c, i in enumerate(pps)]),
-            torch.stack([Z_tail[c, i] for c, i in enumerate(pps)]),
-            torch.stack([tail_active[c, i] for c, i in enumerate(pps)]),
-            gs, N_global,
-            [prng.generator(kl[c][i][1], dev) for c, i in enumerate(pps)],
-            chol_refresh=chol_refresh, collapsed_backend=collapsed_backend,
-        )
-        for c, i in enumerate(pps):
-            Z_tail[c, i] = Zt[c]
-            tail_active[c, i] = ta[c]
-        n_sat = n_sat + sat
+        with tracing.span("tail"):
+            # gathered and scattered by host indices (views and copies on
+            # the device), so no index tensor is copied to the device
+            tail_in = (
+                torch.stack([X_shards[i] for i in pps]),
+                torch.stack([Zf[c].view(S, N_p, -1)[i]
+                             for c, i in enumerate(pps)]),
+                torch.stack([Z_tail[c, i] for c, i in enumerate(pps)]),
+                torch.stack([tail_active[c, i] for c, i in enumerate(pps)]),
+            )
+            tail_keys = [kl[c][i][1] for c, i in enumerate(pps)]
+
+            def tail(tail_in=tail_in, tail_keys=tail_keys):
+                return _chain_tails(
+                    *tail_in, gs, N_global,
+                    [prng.generator(k, dev) for k in tail_keys],
+                    chol_refresh=chol_refresh,
+                    collapsed_backend=collapsed_backend)
+
+            # _chain_tails modifies none of its inputs: a reader may run
+            # it again (tracing.replay)
+            tracing.replay("tail", tail)
+            Zt, ta, sat = tail()
+            for c, i in enumerate(pps):
+                Z_tail[c, i] = Zt[c]
+                tail_active[c, i] = ta[c]
+            n_sat = n_sat + sat
     return (torch.stack([z.view(S, N_p, -1) for z in Zf]), Z_tail,
             tail_active, n_sat)
 
@@ -408,11 +423,11 @@ def master_step2(
     k_sx, k_sa, k_al, k_pp = prng.split(prng.fold_in(gs.key, 202), 4)
     k_plus = torch.sum(active)
     if hyp.resample_sigmas:
-        sx2 = ibm.inverse_gamma_draw(
-            prng.generator(k_sx, dev),
-            torch.tensor(hyp.a_sx + 0.5 * N_global * D, dtype=dt,
-                         device=dev),
-            hyp.b_sx + 0.5 * sse)
+        with tracing.transfer("sigma_x_shape"):
+            shape = torch.tensor(hyp.a_sx + 0.5 * N_global * D, dtype=dt,
+                                 device=dev)
+        sx2 = ibm.inverse_gamma_draw(prng.generator(k_sx, dev), shape,
+                                     hyp.b_sx + 0.5 * sse)
         sigma_x = torch.sqrt(sx2)
         a_ss = torch.sum(A * A * active[:, None])
         sa2 = ibm.inverse_gamma_draw(prng.generator(k_sa, dev),
@@ -485,14 +500,15 @@ def _master_sync(
     statistics, A and π, the SSE, σ, α and the next p′; the tails are
     cleared."""
     P_, N_p, D = X_shards.shape
-    tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero
-    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
-    stats = local_stats(X_shards, Z)
-    A, pi, active, _ = master_step1(stats, active_new, gs, N_g, D)
-    Z = Z * active[None, None, :]
-    sse = local_sse(X_shards, Z, A, active)
-    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
-                        n_drop, n_sat, hyp, N_g, P_)
+    with tracing.span("sync"):
+        tail_g = torch.sum(tail_active, dim=0)  # only p' is nonzero
+        Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+        stats = local_stats(X_shards, Z)
+        A, pi, active, _ = master_step1(stats, active_new, gs, N_g, D)
+        Z = Z * active[None, None, :]
+        sse = local_sse(X_shards, Z, A, active)
+        return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                            n_drop, n_sat, hyp, N_g, P_)
 
 
 def _chain_iteration_body(
@@ -677,19 +693,20 @@ def _staged_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_,
     ZᵀZ, ZᵀX) of this rank's rows after the promotion, (3) this rank's
     SSE."""
     D = X_p.shape[-1]
-    tail_g, sat = parallel.all_reduce_sum(                          # AR 1
-        tail_active[0], n_sat.to(tail_active.dtype)[None], group=group)
-    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
-    s = local_stats(X_p, Z)
-    ZtZ, ZtX, m = parallel.all_reduce_sum(                          # AR 2
-        s["ZtZ"], s["ZtX"], s["m"], group=group)
-    A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
-                                    active_new, gs, N_g, D)
-    Z = Z * active[None, None, :]
-    sse = parallel.all_reduce_sum(local_sse(X_p, Z, A, active),     # AR 3
-                                  group=group)
-    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
-                        n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
+    with tracing.span("sync"):
+        tail_g, sat = parallel.all_reduce_sum(                      # AR 1
+            tail_active[0], n_sat.to(tail_active.dtype)[None], group=group)
+        Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+        s = local_stats(X_p, Z)
+        ZtZ, ZtX, m = parallel.all_reduce_sum(                      # AR 2
+            s["ZtZ"], s["ZtX"], s["m"], group=group)
+        A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
+                                        active_new, gs, N_g, D)
+        Z = Z * active[None, None, :]
+        sse = parallel.all_reduce_sum(local_sse(X_p, Z, A, active),  # AR 3
+                                      group=group)
+        return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                            n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
 
 
 def fused_payload(X_p, active, Z, Z_tail, tail_active, n_sat
@@ -711,16 +728,17 @@ def _fused_sync(X_p, gs, Z, Z_tail, tail_active, n_sat, hyp, N_g, P_,
     ``fused_payload`` over the data axis's ``group``; the SSE comes from
     the reduced statistics (``sse_identity``), so no ``gaussian_sse``
     runs."""
-    ZtZ, ZtX, m, tail_g, xx, sat = parallel.all_reduce_sum(        # AR
-        *fused_payload(X_p, gs.active, Z, Z_tail, tail_active, n_sat),
-        group=group)
-    Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
-    A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
-                                    active_new, gs, N_g, X_p.shape[-1])
-    Z = Z * active[None, None, :]
-    sse = sse_identity(xx[0], ZtZ, ZtX, A, active)
-    return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
-                        n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
+    with tracing.span("sync"):
+        ZtZ, ZtX, m, tail_g, xx, sat = parallel.all_reduce_sum(    # AR
+            *fused_payload(X_p, gs.active, Z, Z_tail, tail_active, n_sat),
+            group=group)
+        Z, active_new, n_drop = promote_tail(Z, Z_tail, tail_g, gs.active)
+        A, pi, active, _ = master_step1({"m": m, "ZtZ": ZtZ, "ZtX": ZtX},
+                                        active_new, gs, N_g, X_p.shape[-1])
+        Z = Z * active[None, None, :]
+        sse = sse_identity(xx[0], ZtZ, ZtX, A, active)
+        return _finish_sync(gs, Z, Z_tail, tail_active, A, pi, active, sse,
+                            n_drop, sat[0].to(torch.int32), hyp, N_g, P_)
 
 
 def _build_mesh_fns(spec, hyp, N_g: float, mesh) -> HybridFns:

@@ -12,7 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch import device as _device
-from repro_torch import prng
+from repro_torch import prng, tracing
 
 Tensor = torch.Tensor
 
@@ -88,11 +88,13 @@ def init_state(
     active[:K_init] = 1.0
     pi = torch.zeros((K_max,), dtype=dtype, device=dev)
     pi[:K_init] = 0.5
-    scalar = lambda v: torch.tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    with tracing.transfer("init", 3):
+        alpha, sigma_x, sigma_a = (torch.tensor(v, dtype=dtype, device=dev)
+                                   for v in (alpha, sigma_x, sigma_a))
     return IBPState(
         Z=Z, A=A, pi=pi, active=active,
         tail=torch.zeros((K_max,), dtype=dtype, device=dev),
-        alpha=scalar(alpha), sigma_x=scalar(sigma_x), sigma_a=scalar(sigma_a),
+        alpha=alpha, sigma_x=sigma_x, sigma_a=sigma_a,
         key=k2, p_prime=torch.tensor(0, dtype=torch.int32),
         it=torch.tensor(0, dtype=torch.int32),
     )

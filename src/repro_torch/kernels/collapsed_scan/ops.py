@@ -10,6 +10,12 @@ needs no host sync.
 A chained scan (a leading chain axis C on every per-chain input) scans C
 independent chains' tails in one launch of C blocks, one chain a block:
 MH births on the full width from row 0, the hybrid tail's case.
+
+Inside ``tracing.recording()``, a scan with MH births (the hybrid
+tail's) passes the record's device buffer, and the launch adds its row
+phases' cycles to it (the kernel's TRACE instances, for the rss flip
+with the carry in shared memory); otherwise, a profiler on or not, it
+passes none and the kernel runs its untraced instance.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import functools
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_cpu, stream
 
@@ -32,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _fns():
     launch = _build.function(
         "collapsed_scan", "collapsed_scan_launch",
-        [_I] + [_P] * 16 + [_I] * 5 + [_F, _I, _F, _I, _I, _I, _P])
+        [_I] + [_P] * 16 + [_I] * 5 + [_F, _I, _F, _I, _I, _I, _P, _P])
     scratch = _build.function("collapsed_scan",
                               "collapsed_scan_scratch_floats", [_I] * 3,
                               ctypes.c_long)
@@ -106,6 +113,7 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
     counts = torch.empty((*lead, 3), dtype=torch.int32, device=X.device)
     arena = torch.empty((C * scratch(X.device.index, B, D),),
                         dtype=torch.float32, device=X.device)
+    cycles = None if gibbs else tracing.scan_buffer(X.device, C)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = launch(X.device.index,
                 *(ptr(t) for t in (Z, *block, X, u_logit, j_prop, log_u_acc,
@@ -113,7 +121,7 @@ def collapsed_scan(Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc,
                                    arena)),
                 n_rows, K, B, D, start_row, float(N), int(refresh_every),
                 float(drift_tol), int(gibbs), int(flavor == "fast"), C,
-                stream(X))
+                stream(X), ptr(cycles))
     _build.check(rc, name)
     counter.launches += 1
     if B < K:

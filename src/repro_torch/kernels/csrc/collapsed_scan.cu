@@ -65,6 +65,18 @@
 //     D-length ones are warp or block reductions.
 // Sums are taken in another order than the plain version's, so decisions
 // may differ from it only at float-boundary events.
+//
+// Row phases (TRACE instances, the hybrid tail's: MH births, rss flip,
+// carry in shared memory, chained or not): thread 0 reads clock64() at
+// barriers that bound each phase of the row loop, sums the cycles in
+// registers and adds them once, at the end, to a chain's row of the
+// int64 buffer ``cycles``: moves (the row's entry and exit: removal and
+// add-back moves of the factor and of G, the downdate test, the drift
+// probe), the exact refresh, the flips, the births (the MH proposal,
+// acceptance and placement), the launch's total, and the rows it
+// entered. They add a barrier before the refresh test and one after the
+// flips; the arithmetic is the other instances'. A launch without a
+// buffer runs those, unchanged.
 #include <cuda_runtime.h>
 
 #include "collapsed_row.cuh"
@@ -321,7 +333,7 @@ __device__ __forceinline__ void prefetch_row(
 // in dynamic shared memory. FAST: the rss flip with the carried G, else
 // the mean form (each flavor its own instance, so the mean form carries
 // no code of the other).
-template <bool RING, bool FAST, bool CHAINED>
+template <bool RING, bool FAST, bool CHAINED, bool TRACE>
 __global__ void __launch_bounds__(THREADS)
 collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       float* __restrict__ ZtZ_io, float* __restrict__ ZtX_io,
@@ -337,7 +349,8 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
                       int* __restrict__ counts, float* __restrict__ arena_g,
                       int n_rows, int K_can, int K, int D, int start_row,
                       float N, int refresh_every, float drift_tol, bool gibbs,
-                      bool stage_rec) {
+                      bool stage_rec,
+                      unsigned long long* __restrict__ cycles) {
   constexpr bool fast = FAST;
   // chain c's buffers: each per-chain input is C copies stacked
   // chain-major, so a pointer moves by c times one chain's extent; cols
@@ -358,6 +371,22 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     sa_p += c;
     counts += 3 * c;
     if constexpr (!RING) arena_g += c * layout(K, D, false).total;
+    if constexpr (TRACE) cycles += 6 * c;
+  }
+  // TRACE: thread 0's cycles by phase (see the top of the file)
+  long long t_begin = 0, t_mark = 0, c_move = 0, c_refresh = 0, c_flip = 0,
+            c_birth = 0;
+  auto mark = [&](long long& phase) {
+    if constexpr (TRACE) {
+      if (threadIdx.x == 0) {
+        const long long t = clock64();
+        phase += t - t_mark;
+        t_mark = t;
+      }
+    }
+  };
+  if constexpr (TRACE) {
+    if (threadIdx.x == 0) t_begin = clock64();
   }
   extern __shared__ float4 sh4[];
   __shared__ float red[2 * NW];
@@ -429,6 +458,9 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
   exact_factor(ZtZ, ZtX, act, nullptr, nullptr, false, ratio, W, Y, tmp, Lt,
                M, H, K, D);
   if (fast) gram(H, G, K, D);
+  if constexpr (TRACE) {
+    if (tid == 0) t_mark = clock64();
+  }
 
   int since = 0, n_refresh = 0, n_sat = 0, ovf_row = -1;
   for (int n = start_row; n < n_rows; ++n) {
@@ -615,12 +647,15 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       }
       __syncthreads();  // tmp, red free again
     }
+    if constexpr (TRACE) __syncthreads();
+    mark(c_move);  // entry, removal, downdate test, probe
     const bool need = since >= refresh_every - 1 || !down_ok || !drift_ok;
     if (need) {  // exact refresh from the row-removed statistics
       exact_factor(ZtZ, ZtX, actm, zold, x, true, ratio, W, Y, tmp, Lt1, M1,
                    H1, K, D);
       if (fast) gram(H1, G1, K, D);
     }
+    mark(c_refresh);
 
     // ---- bit flips: (v, q, mean) by mat-vec after a drop or a refresh,
     // in closed form after a plain removal
@@ -697,6 +732,8 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       collapsed_row_recurrence<THREADS>(M1, H1, x, mean, v, z, q, u, mminus,
                                         actm, N, inv2s2, K, D, red);
     }
+    if constexpr (TRACE) __syncthreads();
+    mark(c_flip);
 
     // ---- new dishes (ref._sample_dishes): the canonical free capacity.
     // The rss flip's add-back reads b_add = x - mean (= x - z2 H1: the rows
@@ -771,6 +808,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     // before committing the row (block-uniform)
     if (n_new < j_new || top_col >= min_out) {
       ovf_row = n;
+      mark(c_birth);
       break;
     }
     const bool changed = need || moved || mask_moved;
@@ -778,6 +816,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     n_refresh += need ? 1 : 0;
     n_sat += sat ? 1 : 0;
     __syncthreads();  // z2, nb visible; act, m may move from here
+    mark(c_birth);
 
     // ---- add row n back: statistics, then the factor
     if (has_drop) {
@@ -876,6 +915,7 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
       m[i] = mminus[i] * actm[i] + z2[i];
     }
     __syncthreads();  // end of the row: the carry and the stage are settled
+    mark(c_move);  // add-back
   }
   if (RING) {
     cp_async_wait<0>();  // an overflow exit leaves the next row in flight
@@ -894,6 +934,17 @@ collapsed_scan_kernel(float* __restrict__ Z, float* __restrict__ active_io,
     counts[0] = n_refresh;
     counts[1] = n_sat;
     counts[2] = ovf_row;
+  }
+  if constexpr (TRACE) {
+    if (tid == 0) {
+      atomicAdd(cycles, (unsigned long long)c_move);
+      atomicAdd(cycles + 1, (unsigned long long)c_refresh);
+      atomicAdd(cycles + 2, (unsigned long long)c_flip);
+      atomicAdd(cycles + 3, (unsigned long long)c_birth);
+      atomicAdd(cycles + 4, (unsigned long long)(clock64() - t_begin));
+      const int rows = (ovf_row >= 0 ? ovf_row + 1 : n_rows) - start_row;
+      atomicAdd(cycles + 5, (unsigned long long)rows);
+    }
   }
 }
 
@@ -927,11 +978,13 @@ cudaError_t allow_smem(int device) {
   const bool cached = device >= 0 && device < MAX_DEVICES;
   if (cached && done[device]) return cudaSuccess;
   const int bytes = smem_optin(device) - (int)(2 * NW * sizeof(float));
-  decltype(&collapsed_scan_kernel<true, false, false>) const ring[] = {
-      collapsed_scan_kernel<true, false, false>,
-      collapsed_scan_kernel<true, true, false>,
-      collapsed_scan_kernel<true, false, true>,
-      collapsed_scan_kernel<true, true, true>};
+  decltype(&collapsed_scan_kernel<true, false, false, false>) const ring[] = {
+      collapsed_scan_kernel<true, false, false, false>,
+      collapsed_scan_kernel<true, true, false, false>,
+      collapsed_scan_kernel<true, false, true, false>,
+      collapsed_scan_kernel<true, true, true, false>,
+      collapsed_scan_kernel<true, true, false, true>,
+      collapsed_scan_kernel<true, true, true, true>};
   cudaError_t e = cudaSuccess;
   for (auto kernel : ring)
     if (e == cudaSuccess)
@@ -972,8 +1025,10 @@ extern "C" long collapsed_scan_scratch_floats(int device, int K, int D) {
 // independent chains in one launch of C blocks: Z, active, ZtZ, ZtX, m,
 // X, u_logit, j_prop, log_u_acc, sx, sa, counts and the scratch are C
 // copies stacked chain-major, cols is shared; births by MH only, at the
-// full width (K == K_can) from row 0. Returns the CUDA error of the
-// launch (0 on success).
+// full width (K == K_can) from row 0. cycles (C x 6 int64, or null): the
+// row phases' cycles are added to it where a TRACE instance exists (MH
+// births, fast 1, the carry in shared memory), else the launch runs as
+// with null. Returns the CUDA error of the launch (0 on success).
 extern "C" int collapsed_scan_launch(
     int device, float* Z, float* active, float* ZtZ, float* ZtX, float* m,
     const float* X, const float* u_logit, const float* j_prop,
@@ -981,7 +1036,7 @@ extern "C" int collapsed_scan_launch(
     const float* sa, const float* alpha, const long long* cols, int* counts,
     float* scratch, int n_rows, int K_can, int K, int D, int start_row,
     float N, int refresh_every, float drift_tol, int gibbs, int fast,
-    int chains, void* stream_) {
+    int chains, void* stream_, unsigned long long* cycles) {
   cudaStream_t stream = (cudaStream_t)stream_;
   if (chains < 1 || (chains > 1 && (gibbs || K != K_can || start_row != 0)))
     return (int)cudaErrorInvalidValue;
@@ -996,19 +1051,23 @@ extern "C" int collapsed_scan_launch(
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     bytes = fast ? rec_stage_bytes(K) : 0;
   }
+  const bool trace = cycles != nullptr && ring && fast && !gibbs;
   auto kernel =
-      chains > 1
-          ? (ring ? (fast ? collapsed_scan_kernel<true, true, true>
-                          : collapsed_scan_kernel<true, false, true>)
-                  : (fast ? collapsed_scan_kernel<false, true, true>
-                          : collapsed_scan_kernel<false, false, true>))
-          : (ring ? (fast ? collapsed_scan_kernel<true, true, false>
-                          : collapsed_scan_kernel<true, false, false>)
-                  : (fast ? collapsed_scan_kernel<false, true, false>
-                          : collapsed_scan_kernel<false, false, false>));
+      trace ? (chains > 1 ? collapsed_scan_kernel<true, true, true, true>
+                          : collapsed_scan_kernel<true, true, false, true>)
+      : chains > 1
+          ? (ring ? (fast ? collapsed_scan_kernel<true, true, true, false>
+                          : collapsed_scan_kernel<true, false, true, false>)
+                  : (fast ? collapsed_scan_kernel<false, true, true, false>
+                          : collapsed_scan_kernel<false, false, true, false>))
+          : (ring ? (fast ? collapsed_scan_kernel<true, true, false, false>
+                          : collapsed_scan_kernel<true, false, false, false>)
+                  : (fast ? collapsed_scan_kernel<false, true, false, false>
+                          : collapsed_scan_kernel<false, false, false, false>));
   kernel<<<chains, THREADS, bytes, stream>>>(
       Z, active, ZtZ, ZtX, m, X, u_logit, j_prop, log_u_acc, gumbel, sx, sa,
       alpha, cols, counts, ring ? nullptr : scratch, n_rows, K_can, K, D,
-      start_row, N, refresh_every, drift_tol, gibbs != 0, bytes > 0);
+      start_row, N, refresh_every, drift_tol, gibbs != 0, bytes > 0,
+      trace ? cycles : nullptr);
   return (int)cudaGetLastError();
 }

@@ -61,7 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import parallel, prng
+from repro_torch import parallel, prng, tracing
 from repro_torch.checkpoint import restore, save_pytree
 from repro_torch.core.ibp import convergence
 from repro_torch.core.ibp.api import (
@@ -337,7 +337,8 @@ class MCMCDriver:
         decision sees only post-growth saturation. Reading ``tail_sat``
         waits for the iteration. Returns (gs, ss, grew)."""
         spec = self.spec
-        sat = int(self.sampler.over_chains(gs.tail_sat.reshape(-1)).max())
+        with tracing.transfer("tail_sat"):
+            sat = int(self.sampler.over_chains(gs.tail_sat.reshape(-1)).max())
         grew = False
         if (self._tail_growths < spec.k_tail_grow
                 and spec.K_tail < spec.K_max and sat > self._sat_mark):
@@ -384,51 +385,60 @@ class MCMCDriver:
             b.prune_after(start)
             self._bank = None
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         for it in range(start, n_iters):
-            if crash_at is not None and it == crash_at:
-                raise RuntimeError(f"injected crash at iteration {it}")
-            for _ in range(spec.stale_sync):
-                gs, ss = sampler.stale(gs, ss)
-            gs, ss = sampler.step(gs, ss)
-            self._record_trace(gs)
-            last = it == n_iters - 1
-            if (spec.harvest_every > 0
-                    and (it + 1) > int(spec.harvest_burn * n_iters)
-                    and (it + 1) % spec.harvest_every == 0):
-                g = sampler.to_canonical_global(gs)  # every rank gathers
-                if b is not None:
-                    b.add_state(g, it=it + 1)
-            need_eval = (it + 1) % spec.eval_every == 0 or last
-            need_ckpt = (it + 1) % spec.ckpt_every == 0 or last
-            # reading gs.overflow waits for the whole iteration on the
-            # device (and under the mesh gathers the chains'), so it is
-            # checked at a bounded cadence only
-            overflowed = (
-                need_eval or need_ckpt
-                or (it + 1) % spec.overflow_every == 0
-            ) and int(sampler.over_chains(gs.overflow.reshape(-1)).max()) > 0
-            if need_eval:
-                rec = self.evaluate(gs, ss, it + 1, time.time() - t0)
-                self.history.append(rec)
-                if on_eval:
-                    on_eval(rec)
-            if need_ckpt or overflowed:
-                self._save(gs, ss, it + 1)
-            # adaptive K_tail rides the checkpoint boundary, where tails are
-            # empty; the checkpoint just written stays valid (tails are not
-            # serialized)
-            if (need_ckpt and spec.k_tail_grow > 0 and not last
-                    and not overflowed):
-                gs, ss, grew = self._maybe_grow_tail(gs, ss)
-                if grew:
-                    spec, sampler = self.spec, self.sampler
-            if overflowed:
-                raise RuntimeError(
-                    f"K_max={spec.K_max} overflow at it={it}; restart with "
-                    f"2x K_max"
-                )
+            with tracing.span("driver"):
+                if crash_at is not None and it == crash_at:
+                    raise RuntimeError(f"injected crash at iteration {it}")
+                for _ in range(spec.stale_sync):
+                    gs, ss = sampler.stale(gs, ss)
+                gs, ss = sampler.step(gs, ss)
+                self._record_trace(gs)
+                last = it == n_iters - 1
+                if (spec.harvest_every > 0
+                        and (it + 1) > int(spec.harvest_burn * n_iters)
+                        and (it + 1) % spec.harvest_every == 0):
+                    g = sampler.to_canonical_global(gs)  # every rank gathers
+                    if b is not None:
+                        b.add_state(g, it=it + 1)
+                need_eval = (it + 1) % spec.eval_every == 0 or last
+                need_ckpt = (it + 1) % spec.ckpt_every == 0 or last
+                # reading gs.overflow waits for the whole iteration on the
+                # device (and under the mesh gathers the chains'), so it is
+                # checked at a bounded cadence only
+                overflowed = (
+                    need_eval or need_ckpt
+                    or (it + 1) % spec.overflow_every == 0
+                ) and self._read_overflow(gs) > 0
+                if need_eval:
+                    rec = self.evaluate(gs, ss, it + 1,
+                                        time.perf_counter() - t0)
+                    self.history.append(rec)
+                    if on_eval:
+                        on_eval(rec)
+                if need_ckpt or overflowed:
+                    self._save(gs, ss, it + 1)
+                # adaptive K_tail rides the checkpoint boundary, where tails
+                # are empty; the checkpoint just written stays valid (tails
+                # are not serialized)
+                if (need_ckpt and spec.k_tail_grow > 0 and not last
+                        and not overflowed):
+                    gs, ss, grew = self._maybe_grow_tail(gs, ss)
+                    if grew:
+                        spec, sampler = self.spec, self.sampler
+                if overflowed:
+                    raise RuntimeError(
+                        f"K_max={spec.K_max} overflow at it={it}; restart "
+                        f"with 2x K_max"
+                    )
         return sampler.to_canonical_global(gs), sampler.to_canonical(ss)
+
+    def _read_overflow(self, gs: HybridGlobal) -> int:
+        """Promoted features dropped for lack of a K_max slot (the most of
+        any chain): a host read."""
+        with tracing.transfer("overflow"):
+            return int(self.sampler.over_chains(
+                gs.overflow.reshape(-1)).max())
 
     # ---- diagnostics ------------------------------------------------------
     def _record_trace(self, gs: HybridGlobal) -> None:
@@ -446,7 +456,8 @@ class MCMCDriver:
         for name, rows in self.trace.items():
             for i, r in enumerate(rows):
                 if not isinstance(r, np.ndarray):
-                    rows[i] = r.cpu().numpy().astype(np.float64)
+                    with tracing.transfer("trace"):
+                        rows[i] = r.cpu().numpy().astype(np.float64)
             if len(rows) < 8:
                 continue
             arr = self.sampler.over_chains(
@@ -459,29 +470,33 @@ class MCMCDriver:
 
     def evaluate(self, gs: HybridGlobal, ss: HybridShard, it: int,
                  elapsed: float) -> dict[str, Any]:
-        # this rank's rows under data="shardmap", else all N
-        X = self.sampler.Xs.reshape(-1, self.sampler.D)
-        if self.spec.chain_axis:
-            return self._evaluate_chains(X, gs, ss, it, elapsed)
-        ll = self.sampler.sum_over_data(train_joint_loglik(
-            X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi, gs.active,
-            gs.sigma_x))
-        rec: dict[str, Any] = {
-            "it": it,
-            "t": elapsed,
-            "K": int(torch.sum(gs.active)),
-            "alpha": float(gs.alpha),
-            "sigma_x": float(gs.sigma_x),
-            "joint_ll_train": float(ll),
-            "K_tail": int(self.spec.K_tail),
-            "tail_sat": int(gs.tail_sat),
-        }
-        if self.X_eval is not None:
-            rec["joint_ll_eval"] = float(heldout_joint_loglik(
-                self.X_eval, gs.A, gs.pi, gs.active, gs.sigma_x,
-                prng.fold_in(gs.key, 999)))
-        rec.update(self.diagnostics())
-        return rec
+        with tracing.span("eval"):
+            # this rank's rows under data="shardmap", else all N
+            X = self.sampler.Xs.reshape(-1, self.sampler.D)
+            if self.spec.chain_axis:
+                return self._evaluate_chains(X, gs, ss, it, elapsed)
+            ll = self.sampler.sum_over_data(train_joint_loglik(
+                X, ss.Z.reshape(X.shape[0], -1), gs.A, gs.pi, gs.active,
+                gs.sigma_x))
+            with tracing.transfer("eval", 5):
+                rec: dict[str, Any] = {
+                    "it": it,
+                    "t": elapsed,
+                    "K": int(torch.sum(gs.active)),
+                    "alpha": float(gs.alpha),
+                    "sigma_x": float(gs.sigma_x),
+                    "joint_ll_train": float(ll),
+                    "K_tail": int(self.spec.K_tail),
+                    "tail_sat": int(gs.tail_sat),
+                }
+            if self.X_eval is not None:
+                ll_eval = heldout_joint_loglik(
+                    self.X_eval, gs.A, gs.pi, gs.active, gs.sigma_x,
+                    prng.fold_in(gs.key, 999))
+                with tracing.transfer("eval"):
+                    rec["joint_ll_eval"] = float(ll_eval)
+            rec.update(self.diagnostics())
+            return rec
 
     def _evaluate_chains(self, X: torch.Tensor, gs: HybridGlobal,
                          ss: HybridShard, it: int, elapsed: float
@@ -513,16 +528,18 @@ class MCMCDriver:
                     self.X_eval, gs.A, gs.pi, gs.active, gs.sigma_x,
                     prng.fold_in(gs.key, 999)).reshape(1))
             gs = s.to_canonical_global(gs)
-        lls = lls.cpu().numpy()
-        Ks = torch.sum(gs.active, dim=-1).cpu().numpy()
-        sx = gs.sigma_x.cpu().numpy()
-        sat = gs.tail_sat.cpu().numpy()
+        with tracing.transfer("eval", 5):
+            lls = lls.cpu().numpy()
+            Ks = torch.sum(gs.active, dim=-1).cpu().numpy()
+            sx = gs.sigma_x.cpu().numpy()
+            sat = gs.tail_sat.cpu().numpy()
+            alpha = float(gs.alpha.mean())
         rec: dict[str, Any] = {
             "it": it,
             "t": elapsed,
             "K": float(Ks.mean()),
             "K_chains": [int(k) for k in Ks],
-            "alpha": float(gs.alpha.mean()),
+            "alpha": alpha,
             "sigma_x": float(sx.mean()),
             "sigma_x_chains": [float(v) for v in sx],
             "joint_ll_train": float(lls.mean()),
@@ -532,6 +549,7 @@ class MCMCDriver:
             "tail_sat_chains": [int(v) for v in sat],
         }
         if ev is not None:
-            rec["joint_ll_eval"] = float(ev.mean())
+            with tracing.transfer("eval"):
+                rec["joint_ll_eval"] = float(ev.mean())
         rec.update(self.diagnostics())
         return rec

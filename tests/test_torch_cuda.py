@@ -40,7 +40,7 @@ from _torch_cases import (
     scorer_divergence,
 )
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.core.ibp import IBPHypers, SamplerSpec, build_sampler
 from repro_torch.core.ibp import predict
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -327,6 +327,43 @@ def test_collapsed_scan_chained_kernel_matches_single_launches(
         np.testing.assert_array_equal(c1, cw)
     # every chain scanned its own rows: the results differ between chains
     assert not torch.equal(st["Z"][0], st["Z"][1])
+
+
+# the hybrid tail's scan while tracing records: the TRACE instance (the
+# cell's shape, 4096 rows at K=8, D=36, MH births, the rss flip; and a
+# chained launch of 3) gives the untraced instance's Z, statistics and
+# counts bitwise, and its four row phases take 90-100% of the launch's
+# cycles, each a part, over every row it scanned
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n_rows", [(1, 4096), (3, 600)])
+def test_collapsed_scan_traced_instance_matches_untraced(cuda, C, n_rows):
+    cases = [scan_case(n_rows, 8, 36, seed=44 + c) for c in range(C)]
+    fields = ("Z", "active", "ZtZ", "ZtX", "m", "X", "u_logit", "j_prop",
+              "log_u_acc")
+
+    def scan():
+        st = {f: torch.tensor(np.stack([c[f] for c in cases]) if C > 1
+                              else cases[0][f], device=cuda) for f in fields}
+        lead = (C,) if C > 1 else ()
+        counts = collapsed_scan(
+            *(st[f] for f in fields), torch.full(lead, SCAN_SX, device=cuda),
+            torch.full(lead, SCAN_SA, device=cuda), N=4.0 * n_rows,
+            refresh_every=16, drift_tol=1e-2, flavor="fast")
+        return {f: st[f].cpu() for f in fields[:5]}, counts.cpu()
+
+    off, c_off = scan()
+    with tracing.recording() as rec:
+        on, c_on = scan()
+    assert torch.equal(c_on, c_off) and int(c_off.reshape(-1, 3)[0, 0]) > 0
+    for f in off:
+        assert torch.equal(on[f], off[f]), f
+    cyc = rec.scan
+    assert cyc["rows"] == C * n_rows, cyc
+    parts = [cyc[p] for p in ("move", "refresh", "flip", "birth")]
+    assert all(v > 0 for v in parts), cyc
+    share = sum(parts) / cyc["total"]
+    print(f"C={C} rows={n_rows}: cycles {cyc}, phases {share:.4f} of total")
+    assert 0.9 <= share <= 1.0, cyc
 
 
 # the multichain sampler's tails: one collapsed_scan launch a
